@@ -1,0 +1,20 @@
+"""FL engine — the paper's contribution, in PyTorch (twin of ``repro.core``)."""
+from .protocol import (
+    FitIns, FitRes, EvaluateIns, EvaluateRes, Parameters, CompressedParameters,
+    ClientProperties, pytree_to_parameters, parameters_to_pytree,
+    compress_to_wire, wire_to_pytree,
+)
+from .client import Client, TorchClient
+from .server import Server, History, RoundRecord, make_cost_model_for
+from .cost_model import (
+    CostModel, DeviceProfile, PROFILES, AvailabilityTrace, ClientCost,
+)
+from .scheduler import (
+    VirtualClock, Arrival, RoundOutcome, RoundPolicy, SyncAll, Deadline,
+    BufferedAsync,
+)
+from .compression import (
+    UpdateCodec, Int8Codec, NullCodec, BandwidthCodecPolicy, compress_update,
+    decompress_update,
+)
+from .strategy import Strategy, FedAvg

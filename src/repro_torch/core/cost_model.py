@@ -1,0 +1,275 @@
+"""System-cost model: per-device step time + power -> round time & energy.
+
+The paper's central measurement (§5) is that FL accuracy gains carry *system
+costs* — convergence time and energy — that depend on device hardware.  With
+no physical fleet here, we keep the *mechanism* and calibrate the constants
+to the paper's own tables:
+
+- Table 2a (Jetson TX2 GPU, ResNet-18/CIFAR-10, C=10, 40 rounds):
+    E=1: 17.63 min, 10.21 kJ | E=5: 36.83, 50.54 | E=10: 80.32, 100.95
+- Table 3: CPU training is 1.27x slower than GPU at equal E
+  (102 vs 80.32 min); per-round GPU compute ~1.99 min.
+- Table 2b (Android, head model, E=5, 20 rounds):
+    C=4: 30.7 min/10.4 kJ | C=7: 31.3/19.72 | C=10: 31.8/28.0
+
+Derivations used for calibration (documented in benchmarks/table2a.py):
+per-round GPU time at E=10 is ~1.99 min -> with ~78 steps/epoch that is
+~153 ms/step; energy 100.95 kJ / (10 clients * 40 rounds * 780 steps) ~ 32 J
+of marginal energy per client-step plus idle draw.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class DeviceProfile:
+    """Hardware profile of one FL client class."""
+
+    name: str
+    step_time_s: float          # wall time per local training step (batch fixed)
+    active_power_w: float       # board power while training
+    idle_power_w: float = 2.0   # draw while waiting (stragglers burn this)
+    uplink_mbps: float = 20.0
+    downlink_mbps: float = 50.0
+
+    def steps_in_budget(self, tau_s: float) -> int:
+        """How many local steps fit in a cutoff budget tau (paper Table 3)."""
+        return int(np.floor(tau_s / self.step_time_s))
+
+    def comm_time_s(self, up_bytes: float, down_bytes: float) -> float:
+        """Transfer time on this device's links — the ONE link-time formula
+        (CostModel charges it, TorchClient truncates its deadline budget by
+        it, and a late report's wasted work is windowed with it)."""
+        return up_bytes * 8 / (self.uplink_mbps * 1e6) + down_bytes * 8 / (
+            self.downlink_mbps * 1e6
+        )
+
+
+# calibrated against the paper's tables (see module docstring)
+JETSON_TX2_GPU = DeviceProfile("jetson-tx2-gpu", step_time_s=0.153, active_power_w=9.0,
+                               idle_power_w=2.5, uplink_mbps=80, downlink_mbps=120)
+JETSON_TX2_CPU = DeviceProfile("jetson-tx2-cpu", step_time_s=0.194, active_power_w=7.5,
+                               idle_power_w=2.0, uplink_mbps=80, downlink_mbps=120)
+PIXEL_4 = DeviceProfile("pixel-4", step_time_s=0.210, active_power_w=4.5, idle_power_w=0.8,
+                        uplink_mbps=20, downlink_mbps=50)
+PIXEL_3 = DeviceProfile("pixel-3", step_time_s=0.290, active_power_w=4.2, idle_power_w=0.8,
+                        uplink_mbps=18, downlink_mbps=45)
+PIXEL_2 = DeviceProfile("pixel-2", step_time_s=0.370, active_power_w=4.0, idle_power_w=0.7,
+                        uplink_mbps=15, downlink_mbps=40)
+GALAXY_TAB_S6 = DeviceProfile("galaxy-tab-s6", step_time_s=0.240, active_power_w=5.0,
+                              idle_power_w=0.9, uplink_mbps=22, downlink_mbps=55)
+GALAXY_TAB_S4 = DeviceProfile("galaxy-tab-s4", step_time_s=0.330, active_power_w=4.8,
+                              idle_power_w=0.9, uplink_mbps=18, downlink_mbps=48)
+TPU_V5E_CHIP = DeviceProfile("tpu-v5e-chip", step_time_s=0.010, active_power_w=170.0,
+                             idle_power_w=60.0, uplink_mbps=400_000, downlink_mbps=400_000)
+
+PROFILES: dict[str, DeviceProfile] = {
+    p.name: p
+    for p in (
+        JETSON_TX2_GPU, JETSON_TX2_CPU, PIXEL_4, PIXEL_3, PIXEL_2,
+        GALAXY_TAB_S6, GALAXY_TAB_S4, TPU_V5E_CHIP,
+    )
+}
+
+# battery-powered device classes sit below this idle draw; they churn (lose
+# charge, lose WiFi, get picked up) far more than plugged-in edge boards
+_BATTERY_IDLE_W = 1.5
+
+
+@dataclass(frozen=True)
+class AvailabilityTrace:
+    """Seeded per-client availability + step-time jitter schedules.
+
+    Real fleets churn: phones drop off charger/WiFi mid-experiment, new
+    devices enroll late, and a device's step time wobbles round-to-round
+    with thermals and background load.  This trace makes that churn a
+    *deterministic function of (seed, round)* so an experiment — and its
+    control — can be replayed exactly:
+
+    - ``dropout``: per-client probability of sitting a round out, drawn
+      i.i.d. per (seed, round).  ``from_profiles`` derives it from the
+      ``DeviceProfile``: battery-class devices (idle draw < 1.5 W) churn at
+      ``mobile_dropout``, plugged-in boards at ``plugged_dropout``.
+    - ``join_round``: the first round a client exists (late enrollment).
+    - ``jitter_std``: sigma of a lognormal multiplicative step-time factor
+      (1.0 = nominal), fed to ``CostModel.client_round_cost``.
+
+    ``full(n)`` is the degenerate trace (everyone always up, no jitter) —
+    by construction it reproduces the pre-scheduler lockstep fleet.
+    """
+
+    n_clients: int
+    seed: int = 0
+    dropout: tuple[float, ...] = ()        # () = nobody drops
+    join_round: tuple[int, ...] = ()       # () = everyone from round 1
+    jitter_std: float = 0.0
+
+    def __post_init__(self):
+        if self.dropout:
+            assert len(self.dropout) == self.n_clients
+        if self.join_round:
+            assert len(self.join_round) == self.n_clients
+
+    @classmethod
+    def full(cls, n_clients: int) -> "AvailabilityTrace":
+        return cls(n_clients=n_clients)
+
+    @classmethod
+    def from_profiles(
+        cls,
+        profiles,
+        *,
+        seed: int = 0,
+        mobile_dropout: float = 0.15,
+        plugged_dropout: float = 0.02,
+        jitter_std: float = 0.1,
+        late_join: int = 0,
+    ) -> "AvailabilityTrace":
+        """Churn schedule from the fleet's hardware profiles.
+
+        ``profiles`` is a ``list[DeviceProfile]``, one per client.
+        ``late_join`` > 0 enrolls that many of the slowest clients only from
+        round ``late_join + 1`` (a staggered rollout).
+        """
+        drop = tuple(
+            mobile_dropout if p.idle_power_w < _BATTERY_IDLE_W else plugged_dropout
+            for p in profiles
+        )
+        join = [1] * len(profiles)
+        if late_join > 0:
+            slowest = np.argsort([-p.step_time_s for p in profiles])
+            for cid in slowest[:late_join]:
+                join[int(cid)] = late_join + 1
+        return cls(
+            n_clients=len(profiles), seed=seed, dropout=drop,
+            join_round=tuple(join), jitter_std=jitter_std,
+        )
+
+    def _rng(self, rnd: int, stream: int) -> np.random.Generator:
+        return np.random.default_rng((self.seed, rnd, stream))
+
+    def available(self, rnd: int, client_id: int | None = None):
+        """(n_clients,) bool — who is up this round (or one client's bool)."""
+        up = np.ones(self.n_clients, bool)
+        if self.join_round:
+            up &= np.asarray(self.join_round) <= rnd
+        if self.dropout:
+            u = self._rng(rnd, 0).random(self.n_clients)
+            up &= u >= np.asarray(self.dropout)
+        return up if client_id is None else bool(up[client_id])
+
+    def step_jitter(self, rnd: int) -> np.ndarray:
+        """(n_clients,) multiplicative step-time factors for this round."""
+        if self.jitter_std <= 0.0:
+            return np.ones(self.n_clients)
+        return np.exp(
+            self._rng(rnd, 1).normal(0.0, self.jitter_std, self.n_clients)
+        )
+
+
+@dataclass
+class ClientCost:
+    """Per-round, per-client accounting record.
+
+    ``t_arrival_s`` records when the report lands on the round's *virtual
+    timeline* (launch time + t_total on the scheduler's clock).  The Server
+    stamps it at dispatch and derives ``scheduler.Arrival.finish_t`` from
+    it, so this field is the source of truth the policies ultimately
+    schedule against.  0.0 means "not scheduled" (legacy lockstep
+    accounting, where only t_total_s matters).
+    """
+
+    client_id: int
+    profile: str
+    steps: int
+    t_compute_s: float
+    t_comm_s: float
+    e_compute_j: float
+    e_comm_j: float
+    t_arrival_s: float = 0.0
+
+    @property
+    def t_total_s(self) -> float:
+        return self.t_compute_s + self.t_comm_s
+
+    @property
+    def e_total_j(self) -> float:
+        return self.e_compute_j + self.e_comm_j
+
+
+@dataclass
+class CostModel:
+    """Simulates the fleet's time/energy for each FL round."""
+
+    profiles: list[DeviceProfile]
+    update_bytes: int                      # full-precision model payload
+    comm_power_w: float = 1.2
+
+    def profile_for(self, client_id: int) -> DeviceProfile:
+        """The device class behind a client id — the ONE id->profile map
+        (every charge below and Server accounting resolve through it)."""
+        return self.profiles[client_id % len(self.profiles)]
+
+    def client_round_cost(
+        self,
+        client_id: int,
+        steps: int,
+        *,
+        uplink_bytes: int | None = None,
+        jitter: float = 1.0,
+    ) -> ClientCost:
+        """Time/energy for one client-round.
+
+        ``uplink_bytes`` overrides only the client->server leg — the codec-
+        compressed wire — while the downlink stays the full global model.
+        ``jitter`` is a multiplicative step-time factor for this round
+        (thermal throttling, background load): an ``AvailabilityTrace``
+        draws one per client per round, 1.0 means nominal.
+        """
+        p = self.profile_for(client_id)
+        down = self.update_bytes
+        up = down if uplink_bytes is None else uplink_bytes
+        t_compute = steps * p.step_time_s * jitter
+        t_comm = p.comm_time_s(up, down)
+        return ClientCost(
+            client_id=client_id,
+            profile=p.name,
+            steps=steps,
+            t_compute_s=t_compute,
+            t_comm_s=t_comm,
+            e_compute_j=t_compute * p.active_power_w,
+            e_comm_j=t_comm * self.comm_power_w,
+        )
+
+    def wasted_energy(self, cost: ClientCost, window_s: float) -> float:
+        """Burn of an aborted client-round within its first ``window_s``
+        seconds — the ONE owner of the phase split a scheduler cutoff
+        induces (downlink radio, then compute, then uplink radio; each
+        phase charges only the fraction that fit).  A window covering the
+        whole round charges the complete cost.
+        """
+        if window_s >= cost.t_total_s:
+            return cost.e_total_j
+        p = self.profile_for(cost.client_id)
+        window = max(0.0, window_s)
+        t_down = p.comm_time_s(0, self.update_bytes)
+        t_active = min(cost.t_compute_s, max(0.0, window - t_down))
+        t_up_used = max(0.0, window - t_down - cost.t_compute_s)
+        return (
+            (min(window, t_down) + t_up_used) * self.comm_power_w
+            + t_active * p.active_power_w
+        )
+
+    @staticmethod
+    def fleet_uplink_bytes(
+        codec, n_params: int, n_clients: int
+    ) -> list[int] | None:
+        """Per-client uplink charge under a server-level codec: its wire size
+        for every client.  None codec -> None (the cost model's
+        full-precision default applies)."""
+        if codec is None:
+            return None
+        return [int(codec.wire_bytes(n_params))] * n_clients

@@ -1,0 +1,341 @@
+"""The FL loop — Flower's server architecture (paper §3, Figure 1).
+
+The twin of ``repro.core.server`` in list-of-clients mode.  ``Server``
+orchestrates rounds and delegates all decisions to the Strategy; the
+CostModel plays the role of the physical fleet, charging wall-time and
+energy for every client's compute and communication.  History captures the
+paper's evaluation axes: accuracy / convergence time / energy per round.
+
+``Server.run`` is a thin loop over the virtual-clock scheduler
+(core/scheduler.py): every dispatched client becomes an ``Arrival`` on a
+simulated timeline, and the ``RoundPolicy`` — lockstep ``SyncAll`` (the
+default), ``Deadline(tau)`` or ``BufferedAsync`` — decides which arrivals
+each round consumes.  An ``AvailabilityTrace`` adds seeded dropout/late-join
+churn and step-time jitter on top.
+
+Global parameters live on ``device`` (the CUDA card unless the caller asks
+for the CPU).  Population mode and ``run_scanned`` wait for ROADMAP.md
+queue 1 items 10-11.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.logging import MetricsLogger
+from repro_torch.utils.pytree import (
+    tree_add, tree_bytes, tree_map, tree_size, tree_sub,
+)
+
+from .cost_model import AvailabilityTrace, CostModel
+from .protocol import (
+    CompressedParameters, EvaluateIns, Parameters, parameters_to_pytree,
+)
+from .scheduler import Arrival, Deadline, RoundPolicy, SyncAll, VirtualClock
+from .strategy.base import Strategy
+
+PyTree = Any
+
+
+@dataclass
+class RoundRecord:
+    rnd: int
+    train_loss: float
+    eval_loss: float | None
+    eval_acc: float | None
+    wall_time_s: float       # simulated fleet wall-clock for the round
+    energy_j: float          # simulated fleet energy
+    comm_bytes: int
+    steps: int
+    # virtual-clock participation record: how many updates this round's
+    # aggregation consumed, how many arrivals it discarded (deadline drops
+    # + staleness expiries), and the mean staleness of what it kept
+    participants: int = 0
+    dropped: int = 0
+    staleness_mean: float = 0.0
+
+
+@dataclass
+class History:
+    rounds: list[RoundRecord] = field(default_factory=list)
+
+    def add(self, rec: RoundRecord) -> None:
+        self.rounds.append(rec)
+
+    @property
+    def total_time_s(self) -> float:
+        return sum(r.wall_time_s for r in self.rounds)
+
+    @property
+    def total_energy_j(self) -> float:
+        return sum(r.energy_j for r in self.rounds)
+
+    def final_accuracy(self) -> float | None:
+        for r in reversed(self.rounds):
+            if r.eval_acc is not None:
+                return r.eval_acc
+        return None
+
+    def accuracy_series(self) -> list[tuple[int, float]]:
+        return [(r.rnd, r.eval_acc) for r in self.rounds if r.eval_acc is not None]
+
+    def time_to_accuracy(self, target: float) -> float | None:
+        """Simulated convergence time (paper: 'Convergence Time (mins)')."""
+        t = 0.0
+        for r in self.rounds:
+            t += r.wall_time_s
+            if r.eval_acc is not None and r.eval_acc >= target:
+                return t
+        return None
+
+
+@dataclass
+class Server:
+    strategy: Strategy
+    clients: list                        # list[Client]
+    cost_model: CostModel | None = None
+    eval_fn: Callable | None = None      # (params) -> dict (centralized eval)
+    eval_every: int = 1
+    codec: Any = None                    # UpdateCodec: uplink charged at
+                                         # codec.wire_bytes, not tree_bytes
+    policy: RoundPolicy | None = None    # None -> SyncAll (lockstep FedAvg)
+    availability: AvailabilityTrace | None = None
+    device: Any = None                   # None -> the CUDA card
+    logger: MetricsLogger = field(default_factory=lambda: MetricsLogger("server"))
+
+    def run(self, global_params: PyTree, num_rounds: int) -> tuple[PyTree, History]:
+        device = resolve_device(self.device)
+        global_params = tree_map(lambda t: t.to(device), global_params)
+        policy = self.policy if self.policy is not None else SyncAll()
+        clock = VirtualClock()
+        history = History()
+        client_ids = list(range(len(self.clients)))
+        client_props = {cid: self.clients[cid].properties() for cid in client_ids}
+        for c in self.clients:  # fresh trajectory: no residual carry-over
+            c.reset_state()
+        # fresh server trajectory too: server state must not leak from a
+        # previous run, but DOES accumulate across this run's rounds
+        self.strategy.reset_server_state()
+
+        # per-client uplink fallback for raw-pytree payloads under a
+        # server-level codec (static across the run: the model shape is)
+        uplink_fallback = (
+            None if self.cost_model is None else CostModel.fleet_uplink_bytes(
+                self.codec, tree_size(global_params), len(self.clients)
+            )
+        )
+
+        # the cutoff rides in FitIns config ONLY when a Deadline policy will
+        # actually enforce it: clients then truncate local work to make the
+        # cutoff instead of being dropped
+        deadline_cfg = None
+        if isinstance(policy, Deadline):
+            tau = policy.resolve_tau(self.strategy)
+            deadline_cfg = tau if np.isfinite(tau) else None
+
+        pending: list[Arrival] = []  # in-flight arrivals (BufferedAsync carry)
+        for rnd in range(1, num_rounds + 1):
+            # ---- dispatch: sampled ∩ available ∩ not already in flight ----
+            busy = {a.client_id for a in pending}
+            up = (
+                self.availability.available(rnd)
+                if self.availability is not None else None
+            )
+            eligible = [
+                cid for cid in client_ids
+                if cid not in busy and (up is None or up[cid])
+            ]
+            jitter = (
+                self.availability.step_jitter(rnd)
+                if self.availability is not None else None
+            )
+            fit_ins = self.strategy.configure_fit(
+                rnd, global_params, eligible, client_properties=client_props
+            ) if eligible else []
+
+            launch_steps = 0
+            for cid, ins in fit_ins:
+                if deadline_cfg is not None:
+                    ins.config.setdefault("deadline_s", deadline_cfg)
+                res = self.clients[cid].fit(ins)
+                steps = int(res.metrics.get("steps_done", 1))
+                launch_steps += steps
+                cost = None
+                up_bytes = self._uplink_bytes_one(res, cid, uplink_fallback)
+                if self.cost_model is not None:
+                    jit_c = float(jitter[cid]) if jitter is not None else 1.0
+                    cost = self.cost_model.client_round_cost(
+                        cid, steps, uplink_bytes=up_bytes, jitter=jit_c,
+                    )
+                    # the cost record owns the arrival time; the scheduler
+                    # event (Arrival.finish_t) is derived from it below
+                    cost.t_arrival_s = clock.now + cost.t_total_s
+                # keep the launch global only when a stale rebase could need
+                # it: compressed payloads are deltas (global-independent)
+                launch_ref = (
+                    None if isinstance(res.parameters, CompressedParameters)
+                    else global_params
+                )
+                pending.append(Arrival(
+                    client_id=cid, launch_rnd=rnd, launch_t=clock.now,
+                    finish_t=cost.t_arrival_s if cost is not None else clock.now,
+                    cost=cost, payload=(res, launch_ref), uplink_bytes=up_bytes,
+                ))
+
+            # ---- the policy's verdict on everything in flight ----
+            outcome = policy.plan(clock, pending, rnd, strategy=self.strategy)
+            pending = list(outcome.carried)
+            clock.advance_to(outcome.round_end)
+
+            # a discarded update never reached the aggregate: the client
+            # rolls back the state its fit() committed assuming delivery
+            for a in (*outcome.dropped, *outcome.expired):
+                self.clients[a.client_id].discard_update()
+
+            results = []
+            for a in outcome.reported:
+                res, launch_global = a.payload
+                res.staleness = a.staleness_at(rnd)
+                if res.staleness > 0:
+                    self._rebase_stale(res, launch_global, global_params)
+                results.append((a.client_id, res))
+
+            if results:  # an empty round advances the clock, aggregates nothing
+                global_params = self.strategy.aggregate_fit(
+                    rnd, results, global_params
+                )
+
+            # ---- system-cost accounting (the paper's §5 measurement) ----
+            # wall time is the clock's elapsed virtual time for this round;
+            # uplink is charged at each reporter's wire size while the
+            # downlink stays the full-precision global per dispatch
+            wall, energy, comm = outcome.wall_time_s, 0.0, 0
+            if self.cost_model is not None:
+                down = self.cost_model.update_bytes
+                energy = self._outcome_energy(outcome)
+                # expired arrivals that LANDED did cross the network
+                comm = down * len(fit_ins) + sum(
+                    down if a.uplink_bytes is None else a.uplink_bytes
+                    for a in (*outcome.reported, *outcome.expired)
+                    if a.finish_t <= outcome.round_end
+                )
+
+            losses = [r.metrics.get("loss", 0.0) for _, r in results]
+            ns = [r.num_examples for _, r in results]
+            # all-zero example counts must not crash np.average; an empty
+            # round has no losses at all -> NaN
+            if not losses:
+                train_loss = float("nan")
+            else:
+                train_loss = float(
+                    np.average(losses, weights=ns) if sum(ns) > 0 else np.mean(losses)
+                )
+
+            eval_loss = eval_acc = None
+            if rnd % self.eval_every == 0:
+                eval_loss, eval_acc = self._evaluate(global_params)
+
+            rec = RoundRecord(
+                rnd=rnd, train_loss=train_loss, eval_loss=eval_loss,
+                eval_acc=eval_acc, wall_time_s=wall, energy_j=energy,
+                comm_bytes=comm, steps=launch_steps,
+                participants=len(results),
+                dropped=len(outcome.dropped) + len(outcome.expired),
+                staleness_mean=outcome.mean_staleness,
+            )
+            history.add(rec)
+            self.logger.log(
+                "round", rnd=rnd, loss=train_loss,
+                acc=-1.0 if eval_acc is None else eval_acc,
+                wall_s=wall, energy_kj=energy / 1e3,
+                clients=len(results), stale=outcome.mean_staleness,
+            )
+
+        # arrivals still in flight when the run ends are abandoned: their
+        # clients roll back, and the wasted work is charged to the final round
+        self._abandon_pending(pending, clock, history)
+        return global_params, history
+
+    def _abandon_pending(self, pending, clock, history) -> None:
+        for a in pending:
+            self.clients[a.client_id].discard_update()
+        if not pending or not history.rounds or self.cost_model is None:
+            return
+        rec = history.rounds[-1]
+        down = self.cost_model.update_bytes
+        for a in pending:
+            if a.cost is None:
+                continue
+            # downlink-then-compute burn for the window that fit before the
+            # experiment ended; uplink bytes only if the upload finished
+            rec.energy_j += self._wasted_energy(a, clock.now)
+            if a.finish_t <= clock.now:
+                rec.comm_bytes += (
+                    down if a.uplink_bytes is None else a.uplink_bytes
+                )
+
+    @staticmethod
+    def _uplink_bytes_one(res, cid: int, fallback) -> int | None:
+        """One client's uplink charge: the actual serialized wire size for
+        wire-format payloads, the server-level codec's size for raw pytrees
+        under a codec, else None (the full-precision default)."""
+        p = res.parameters
+        if isinstance(p, (Parameters, CompressedParameters)):
+            return p.num_bytes
+        return None if fallback is None else fallback[cid]
+
+    def _outcome_energy(self, outcome) -> float:
+        """Fleet energy for one scheduled round: reporters charge their
+        full compute+comm plus idle burn until the round end; dropped and
+        expired arrivals charge what they burned inside the round window."""
+        e = 0.0
+        for a in outcome.reported:
+            p = self.cost_model.profile_for(a.client_id)
+            e += a.cost.e_total_j
+            e += max(0.0, outcome.round_end - a.finish_t) * p.idle_power_w
+        for a in (*outcome.dropped, *outcome.expired):
+            e += self._wasted_energy(a, outcome.round_end)
+        return e
+
+    def _wasted_energy(self, a: Arrival, until: float) -> float:
+        """Burn of an abandoned arrival inside its [launch_t, until) window
+        (the CostModel owns the phase-split arithmetic)."""
+        return self.cost_model.wasted_energy(a.cost, max(0.0, until - a.launch_t))
+
+    @staticmethod
+    def _rebase_stale(res, launch_global: PyTree, global_params: PyTree) -> None:
+        """Apply a stale update's *delta* to the current global.
+
+        ``CompressedParameters`` already IS a delta wire, so it needs no
+        rebase; raw parameter payloads trained from an older global are
+        rewritten as ``current + (params - launch_global)``."""
+        p = res.parameters
+        if isinstance(p, CompressedParameters):
+            return
+        if isinstance(p, Parameters):
+            p = parameters_to_pytree(p, launch_global)
+        res.parameters = tree_add(global_params, tree_sub(p, launch_global))
+
+    def _evaluate(self, global_params) -> tuple[float | None, float | None]:
+        if self.eval_fn is not None:
+            m = self.eval_fn(global_params)
+            return m.get("loss"), m.get("acc")
+        # federated evaluation: the examples-weighted average of every
+        # client's evaluate()
+        losses, accs, ns = [], [], []
+        for client in self.clients:
+            res = client.evaluate(EvaluateIns(parameters=global_params))
+            losses.append(res.loss)
+            accs.append(res.metrics.get("acc", np.nan))
+            ns.append(res.num_examples)
+        if not losses:
+            return None, None
+        w = np.asarray(ns, np.float64)
+        return float(np.average(losses, weights=w)), float(np.average(accs, weights=w))
+
+
+def make_cost_model_for(params: PyTree, profiles: list, **kw) -> CostModel:
+    return CostModel(profiles=profiles, update_bytes=tree_bytes(params), **kw)

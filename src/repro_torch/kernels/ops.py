@@ -1,0 +1,90 @@
+"""Public kernel entry points: CPU tensor -> plain version, CUDA tensor ->
+hand-written kernel or raise.
+
+The route is decided by where the tensors lie, nothing else: there is no
+switch and no fallback, so a CUDA tensor can never reach ``ref``.  Each
+kernel wrapper counts its launches (``launch_counts``), which is how a run
+shows that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.utils.pytree import safe_weight_sum
+
+from . import _cuda, ref
+from .dequant_reduce import dequant_reduce as _dequant_reduce_kernel
+from .fedavg_reduce import fedavg_reduce as _fedavg_reduce_kernel
+from .quantize import BLOCK, dequantize_int8 as _dequantize_kernel
+from .quantize import quantize_int8 as _quantize_kernel
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}: expected one device")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def _check_block(block: int) -> None:
+    if block != BLOCK:
+        raise ValueError(f"the CUDA kernels quantize in blocks of {BLOCK}, got {block}")
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last ``reset_launch_counts``."""
+    return dict(_cuda.LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _cuda.LAUNCHES:
+        _cuda.LAUNCHES[name] = 0
+
+
+def _denormalize(out: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Undo the reduces' safe_weight_sum normalization: the weighted mean
+    back into the weighted SUM, the group-partial form the grouped wire
+    reduce combines under ONE fleet-wide denominator.  Exact for all-zero
+    weights (0 * 1 == 0)."""
+    return out * safe_weight_sum(weights.to(torch.float32)).to(out.dtype)
+
+
+# ---------------- FL aggregation ----------------
+def fedavg_reduce(updates, weights, *, normalize=True):
+    """(C, N) x (C,) -> (N,) weighted mean (or weighted sum with
+    ``normalize=False``), in the updates' dtype."""
+    if _on_card(updates, weights):
+        out = _fedavg_reduce_kernel(updates, weights)
+    else:
+        out = ref.fedavg_reduce(updates, weights)
+    return out if normalize else _denormalize(out, weights)
+
+
+def dequant_reduce(q, scales, weights, block: int = 256, *, normalize=True):
+    """Fused server-side decode: int8 payload (C,N) + scales -> (N,) mean."""
+    if _on_card(q, scales, weights):
+        _check_block(block)
+        out = _dequant_reduce_kernel(q, scales, weights)
+    else:
+        out = ref.dequant_reduce(q, scales, weights, block=block)
+    return out if normalize else _denormalize(out, weights)
+
+
+# ---------------- int8 codec ----------------
+def quantize_int8(x, block: int = 256):
+    if _on_card(x):
+        _check_block(block)
+        return _quantize_kernel(x)
+    return ref.quantize_int8(x, block=block)
+
+
+def dequantize_int8(q, scale, block: int = 256):
+    if _on_card(q, scale):
+        _check_block(block)
+        return _dequantize_kernel(q, scale)
+    return ref.dequantize_int8(q, scale, block=block)

@@ -1,0 +1,57 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function here computes what one hand-written CUDA kernel computes, in
+the same arithmetic as ``repro.kernels.ref``.  ``ops`` takes these for CPU
+tensors only; a CUDA tensor always goes to the kernel.  On the card
+``chip_smoke.py`` calls them directly to hold each kernel against its plain
+version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.utils.pytree import safe_weight_sum
+
+
+def fedavg_reduce(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """(C, N) x (C,) -> (N,): sum_c w_c * u_c / sum_c w_c, fp32 accumulate,
+    output in the input dtype."""
+    wf = weights.to(torch.float32)
+    acc = torch.einsum("c,cn->n", wf, updates.to(torch.float32))
+    return (acc / safe_weight_sum(wf)).to(updates.dtype)
+
+
+def quantize_int8(x: torch.Tensor, block: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (N,) fp -> (values int8 (N,), scales fp32 (N/block,)). N % block == 0.
+
+    Per block: scale = absmax / 127 (0 -> 1), q = clip(round_half_even(x /
+    scale), -127, 127).  Both divisions are true IEEE divisions by a tensor:
+    PyTorch's CUDA ``tensor / python_scalar`` multiplies by the reciprocal,
+    which can move a scale by one ulp and flip a code."""
+    xf = x.to(torch.float32).reshape(-1, block)
+    absmax = xf.abs().amax(dim=1)
+    scale = absmax / torch.full_like(absmax, 127.0)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.round(xf / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q.reshape(-1), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, block: int = 256) -> torch.Tensor:
+    qf = q.reshape(-1, block).to(torch.float32)
+    return (qf * scale[:, None]).reshape(-1)
+
+
+def dequant_reduce(
+    q: torch.Tensor,        # (C, N) int8 wire payload
+    scales: torch.Tensor,   # (C, N/block) fp32 block scales
+    weights: torch.Tensor,  # (C,) aggregation weights
+    block: int = 256,
+) -> torch.Tensor:
+    """Dequantize every client row, then the weighted mean (fp32)."""
+    c, n = q.shape
+    x = q.to(torch.float32).reshape(c, n // block, block) * (
+        scales.to(torch.float32)[:, :, None]
+    )
+    wf = weights.to(torch.float32)
+    acc = torch.einsum("c,cn->n", wf, x.reshape(c, n))
+    return acc / safe_weight_sum(wf)

@@ -1,0 +1,75 @@
+"""Model API: a uniform functional interface, the twin of ``repro.models``.
+
+``build_model(arch_name_or_cfg, device=None)`` returns a `Model` whose
+methods are plain functions on nested dicts of tensors:
+
+    init(seed) -> params (on the model's device)
+    loss_fn(params, batch) -> (loss, metrics)
+    trainable_mask(params) -> bool pytree (None = all trainable)
+
+The port runs the ``head`` family so far; the others raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, get_config
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import tensor_from_numpy, tree_map
+
+PyTree = Any
+
+_NOT_PORTED = {
+    "cnn": "ResNet-18 is ROADMAP.md queue 1 item 14",
+}
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: Any
+    arch: ArchConfig
+    device: torch.device
+    init: Callable                          # (seed) -> params
+    loss_fn: Callable                       # (params, batch) -> (loss, metrics)
+    trainable_mask: Optional[Callable] = None
+
+    @property
+    def name(self) -> str:
+        return self.arch.name
+
+
+def build_model(arch, *, device=None) -> Model:
+    arch_cfg = get_config(arch) if isinstance(arch, str) else arch
+    dev = resolve_device(device)
+
+    if arch_cfg.family == "head":
+        from repro_torch.configs.mobilenet_head_office31 import HEAD_CONFIG
+        from . import headmodel
+
+        cfg = HEAD_CONFIG if not arch_cfg.name.endswith("reduced") else HEAD_CONFIG.reduced()
+        return Model(
+            cfg=cfg,
+            arch=arch_cfg,
+            device=dev,
+            init=lambda seed=0: headmodel.init_params(cfg, seed=seed, device=dev),
+            loss_fn=lambda p, b: headmodel.loss_fn(cfg, p, b),
+            trainable_mask=headmodel.trainable_mask,
+        )
+
+    raise NotImplementedError(
+        f"{arch_cfg.name} ({arch_cfg.family} family) is not ported yet: "
+        + _NOT_PORTED.get(
+            arch_cfg.family, "the transformer family is ROADMAP.md queue 1 item 15"
+        )
+    )
+
+
+def params_from_numpy(tree: PyTree, device) -> PyTree:
+    """The JAX package's params, given as a nested dict of numpy arrays
+    (``jax.tree.map(np.asarray, params)``), as the port's tensors on
+    ``device`` — so both packages start from the same draw."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)

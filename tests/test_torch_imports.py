@@ -1,0 +1,63 @@
+"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package ``repro``, so the port runs where JAX
+is not installed.  An AST scan checks every import statement; a fresh
+interpreter runs one CPU fit and checks that JAX never loaded."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module or "")
+    return mods
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    bad = [
+        m for m in _imported_modules(path)
+        if m.split(".")[0] in ("jax", "jaxlib", "repro")
+    ]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_cpu_fit_never_loads_jax():
+    code = """
+import sys
+import numpy as np
+from repro_torch.configs.base import get_config
+from repro_torch.core import FitIns, Int8Codec, TorchClient
+from repro_torch.data.federated import ClientDataset
+from repro_torch.models import build_model
+
+m = build_model(get_config("mobilenet-head-office31").reduced(), device="cpu")
+rng = np.random.default_rng(0)
+ds = ClientDataset(client_id=0, x=rng.normal(size=(64, 64)).astype(np.float32),
+                   y=rng.integers(0, 31, 64).astype(np.int32))
+params = m.init(0)
+c = TorchClient(client_id=0, loss_fn=m.loss_fn, dataset=ds,
+                trainable_mask=m.trainable_mask(params), device="cpu")
+res = c.fit(FitIns(parameters=params, config={"epochs": 1, "codec": Int8Codec()}))
+assert res.num_examples == 64 and res.metrics["steps_done"] == 2
+assert "jax" not in sys.modules and "repro" not in sys.modules, sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

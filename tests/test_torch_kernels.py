@@ -1,0 +1,153 @@
+"""Port parity: the four reduce/codec kernels' plain PyTorch versions
+(``repro_torch.kernels.ref`` via ``ops`` on CPU tensors) against the JAX
+package's Pallas bodies in interpret mode and its jnp oracles, on the same
+numpy inputs.  The hand-written kernels themselves are held against these
+plain versions on the card by ``test_torch_cuda_kernels.py``.
+
+Tolerances: quantize/dequantize are bitwise against the jnp oracle (same
+IEEE division, same half-to-even rounding).  The Pallas quantize body's
+scales are the oracle's to within one ulp (tests/test_kernels.py holds
+them to rtol=1e-6) and its codes bitwise.  The reduces differ only in summation order
+(the Pallas reduces normalize the weights first, the oracles divide after):
+``rtol=atol=1e-6``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.dequant_reduce import dequant_reduce as pallas_dequant_reduce
+from repro.kernels.fedavg_reduce import fedavg_reduce as pallas_fedavg_reduce
+from repro.kernels.quantize import dequantize_int8 as pallas_dequantize
+from repro.kernels.quantize import quantize_int8 as pallas_quantize
+from repro_torch.kernels import ops
+
+TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _delta(rng, shape, zero_blocks=0):
+    """Update-delta-like values spanning several magnitudes, with whole
+    zero blocks (scale 0 -> 1)."""
+    x = rng.normal(size=shape) * 10.0 ** rng.uniform(-5, 0, size=shape[:-1] + (1,))
+    x = x.astype(np.float32)
+    x.reshape(-1)[: 256 * zero_blocks] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("n_blocks", [16, 37])
+def test_quantize_int8_bitwise(n_blocks):
+    rng = np.random.default_rng(n_blocks)
+    x = _delta(rng, (n_blocks * 256,), zero_blocks=2)
+    # exact-tie values: x / scale lands on k + 0.5, where half-to-even matters
+    x[256 * 3 : 256 * 4] = 0.0
+    x[256 * 3 : 256 * 3 + 4] = [127.0, 0.5, 1.5, -2.5]  # scale 1.0
+    q, s = ops.quantize_int8(_t(x))
+    qj, sj = jref.quantize_int8(jnp.asarray(x))
+    np.testing.assert_array_equal(_np(q), np.asarray(qj))
+    np.testing.assert_array_equal(_np(s), np.asarray(sj))
+    qp, sp = pallas_quantize(jnp.asarray(x), interpret=True, bn=4096 if n_blocks % 16 == 0 else 256)
+    np.testing.assert_array_equal(_np(q), np.asarray(qp))
+    np.testing.assert_array_max_ulp(_np(s), np.asarray(sp), maxulp=1)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert _np(q)[256 * 3 + 1 : 256 * 3 + 4].tolist() == [0, 2, -2]
+
+
+def test_dequantize_int8_bitwise():
+    rng = np.random.default_rng(3)
+    x = _delta(rng, (16 * 256,), zero_blocks=1)
+    qj, sj = jref.quantize_int8(jnp.asarray(x))
+    q, s = _t(np.asarray(qj)), _t(np.asarray(sj))
+    out = ops.dequantize_int8(q, s)
+    np.testing.assert_array_equal(_np(out), np.asarray(jref.dequantize_int8(qj, sj)))
+    np.testing.assert_array_equal(
+        _np(out), np.asarray(pallas_dequantize(qj, sj, interpret=True, bn=4096))
+    )
+
+
+@pytest.mark.parametrize("c,n,bn", [(4, 8192, 4096), (3, 5000, 4096), (2, 1031, 512)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_fedavg_reduce_matches_jax(c, n, bn, normalize):
+    rng = np.random.default_rng(c * n)
+    u = _delta(rng, (c, n))
+    w = (rng.random(c) + 0.1).astype(np.float32) * 40
+    out = ops.fedavg_reduce(_t(u), _t(w), normalize=normalize)
+    assert out.shape == (n,) and out.dtype == torch.float32
+    exp_ref = np.asarray(jref.fedavg_reduce(jnp.asarray(u), jnp.asarray(w)))
+    exp_pallas = np.asarray(pallas_fedavg_reduce(jnp.asarray(u), jnp.asarray(w), interpret=True, bn=bn))
+    tol = TOL
+    if not normalize:  # the weighted sum: the mean's tolerance times sum(w)
+        exp_ref, exp_pallas = exp_ref * w.sum(), exp_pallas * w.sum()
+        tol = dict(rtol=TOL["rtol"], atol=TOL["atol"] * float(w.sum()))
+    np.testing.assert_allclose(_np(out), exp_ref, **tol)
+    np.testing.assert_allclose(_np(out), exp_pallas, **tol)
+
+
+def test_fedavg_reduce_bf16_keeps_dtype():
+    rng = np.random.default_rng(5)
+    u = _delta(rng, (3, 777))
+    w = (rng.random(3) + 0.1).astype(np.float32)
+    ut = _t(u).to(torch.bfloat16)
+    out = ops.fedavg_reduce(ut, _t(w))
+    assert out.dtype == torch.bfloat16 and out.shape == (777,)
+    exp = jref.fedavg_reduce(jnp.asarray(u, jnp.bfloat16), jnp.asarray(w))
+    np.testing.assert_allclose(
+        _np(out.float()), np.asarray(exp.astype(jnp.float32)), rtol=2**-7, atol=1e-8
+    )
+
+
+@pytest.mark.parametrize("c,n,bn", [(4, 8192, 4096), (6, 768, 512)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_dequant_reduce_matches_jax(c, n, bn, normalize):
+    rng = np.random.default_rng(c + n)
+    x = _delta(rng, (c * n,), zero_blocks=1)
+    qj, sj = jref.quantize_int8(jnp.asarray(x))
+    q, s = np.asarray(qj).reshape(c, n), np.asarray(sj).reshape(c, n // 256)
+    w = (rng.random(c) + 0.1).astype(np.float32) * 100
+    out = ops.dequant_reduce(_t(q), _t(s), _t(w), normalize=normalize)
+    assert out.shape == (n,) and out.dtype == torch.float32
+    exp_ref = np.asarray(jref.dequant_reduce(jnp.asarray(q), jnp.asarray(s), jnp.asarray(w)))
+    exp_pallas = np.asarray(pallas_dequant_reduce(
+        jnp.asarray(q), jnp.asarray(s), jnp.asarray(w), interpret=True, bn=bn
+    ))
+    tol = TOL
+    if not normalize:  # the weighted sum: the mean's tolerance times sum(w)
+        exp_ref, exp_pallas = exp_ref * w.sum(), exp_pallas * w.sum()
+        tol = dict(rtol=TOL["rtol"], atol=TOL["atol"] * float(w.sum()))
+    np.testing.assert_allclose(_np(out), exp_ref, **tol)
+    np.testing.assert_allclose(_np(out), exp_pallas, **tol)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_reduces_all_zero_weights_give_zeros(normalize):
+    rng = np.random.default_rng(9)
+    u = _delta(rng, (3, 1000))
+    w = torch.zeros(3)
+    out = ops.fedavg_reduce(_t(u), w, normalize=normalize)
+    assert not torch.isnan(out).any() and not out.any()
+    x = _delta(rng, (3 * 512,))
+    q, s = ops.quantize_int8(_t(x))
+    out = ops.dequant_reduce(q.reshape(3, 512), s.reshape(3, 2), w, normalize=normalize)
+    assert not torch.isnan(out).any() and not out.any()
+
+
+def test_ops_routes_by_device_and_never_falls_back():
+    """CPU tensors take the plain version and launch nothing; a tensor on
+    a device with no kernel raises instead of falling back; mixed devices
+    raise."""
+    ops.reset_launch_counts()
+    x = torch.zeros(512)
+    q, s = ops.quantize_int8(x)
+    assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
+    with pytest.raises(ValueError):
+        ops.quantize_int8(torch.zeros(512, device="meta"))
+    with pytest.raises(ValueError):
+        ops.dequantize_int8(q, s.to("meta"))
