@@ -14,7 +14,8 @@ from .scheduler import (
     BufferedAsync,
 )
 from .compression import (
-    UpdateCodec, Int8Codec, NullCodec, BandwidthCodecPolicy, compress_update,
-    decompress_update,
+    UpdateCodec, Int8Codec, NullCodec, TopKCodec, BandwidthCodecPolicy,
+    compress_update, decompress_update,
 )
 from .strategy import Strategy, FedAvg
+from .rounds import RoundSpec, make_client_update, make_round_step

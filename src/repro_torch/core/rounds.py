@@ -1,0 +1,317 @@
+"""The FL round step without a mesh: the twin of ``repro.core.rounds``.
+
+One ``round_step`` = every sampled client runs (up to) ``max_steps`` local
+SGD steps from the current global model, then the Strategy aggregates.
+Both execution modes share one contract::
+
+    round_step(global_params, server_state, client_state, batches, weights,
+               step_budgets, rnd, mask=None)
+        -> (new_global, new_server_state, new_client_state, metrics)
+
+- ``batches``: a pytree whose leaves lead with (C, max_steps, B, ...);
+  ``weights`` (C,) aggregation weights; ``step_budgets`` (C,) int, the
+  paper's tau cutoff as a per-client step budget (a client steps while
+  ``i < budget`` and freezes its params and optimizer state after).
+- ``client_state``: codec-owned (``codec.init_client_state``): one
+  (C, N) fp32 residual block for Int8/TopK, ``()`` for Null.
+- ``mask``: the scheduler's (C,) 0/1 participation mask.  A masked client
+  still runs its local work but contributes zero weight under the one
+  ``safe_weight_sum`` denominator, its delta is pinned to zero before the
+  reduce (0 * NaN from a diverged client would poison it), its residual
+  row carries unchanged, and its loss and steps leave the metrics.
+  ``mask=None`` is bitwise an all-ones mask.
+
+Modes:
+
+- **parallel**: ``torch.func.vmap`` of the client update over the client
+  axis, then ``codec.aggregate_updates``: a leafwise weighted mean for
+  Null, and for Int8 / TopK the (C, N) deltas encoded once and reduced
+  straight off the encoded payload (one ``quantize_int8`` +
+  ``dequantize_int8`` + ``dequant_reduce``, or one ``topk_scatter_reduce``).
+- **sequential**: one client at a time; each client's delta goes through
+  ``codec.transmit_tree`` (encode -> decode) into a bf16 accumulator.
+
+Not ported yet (ROADMAP.md): the mesh mapping, ``execution_mode="fsdp"``
+and ``collective="int8"`` (queue 1 item 13), ``MixedCodec`` and segmented
+codecs (item 12), and ``make_multi_round_step`` (item 11).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.optim import Optimizer
+from repro_torch.utils.pytree import (
+    safe_weight_sum, tree_leaves, tree_map, tree_sq_norm, tree_sub, tree_where,
+)
+
+from .compression import Int8Codec, NullCodec, TopKCodec
+from .strategy.base import Strategy
+
+PyTree = Any
+
+
+@dataclass(frozen=True)
+class RoundSpec:
+    """Static configuration of the round step."""
+
+    max_steps: int               # local steps (tau masks within)
+    execution_mode: str          # "parallel" | "sequential" ("fsdp": item 13)
+    prox_mu: float = 0.0         # FedProx proximal coefficient (0 = off)
+    microbatches: int = 1        # gradient accumulation within one local step
+    codec: Any = field(default_factory=NullCodec)  # UpdateCodec (wire format)
+    collective: str = "fp32"     # the mesh psum's wire ("int8": item 13)
+
+
+def make_client_update(
+    loss_fn: Callable,           # (params, batch) -> (loss, metrics)
+    opt: Optimizer,
+    spec: RoundSpec,
+    trainable_mask: PyTree | None = None,
+):
+    """Returns client_update(global_params, batches, step_budget) ->
+    (new_params, mean_loss, steps_done) for ONE client; ``batches`` leaves
+    lead with (max_steps, ...).  Pure tensor code, so ``torch.func.vmap``
+    maps it over clients."""
+
+    def total_loss(params, batch, global_params):
+        loss, metrics = loss_fn(params, batch)
+        if spec.prox_mu > 0.0:
+            loss = loss + 0.5 * spec.prox_mu * tree_sq_norm(tree_sub(params, global_params))
+        return loss, metrics
+
+    grad_fn = torch.func.grad_and_value(total_loss, has_aux=True)
+
+    def grad_of(params, batch, global_params):
+        if spec.microbatches <= 1:
+            grads, (loss, _) = grad_fn(params, batch, global_params)
+            return loss, grads
+        # gradient accumulation over microbatch slices of the batch dim, in
+        # bf16 accumulators (the JAX engine's memory trade)
+        mb = spec.microbatches
+        micro = tree_map(lambda x: x.reshape(mb, x.shape[0] // mb, *x.shape[1:]), batch)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+        gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device), params)
+        for m in range(mb):
+            grads, (loss, _) = grad_fn(params, tree_map(lambda x: x[m], micro), global_params)
+            gacc = tree_map(lambda a, g: a + g.to(a.dtype), gacc, grads)
+            loss_sum = loss_sum + loss
+        return loss_sum / mb, tree_map(lambda g: (g / mb).to(torch.bfloat16), gacc)
+
+    def client_update(global_params, batches, step_budget):
+        params = global_params
+        opt_state = opt.init(global_params)
+        losses = []
+        for i in range(spec.max_steps):
+            batch = tree_map(lambda x: x[i], batches)
+            loss, grads = grad_of(params, batch, global_params)
+            new_params, new_opt_state = opt.update(grads, params, opt_state, i)
+            if trainable_mask is not None:
+                new_params = tree_map(
+                    lambda n, o, m: n if m else o, new_params, params, trainable_mask
+                )
+            live = i < step_budget
+            params = tree_where(live, new_params, params)
+            opt_state = tree_where(live, new_opt_state, opt_state)
+            losses.append(torch.where(live, loss, torch.zeros_like(loss)))
+        steps_done = torch.clamp(step_budget, max=spec.max_steps)
+        mean_loss = torch.stack(losses).sum() / torch.clamp(steps_done, min=1)
+        return params, mean_loss, steps_done
+
+    return client_update
+
+
+def _state_metrics(new_client_state) -> dict:
+    """Residual-norm telemetry when the codec carries per-client state."""
+    rows = [
+        torch.linalg.vector_norm(leaf.reshape(leaf.shape[0], -1), dim=-1)
+        for leaf in tree_leaves(new_client_state)
+        if leaf.dim() >= 2 and leaf.shape[0] > 0
+    ]
+    if not rows:
+        return {}
+    return {"residual_norm_mean": torch.mean(torch.cat(rows))}
+
+
+def _carry_masked_state(mask, old_state, new_state):
+    """Masked (non-participating) clients' codec state rows carry
+    unchanged: a dropped client never transmitted, so its residual must not
+    absorb this round's untransmitted delta."""
+    if not tree_leaves(new_state):
+        return new_state
+
+    def keep_rows(o, n):
+        return torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o)
+
+    return tree_map(keep_rows, old_state, new_state)
+
+
+def _masked_metrics(losses, steps, weights, mask):
+    """Participation-aware loss/steps metrics.  ``torch.where``, not a
+    product, so a masked client's NaN/inf loss cannot poison them."""
+    wf = weights.to(torch.float32)
+    if mask is None:
+        return {
+            "client_loss_mean": torch.sum(losses * wf) / safe_weight_sum(wf),
+            "client_loss_max": torch.max(losses),
+            "steps_total": torch.sum(steps),
+        }
+    mf = mask.to(torch.float32)
+    w_eff = wf * mf
+    live = mf > 0
+    losses_eff = torch.where(live, losses, torch.zeros_like(losses))
+    any_live = torch.any(live)
+    nan = torch.full_like(losses[0], float("nan"))
+    return {
+        # a fully-masked round has no defined loss: NaN, never 0.0 or -inf
+        "client_loss_mean": torch.where(
+            any_live, torch.sum(losses_eff * w_eff) / safe_weight_sum(w_eff), nan
+        ),
+        "client_loss_max": torch.where(
+            any_live, torch.max(torch.where(live, losses, torch.full_like(losses, -torch.inf))), nan
+        ),
+        "steps_total": torch.sum(torch.where(live, steps, torch.zeros_like(steps))),
+    }
+
+
+def make_round_step(
+    loss_fn: Callable,
+    opt: Optimizer,
+    strategy: Strategy,
+    spec: RoundSpec,
+    trainable_mask: PyTree | None = None,
+    mesh=None,
+):
+    """Builds the uniform round_step (module docstring) for ``spec``.
+
+    Aggregation is codec-mediated on both modes: the weighted mean of the
+    codec-decoded deltas feeds ``strategy.server_update``."""
+    codec = spec.codec if spec.codec is not None else NullCodec()
+    if spec.collective not in ("fp32", "int8"):
+        raise ValueError(f"RoundSpec.collective={spec.collective!r}: expected fp32 | int8")
+    if mesh is not None or spec.execution_mode == "fsdp" or spec.collective == "int8":
+        raise NotImplementedError(
+            "the mesh round step (a mesh, execution_mode='fsdp', collective='int8') "
+            "is not ported yet: ROADMAP.md queue 1 item 13"
+        )
+    if spec.execution_mode not in ("parallel", "sequential"):
+        raise ValueError(
+            f"RoundSpec.execution_mode={spec.execution_mode!r}: expected parallel | sequential"
+        )
+    if type(codec) not in (NullCodec, Int8Codec, TopKCodec):
+        raise NotImplementedError(
+            f"{type(codec).__name__}: MixedCodec, LoRACodec and segmented codecs "
+            "are not ported yet (ROADMAP.md queue 1 item 12)"
+        )
+    client_update = make_client_update(loss_fn, opt, spec, trainable_mask)
+
+    if spec.execution_mode == "parallel":
+
+        def round_step(global_params, server_state, client_state, batches, weights,
+                       step_budgets, rnd, mask=None):
+            new_params, losses, steps = torch.func.vmap(
+                client_update, in_dims=(None, 0, 0)
+            )(global_params, batches, step_budgets)
+            if mask is not None:
+                # a masked client's params are pinned back to the global
+                # BEFORE the reduce: zero weight alone would let a diverged
+                # client's 0 * NaN poison it
+                new_params = tree_map(
+                    lambda p, g: torch.where(mask.reshape((-1,) + (1,) * g.dim()) > 0, p, g[None]),
+                    new_params, global_params,
+                )
+            w_agg = weights if mask is None else weights.to(torch.float32) * mask.to(torch.float32)
+            avg_params, new_client_state = codec.aggregate_updates(
+                new_params, global_params, w_agg, client_state
+            )
+            if mask is not None:
+                new_client_state = _carry_masked_state(mask, client_state, new_client_state)
+            new_global, new_state = strategy.server_update(
+                avg_params, global_params, server_state, rnd
+            )
+            metrics = {
+                **_masked_metrics(losses, steps, weights, mask),
+                **_state_metrics(new_client_state),
+            }
+            return new_global, new_state, new_client_state, metrics
+
+        return round_step
+
+    def round_step(global_params, server_state, client_state, batches, weights,
+                   step_budgets, rnd, mask=None):
+        wf = weights.to(torch.float32)
+        mf = None if mask is None else mask.to(torch.float32)
+        wsum = safe_weight_sum(wf if mf is None else wf * mf)
+        dev = wf.device
+        # bf16 delta accumulator: halves the largest param-state buffer; the
+        # one-round accumulation error is far below local-SGD noise
+        delta_acc = tree_map(
+            lambda g: torch.zeros(g.shape, dtype=torch.bfloat16, device=g.device), global_params
+        )
+        loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+        loss_max = torch.full((), -torch.inf, dtype=torch.float32, device=dev)
+        steps_acc = torch.zeros((), dtype=step_budgets.dtype, device=dev)
+        rows = []
+        for c in range(wf.shape[0]):
+            w = wf[c]
+            state_row = tree_map(lambda x: x[c], client_state)
+            new_params, loss, steps = client_update(
+                global_params, tree_map(lambda x: x[c], batches), step_budgets[c]
+            )
+            delta = tree_sub(new_params, global_params)
+            # codec round-trip: only what survives the wire is accumulated
+            dec_delta, new_row = codec.transmit_tree(delta, state_row)
+            if mf is not None:
+                # masked: zero weight AND a zeroed delta, the residual row
+                # carried unchanged, out of the metrics
+                live = mf[c] > 0
+                w = w * mf[c]
+                dec_delta = tree_map(lambda d: torch.where(live, d, torch.zeros_like(d)), dec_delta)
+                new_row = tree_map(lambda n, o: torch.where(live, n, o), new_row, state_row)
+                loss = torch.where(live, loss, torch.zeros_like(loss))
+                loss_for_max = torch.where(live, loss, torch.full_like(loss, -torch.inf))
+                steps = torch.where(live, steps, torch.zeros_like(steps))
+            else:
+                loss_for_max = loss
+            scale = (w / wsum).to(torch.bfloat16)
+            delta_acc = tree_map(
+                lambda acc, d: acc + scale * d.to(torch.bfloat16), delta_acc, dec_delta
+            )
+            loss_acc = loss_acc + loss * w / wsum
+            loss_max = torch.maximum(loss_max, loss_for_max)
+            steps_acc = steps_acc + steps
+            rows.append(new_row)
+        if tree_leaves(client_state):
+            new_client_state = tree_map(lambda *xs: torch.stack(xs), rows[0], *rows[1:])
+        else:
+            new_client_state = client_state
+        if mf is not None:
+            any_live = torch.any(mf > 0)
+            nan = torch.full_like(loss_acc, float("nan"))
+            loss_acc = torch.where(any_live, loss_acc, nan)
+            loss_max = torch.where(any_live, loss_max, nan)
+        avg_params = tree_map(
+            lambda g, d: (g.to(torch.float32) + d.to(torch.float32)).to(g.dtype),
+            global_params, delta_acc,
+        )
+        new_global, new_state = strategy.server_update(
+            avg_params, global_params, server_state, rnd
+        )
+        metrics = {
+            "client_loss_mean": loss_acc,
+            "client_loss_max": loss_max,
+            "steps_total": steps_acc,
+            **_state_metrics(new_client_state),
+        }
+        return new_global, new_state, new_client_state, metrics
+
+    return round_step
+
+
+def make_multi_round_step(*args, **kwargs):
+    """Rounds-as-scan (``repro.core.rounds.make_multi_round_step``)."""
+    raise NotImplementedError(
+        "make_multi_round_step is not ported yet: ROADMAP.md queue 1 item 11"
+    )

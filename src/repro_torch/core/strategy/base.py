@@ -6,9 +6,9 @@ the Strategy, as in Flower's architecture (paper §3, Figure 1): which
 clients train, with what config (epochs / tau / codec), and how results
 merge into the global model.  ``configure_fit`` performs per-device codec
 selection when a ``codec_policy`` is set; ``aggregate_fit`` reduces a
-compressed-wire fleet group by group on the codecs' own kernels.
-
-The jitted round engine's surface waits for ROADMAP.md queue 1 item 9.
+compressed-wire fleet group by group on the codecs' own kernels.  The
+round engine (``core/rounds.py``) consumes ``init_state`` and
+``server_update``.
 """
 from __future__ import annotations
 
@@ -118,12 +118,13 @@ class Strategy:
     ) -> PyTree:
         """Default: examples-weighted average of returned parameters.
 
-        A compressed-wire fleet of Null/Int8 clients takes the grouped
+        A compressed-wire fleet of Null/Int8/TopK clients takes the grouped
         kernel-path reduce (``_aggregate_fit_wire``): clients partition by
         codec and each group's payloads feed that codec's own kernel (Int8
-        -> fused dequant+reduce, Null -> fedavg reduce), the partial
-        weighted sums combining under one fleet denominator.  Raw-pytree
-        transports and foreign codecs densify per client.
+        -> fused dequant+reduce, TopK -> scatter-accumulate, Null -> fedavg
+        reduce), the partial weighted sums combining under one fleet
+        denominator.  Raw-pytree transports and foreign codecs densify per
+        client.
         """
         device = tree_leaves(global_params)[0].device
         weights = self._fit_weights(results, device)
@@ -181,7 +182,7 @@ class Strategy:
         ``safe_weight_sum`` denominator turns the combined sum into the
         mean that feeds ``server_update``.
         """
-        from ..compression import Int8Codec, NullCodec
+        from ..compression import Int8Codec, NullCodec, TopKCodec
 
         if not results or not self._grouped_fit_compatible():
             return None
@@ -192,11 +193,15 @@ class Strategy:
             # exact types, not isinstance: a codec subclass may redefine
             # the wire format, which only the per-client decode interprets
             if not isinstance(cp, CompressedParameters) or type(cp.codec) not in (
-                NullCodec, Int8Codec
+                NullCodec, Int8Codec, TopKCodec
             ):
                 return None
             enc = wire_to_enc(cp, device)
-            required = {"q", "scale"} if type(cp.codec) is Int8Codec else {"delta"}
+            required = (
+                {"idx", "val"} if type(cp.codec) is TopKCodec
+                else {"q", "scale"} if type(cp.codec) is Int8Codec
+                else {"delta"}
+            )
             if not required <= set(enc):
                 return None
             cps.append(cp)
@@ -225,8 +230,22 @@ class Strategy:
         """One codec group's partial weighted delta sum (N,), on the group's
         own kernel (``normalize=False``: the caller owns the ONE fleet-wide
         denominator)."""
-        from ..compression import Int8Codec
+        from ..compression import Int8Codec, TopKCodec
 
+        if type(codec) is TopKCodec:
+            rows = [(e["idx"].reshape(-1), e["val"].reshape(-1)) for e in encs]
+            # pad rows to the group's k_max with index 0 / value 0: a zero
+            # value scatters nothing
+            k_max = max(int(i.shape[0]) for i, _ in rows)
+            idx = torch.stack([
+                torch.nn.functional.pad(i.to(torch.int32), (0, k_max - i.shape[0]))
+                for i, _ in rows
+            ])
+            val = torch.stack([
+                torch.nn.functional.pad(v.to(torch.float32), (0, k_max - v.shape[0]))
+                for _, v in rows
+            ])
+            return ops.topk_scatter_reduce(idx, val, w_g, n_params, normalize=False)
         if type(codec) is Int8Codec:
             q = torch.stack([e["q"] for e in encs])
             scale = torch.stack([e["scale"] for e in encs])

@@ -47,13 +47,16 @@ SIGNATURES = {
     "dequant_reduce": {
         "repro_dequant_reduce": (_P, _P, _P, _P, _I64, _I64, _P),
     },
+    "topk_scatter_reduce": {
+        "repro_topk_scatter_reduce": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    },
 }
 
 # launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel and nowhere else (read through ops.launch_counts)
 LAUNCHES = {
     "fedavg_reduce": 0, "quantize_int8": 0, "dequantize_int8": 0,
-    "dequant_reduce": 0,
+    "dequant_reduce": 0, "topk_scatter_reduce": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

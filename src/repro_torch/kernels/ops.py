@@ -17,6 +17,7 @@ from .dequant_reduce import dequant_reduce as _dequant_reduce_kernel
 from .fedavg_reduce import fedavg_reduce as _fedavg_reduce_kernel
 from .quantize import BLOCK, dequantize_int8 as _dequantize_kernel
 from .quantize import quantize_int8 as _quantize_kernel
+from .scatter_reduce import topk_scatter_reduce as _topk_kernel
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -72,6 +73,17 @@ def dequant_reduce(q, scales, weights, block: int = 256, *, normalize=True):
         out = _dequant_reduce_kernel(q, scales, weights)
     else:
         out = ref.dequant_reduce(q, scales, weights, block=block)
+    return out if normalize else _denormalize(out, weights)
+
+
+def topk_scatter_reduce(idx, val, weights, n_params: int, *, normalize=True):
+    """Sparse TopK aggregation: (C,k) idx/val + (C,) weights -> (N,) fp32
+    mean (or weighted sum with ``normalize=False``), O(C*k), never a dense
+    (C, N).  On the card ``idx`` must be int32 (TopKCodec's wire)."""
+    if _on_card(idx, val, weights):
+        out = _topk_kernel(idx, val.to(torch.float32).contiguous(), weights, n_params)
+    else:
+        out = ref.topk_scatter_reduce(idx, val, weights, n_params)
     return out if normalize else _denormalize(out, weights)
 
 

@@ -21,6 +21,30 @@ def fedavg_reduce(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return (acc / safe_weight_sum(wf)).to(updates.dtype)
 
 
+def topk_scatter_reduce(
+    idx: torch.Tensor,      # (C, k) int sparse positions
+    val: torch.Tensor,      # (C, k) fp sparse values
+    weights: torch.Tensor,  # (C,) aggregation weights
+    n_params: int,
+) -> torch.Tensor:
+    """One scatter-add of every client's weighted payload into a zero (N,)
+    fp32 accumulator, divided by ``safe_weight_sum``: the dense (C, N)
+    matrix is never built.  Duplicates accumulate; out-of-range indices are
+    dropped -- masked to index 0 with value 0, so a negative index never
+    wraps into a valid coordinate.  k = 0 or C = 0 gives zeros."""
+    c, k = idx.shape
+    wf = weights.to(torch.float32)
+    if k == 0 or c == 0:
+        return torch.zeros(n_params, dtype=torch.float32, device=idx.device)
+    valid = (idx >= 0) & (idx < n_params)
+    safe_idx = torch.where(valid, idx, torch.zeros_like(idx))
+    contrib = torch.where(valid, val.to(torch.float32), torch.zeros((), device=val.device)) * wf[:, None]
+    acc = torch.zeros(n_params, dtype=torch.float32, device=idx.device).index_add_(
+        0, safe_idx.reshape(-1), contrib.reshape(-1)
+    )
+    return acc / safe_weight_sum(wf)
+
+
 def quantize_int8(x: torch.Tensor, block: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (N,) fp -> (values int8 (N,), scales fp32 (N/block,)). N % block == 0.
 

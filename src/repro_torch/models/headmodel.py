@@ -12,11 +12,15 @@ import math
 
 import torch
 
+from repro_torch.utils.device import resolve_device
 
-def init_params(cfg, *, seed: int = 0, device="cpu") -> dict:
-    """Seeded random params.  Torch's generator draws other numbers than
-    ``jax.random``; parity tests start both packages from the JAX init via
+
+def init_params(cfg, *, seed: int = 0, device=None) -> dict:
+    """Seeded random params on ``device`` (None: the card).  Torch's
+    generator draws other numbers than ``jax.random``; parity tests start
+    both packages from the JAX init via
     ``repro_torch.models.params_from_numpy`` instead."""
+    device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
 
     def normal(*shape):

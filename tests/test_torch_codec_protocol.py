@@ -1,4 +1,4 @@
-"""Port parity: the Null and Int8 uplink codecs and the wire protocol.
+"""Port parity: the Null, Int8 and TopK uplink codecs and the wire protocol.
 
 The same numpy delta goes through the JAX package's and the port's
 ``encode``/``decode``/``compress_update``; the serialized
@@ -20,6 +20,7 @@ from repro_torch.utils.pytree import tree_leaves, tree_map
 CODECS = [
     pytest.param(jc.NullCodec(), tc.NullCodec(), id="null"),
     pytest.param(jc.Int8Codec(), tc.Int8Codec(), id="int8"),
+    pytest.param(jc.TopKCodec(), tc.TopKCodec(), id="topk"),
 ]
 
 
@@ -124,10 +125,12 @@ def test_parameters_wire_roundtrip_both_ways():
 
 
 def test_bandwidth_policy_matches_and_topk_waits():
+    """The same codec for every uplink class on both sides: phone-class
+    (< 30 Mbit/s) TopK at 1%, edge boards Int8, datacenter links Null."""
     jpol, tpol = jc.BandwidthCodecPolicy(), tc.BandwidthCodecPolicy()
-    for mbps, kind in ((80.0, "Int8Codec"), (400_000.0, "NullCodec")):
+    for mbps, kind in ((15.0, "TopKCodec"), (29.9, "TopKCodec"), (30.0, "Int8Codec"),
+                       (80.0, "Int8Codec"), (400_000.0, "NullCodec")):
         props = tp.ClientProperties(client_id=0, uplink_mbps=mbps)
         assert type(tpol.codec_for(props)).__name__ == kind
         assert type(jpol.codec_for(props)).__name__ == kind
-    with pytest.raises(NotImplementedError, match="TopK"):
-        tpol.codec_for(tp.ClientProperties(client_id=0, uplink_mbps=20.0))
+    assert tpol.topk.frac == jpol.topk.frac == 0.01

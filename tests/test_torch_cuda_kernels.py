@@ -7,7 +7,10 @@ Elsewhere every test skips.  Quantize/dequantize must match bitwise; the
 reduces differ from the plain versions only in summation order (cuBLAS's
 against one fp32 accumulator per column): ``rtol=atol=1e-6`` for fp32;
 for bf16 outputs the two fp32 sums may straddle a rounding edge, so one
-bf16 ulp (``rtol=2**-7``).
+bf16 ulp (``rtol=2**-7``).  The TopK scatter reduce adds the same fp32
+products ``w_c * val`` as its plain version and divides by the same weight
+sum: where the rows share no index it is bitwise, and on TopKCodec's wire
+two launches give the same bits.
 """
 import numpy as np
 import pytest
@@ -98,3 +101,78 @@ def test_cuda_quantize_nan_block_poisons_its_scale(cuda):
     assert torch.equal(s[keep], sr[keep])
     assert torch.equal(q.reshape(4, 256)[keep], qr.reshape(4, 256)[keep])
     assert torch.isnan(ops.dequantize_int8(q, s).reshape(4, 256)[1]).all()
+
+
+def _topk_payload(rng, c, k, n, *, disjoint=False):
+    """Canonical TopK wires: distinct indices, ascending in every row."""
+    if disjoint:
+        idx = rng.permutation(n)[: c * k].reshape(c, k)
+    else:
+        idx = np.stack([rng.choice(n, size=k, replace=False) for _ in range(c)])
+    idx = np.sort(idx, axis=1).astype(np.int32)
+    val = (rng.normal(size=(c, k)) * 1e-2).astype(np.float32)
+    w = rng.integers(10, 500, c).astype(np.float32)
+    return _t(idx), _t(val), _t(w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,n", [(4, 19_743, 1_974_303), (64, 19_743, 1_974_303), (3, 50, 8193)])
+def test_cuda_topk_scatter_reduce(cuda, c, k, n):
+    rng = np.random.default_rng(c + k)
+    idx, val, w = (t.to(cuda) for t in _topk_payload(rng, c, k, n))
+    before = ops.launch_counts()["topk_scatter_reduce"]
+    out = ops.topk_scatter_reduce(idx, val, w, n)
+    assert ops.launch_counts()["topk_scatter_reduce"] == before + 1
+    torch.testing.assert_close(out, ref.topk_scatter_reduce(idx, val, w, n), **TOL)
+    # canonical wire: the same bits on every launch
+    assert torch.equal(out, ops.topk_scatter_reduce(idx, val, w, n))
+    # disjoint rows: one term a coordinate, the plain version's bits
+    idx, val, w = (t.to(cuda) for t in _topk_payload(rng, c, min(k, n // c), n, disjoint=True))
+    assert torch.equal(ops.topk_scatter_reduce(idx, val, w, n), ref.topk_scatter_reduce(idx, val, w, n))
+
+
+@pytest.mark.cuda
+def test_cuda_topk_scatter_reduce_foreign_wires(cuda):
+    """Unsorted rows, repeated and out-of-range indices: every in-range
+    term lands, nothing wraps; zero weights and empty payloads give zeros."""
+    rng = np.random.default_rng(5)
+    n = 20_000
+    idx = rng.integers(0, n, (5, 300)).astype(np.int32)  # unsorted, with repeats
+    idx[1, :10] = [-1, n, 2**31 - 1, -(2**31), 0, 0, n - 1, n - 1, 5, 5]
+    val = (rng.normal(size=(5, 300)) * 1e-2).astype(np.float32)
+    w = rng.integers(10, 500, 5).astype(np.float32)
+    idx, val, w = (_t(a).to(cuda) for a in (idx, val, w))
+    torch.testing.assert_close(ops.topk_scatter_reduce(idx, val, w, n),
+                               ref.topk_scatter_reduce(idx, val, w, n), **TOL)
+    out = ops.topk_scatter_reduce(torch.tensor([[0, -1, 256, 5, 2**30, 255]], dtype=torch.int32,
+                                               device=cuda), torch.ones(1, 6, device=cuda),
+                                  torch.ones(1, device=cuda), 256)
+    exp = torch.zeros(256, device=cuda)
+    exp[[0, 5, 255]] = 1.0
+    assert torch.equal(out, exp)
+    zero = ops.topk_scatter_reduce(idx, val, torch.zeros_like(w), n)
+    assert not zero.any() and not zero.isnan().any()
+    for c, k in ((3, 0), (0, 7)):
+        empty = ops.topk_scatter_reduce(torch.zeros(c, k, dtype=torch.int32, device=cuda),
+                                        torch.zeros(c, k, device=cuda), torch.ones(c, device=cuda), n)
+        assert empty.shape == (n,) and not empty.any()
+
+
+@pytest.mark.cuda
+def test_cuda_topk_scatter_reduce_dense_tiles_and_many_rows(cuda):
+    """The kernel's long paths on canonical wires: a row with more entries
+    in one 8192-float tile than a CTA has threads, and more client rows
+    than one group of 256."""
+    rng = np.random.default_rng(9)
+    n = 20_000
+    idx = np.stack([np.sort(rng.choice(8192 + 100, size=3000, replace=False)) for _ in range(3)])
+    cases = [(idx.astype(np.int32), 3, 3000)]
+    idx = np.stack([np.sort(rng.choice(n, size=40, replace=False)) for _ in range(300)])
+    cases.append((idx.astype(np.int32), 300, 40))
+    for idx, c, k in cases:
+        val = (rng.normal(size=(c, k)) * 1e-2).astype(np.float32)
+        w = rng.integers(10, 500, c).astype(np.float32)
+        idx, val, w = (_t(a).to(cuda) for a in (idx, val, w))
+        out = ops.topk_scatter_reduce(idx, val, w, n)
+        torch.testing.assert_close(out, ref.topk_scatter_reduce(idx, val, w, n), **TOL)
+        assert torch.equal(out, ops.topk_scatter_reduce(idx, val, w, n))

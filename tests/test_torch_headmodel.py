@@ -104,6 +104,19 @@ def test_build_model_runs_on_the_card_unless_asked():
         ), device="cpu")
 
 
+def test_init_params_runs_on_the_card_unless_asked():
+    from repro_torch.configs.mobilenet_head_office31 import HEAD_CONFIG
+    from repro_torch.models import headmodel
+
+    cfg = HEAD_CONFIG.reduced()
+    params = headmodel.init_params(cfg, seed=3, device="cpu")
+    assert all(t.device.type == "cpu" for t in tree_leaves(params))
+    assert params["head"]["w1"].shape == (cfg.feature_dim, cfg.hidden_dim)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            headmodel.init_params(cfg, seed=3)
+
+
 def test_data_shards_and_batch_stream_bitwise():
     """Same seed -> bitwise the same features, Dirichlet shards and
     per-client batch stream (the numpy parts are copies)."""
