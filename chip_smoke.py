@@ -10,9 +10,11 @@ Phases (any failure exits non-zero):
 1. build the hand-written kernels from csrc/ (one nvcc per source, in
    parallel) and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, at C=64, at a ragged N, with all-zero weights and
+   main path's shapes, at C=64, at a ragged N, with all-zero weights,
    (topk_scatter_reduce) on disjoint, repeated, unsorted, out-of-range and
-   empty payloads and twice on one payload, and time kernel (through its
+   empty payloads and twice on one payload, and (collective_pack /
+   collective_unpack) at every head-model leaf size on half-way points,
+   NaN and a sum of 4 ranks' codes, and time kernel (through its
    ops wrapper, and as a bare launch), plain version and the library call
    where there is one;
 3. drive the paper's Flower loop at the full width of
@@ -32,7 +34,16 @@ Phases (any failure exits non-zero):
    sequential, each with the Null, Int8 and TopK codecs: 8 clients, 8 local
    steps of batch 32, tau budgets 2-8, one client dropped in round 2, with
    launch counts per round, host seconds per round and the card's busy
-   time in a profiled fourth round.
+   time in a profiled fourth round;
+7. the mesh round step at full width: 4 ranks on the one card over gloo
+   (NCCL takes one rank per card), a ("pod", 2) x ("data", 2) client mesh,
+   one client per rank, 3 rounds each of Int8 x fp32 collective, Int8 x
+   int8 collective (rank 0 masked in round 2), Null x int8 and TopK x fp32,
+   with launch counts per rank and round, every round of every case held
+   against the vmap fp32 round step from the same state (within bounds
+   set a priori: for the int8 collective half a shared block scale per
+   live client and residual), the held-out eval loss, a profiled fourth
+   round; then a 1 x 1 mesh on NCCL, held the same way.
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
@@ -154,6 +165,9 @@ def kernel_phase(rng) -> dict:
               max_abs_err=dq_err)
         if label != "main":
             continue
+        lib = torch.mul(q.view(-1, BLOCK), s[:, None]).reshape(-1)
+        check(f"dequantize_int8's library call (q.view(-1, 256) * s[:, None]) bitwise "
+              f"[Np={x.numel()}]", torch.equal(lib, xr))
         qo, so, xo = torch.empty_like(q), torch.empty_like(s), torch.empty_like(xd)
         b_ms, b_by = bound(nbytes(x, q, s), 6 * x.numel())
         rows["quantize_int8"] = dict(
@@ -176,7 +190,8 @@ def kernel_phase(rng) -> dict:
             launch_ms=time_ms(launch("quantize", "repro_dequantize_int8", "dequantize_int8",
                                      q.data_ptr(), s.data_ptr(), xo.data_ptr(), n_blocks)),
             plain_ms=time_ms(lambda: ref.dequantize_int8(q, s)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.mul(q.view(-1, BLOCK), s[:, None])),
             shape=f"q ({q.numel()},) int8", bytes=nbytes(q, s, xd),
         )
 
@@ -256,6 +271,105 @@ def kernel_phase(rng) -> dict:
         else:
             REPORT["timings"].append({"name": "fedavg_reduce", "case": label, **row})
     rows["topk_scatter_reduce"] = topk_kernel_checks(dev, tol, launch)
+    rows.update(collective_kernel_checks(dev, launch))
+    return rows
+
+
+# the head model's leaves padded to 256 (base.w, head.b1, head.b2, head.w1,
+# head.w2), then the padded total Np
+COLLECTIVE_SIZES = (1_638_400, 256, 256, 327_680, 8_192, 1_974_528)
+
+
+def collective_edge_values(rng, n: int, dev):
+    """x and power-of-two scales (so (k + 1/2) * s is exact): half-way
+    points, zeros, +-127 s, values past it, NaN and inf, and one block zero
+    with scale 1."""
+    nb = n // BLOCK
+    s = (2.0 ** rng.integers(-14, 0, nb)).astype(np.float32)
+    k = rng.integers(-140, 140, (nb, BLOCK)) + np.where(rng.random((nb, BLOCK)) < 0.5, 0.5, 0.0)
+    x = (k * s[:, None]).astype(np.float32)
+    x[:, :8] = np.asarray([0.0, -0.0, 127.0, -127.0, 127.5, -128.5, np.nan, np.inf],
+                          np.float32) * s[:, None]
+    if nb > 1:
+        x[-1], s[-1] = 0.0, 1.0
+    return torch.from_numpy(x.reshape(-1)).to(dev), torch.from_numpy(s).to(dev)
+
+
+def collective_kernel_checks(dev, launch) -> dict:
+    """collective_pack / collective_unpack against their plain versions at
+    every head-model leaf size and at Np: bitwise on edge values, on four
+    ranks' update-like values against their shared scales, and on the int32
+    sum of the four; the sum exact to one fp32 rounding; timed at the
+    largest leaf."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(14)
+    rows = {}
+    for n in COLLECTIVE_SIZES:
+        x, s = collective_edge_values(rng, n, dev)
+        q = ops.collective_pack(x, s)
+        check(f"collective_pack bitwise on half-way points, zeros, +-127 s, NaN, inf [N={n}]",
+              torch.equal(q, ref.collective_pack(x, s)),
+              codes_differing=int((q != ref.collective_pack(x, s)).sum()))
+        check(f"collective_unpack bitwise on those codes [N={n}]",
+              torch.equal(ops.collective_unpack(q, s), ref.collective_unpack(q, s)))
+        xs = delta_like(rng, (4, n), dev)
+        am = xs.abs().reshape(4, -1, BLOCK).amax(dim=(0, 2))  # the MAX all-reduce
+        s = torch.where(am == 0, torch.ones_like(am), am / torch.full_like(am, 127.0))
+        qs = [ops.collective_pack(x, s) for x in xs]
+        pack_err = max(int((q - ref.collective_pack(x, s)).abs().max()) for x, q in zip(xs, qs))
+        check(f"collective_pack bitwise on 4 ranks' values, shared scales [N={n}]",
+              pack_err == 0, max_abs_err=pack_err)
+        one = ops.collective_unpack(qs[0], s)
+        total = sum(qs)
+        summed = ops.collective_unpack(total, s)
+        unpack_err = max(float((one - ref.collective_unpack(qs[0], s)).abs().max()),
+                         float((summed - ref.collective_unpack(total, s)).abs().max()))
+        check(f"collective_unpack bitwise on one pack and on the int32 sum of 4 [N={n}]",
+              unpack_err == 0.0, max_abs_err=unpack_err)
+        each = sum(ref.collective_unpack(q, s) for q in qs)
+        # exactly summable: the int32 sum loses nothing, so unpack(sum) and
+        # sum(unpack) differ only by fp32 roundings: one of the total, and
+        # of the 4 products and 3 additions, each under 2**-24 x 4 x 127 s
+        sum_err = float(((summed - each).abs() / s.repeat_interleave(BLOCK)).max())
+        check(f"collective: unpack(sum of packs) = sum of unpacks within fp32 rounding [N={n}]",
+              sum_err <= 8 * 4 * 127 * 2.0 ** -24, max_err_in_scales=sum_err)
+        if n != COLLECTIVE_SIZES[0]:
+            continue
+        lib = torch.mul(total.view(-1, BLOCK), s[:, None]).reshape(-1)
+        check(f"collective_unpack's library call (q.view(-1, 256) * s[:, None]) bitwise [N={n}]",
+              torch.equal(lib, ref.collective_unpack(total, s)))
+        x = xs[0]
+        qo, xo = torch.empty_like(q), torch.empty_like(one)
+        b_ms, b_by = bound(nbytes(x, s, qs[0]), 3 * n)
+        rows["collective_pack"] = dict(
+            source="src/repro_torch/kernels/csrc/collective_quant.cu",
+            replaces="src/repro/kernels/collective_quant.py:57",
+            max_abs_err=float(pack_err),
+            ms=time_ms(lambda: ops.collective_pack(x, s)),
+            launch_ms=time_ms(launch("collective_quant", "repro_collective_pack",
+                                     "collective_pack", x.data_ptr(), s.data_ptr(),
+                                     qo.data_ptr(), n // BLOCK)),
+            plain_ms=time_ms(lambda: ref.collective_pack(x, s)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"x ({n},) fp32 (base.w)", bytes=nbytes(x, s, qs[0]),
+        )
+        b_ms, b_by = bound(nbytes(total, s, summed), n)
+        rows["collective_unpack"] = dict(
+            source="src/repro_torch/kernels/csrc/collective_quant.cu",
+            replaces="src/repro/kernels/collective_quant.py:85",
+            max_abs_err=unpack_err,
+            ms=time_ms(lambda: ops.collective_unpack(total, s)),
+            launch_ms=time_ms(launch("collective_quant", "repro_collective_unpack",
+                                     "collective_unpack", total.data_ptr(), s.data_ptr(),
+                                     xo.data_ptr(), n // BLOCK)),
+            plain_ms=time_ms(lambda: ref.collective_unpack(total, s)),
+            bound_ms=b_ms, bound_by=b_by,
+            # one PyTorch call computes it: the int32 -> fp32 promotion and
+            # one rounded product per element, bitwise the plain version
+            library_ms=time_ms(lambda: torch.mul(total.view(-1, BLOCK), s[:, None])),
+            shape=f"q ({n},) int32 (base.w)", bytes=nbytes(total, s, summed),
+        )
     return rows
 
 
@@ -575,7 +689,8 @@ def reduced_parity_phase(fleet=PROFILE_FLEET) -> None:
 
 
 PORT_KERNELS = ("quantize_int8_kernel", "dequant_reduce_kernel", "fedavg_reduce_kernel",
-                "topk_index_rows", "topk_scatter_tiles")
+                "topk_index_rows", "topk_scatter_tiles", "collective_pack_kernel",
+                "collective_unpack_kernel")
 
 
 def device_time(prof) -> tuple[float, dict]:
@@ -741,6 +856,389 @@ def round_engine_phase(card: str) -> dict:
     return out
 
 
+# ---------------- phase 7: the mesh round step ----------------
+MESH_AXES = ("pod", "data")
+MESH_C, MESH_STEPS, MESH_B = 4, 8, 32
+MESH_BUDGETS = [8, 7, 6, 5]
+MESH_CASES = (("fp32", "Int8Codec"), ("int8", "Int8Codec"), ("int8", "NullCodec"),
+              ("fp32", "TopKCodec"))
+MESH_MASKED = ("int8", "Int8Codec")   # rank 0 sits out its round 2
+# launches per rank per round: (quantize, dequantize, collective_pack,
+# collective_unpack); every other kernel 0
+MESH_LAUNCHES = {("fp32", "Int8Codec"): (1, 1, 0, 0), ("int8", "Int8Codec"): (1, 1, 5, 10),
+                 ("int8", "NullCodec"): (0, 0, 5, 10), ("fp32", "TopKCodec"): (0, 0, 0, 0)}
+TRANSPORT = "gloo, host-staged, 4 ranks on one card"
+
+
+def mesh_codec(name):
+    from repro_torch.core import Int8Codec, NullCodec, TopKCodec
+
+    return {"NullCodec": NullCodec, "Int8Codec": Int8Codec, "TopKCodec": TopKCodec}[name]()
+
+
+def mesh_mask(case, rnd: int, c: int = MESH_C):
+    """The clients' mask of a mesh round: in MESH_MASKED's round 2 client 0
+    sits out; otherwise None (every client takes part)."""
+    if case == MESH_MASKED and rnd == 1 and c == MESH_C:
+        return np.asarray([0.0] + [1.0] * (c - 1), np.float32)
+    return None
+
+
+def mesh_inputs(model, dev):
+    """The round engine's data for C = 4 clients (8 local steps of batch
+    32), their weights and tau budgets, and an evaluation batch held out
+    from the same draw (same class centres)."""
+    from repro_torch.data.synthetic import make_features
+
+    c, steps, b = MESH_C, MESH_STEPS, MESH_B
+    n_train, n_eval = c * steps * b, 512
+    data = make_features(n=n_train + n_eval, num_classes=31,
+                         feature_dim=model.cfg.feature_dim, seed=1)
+    x, y = data.x[:n_train], data.y[:n_train]
+    batches = {"x": torch.from_numpy(x.reshape(c, steps, b, -1)).to(dev),
+               "y": torch.from_numpy(y.reshape(c, steps, b)).to(dev)}
+    weights = torch.from_numpy(np.random.default_rng(2).integers(50, 400, c).astype(np.float32)).to(dev)
+    budgets = torch.tensor(MESH_BUDGETS, dtype=torch.int32, device=dev)
+    return batches, weights, budgets, {"x": torch.from_numpy(data.x[n_train:]).to(dev),
+                                       "y": torch.from_numpy(data.y[n_train:]).to(dev)}
+
+
+def mesh_rank(mesh, cases, n_rounds: int, profiled: bool) -> dict:
+    """One rank of phase 7: the full-width head model, this rank's client,
+    ``n_rounds`` rounds of every (collective, codec) case with the launch
+    counts set to 0 before each round and read after it, then (with
+    ``profiled``) one more round, rank 0's under torch.profiler.  Returns
+    host data only: per round the host seconds, launches and metrics,
+    rank 0's new global, this rank's uplink residual row, and for the int8
+    collective rank 0's shared block scales and the largest |residual| /
+    (scale / 2) of this rank's new collective residual row; the final
+    global's digest and eval loss."""
+    import hashlib
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import FedAvg, RoundSpec, init_collective_residual, make_round_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import tree_flatten_to_vector, tree_leaves, tree_map, tree_size
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = build_model("mobilenet-head-office31", device=dev)
+    params = model.init(0)
+    n = tree_size(params)
+    batches, weights, budgets, ev = mesh_inputs(model, dev)
+    r = mesh.rank
+
+    # read the shared scales each collective_pack is given (one per model
+    # leaf); the launch and its count stay the package's own
+    packed, pack = [], ops.collective_pack
+
+    def logged_pack(x, scales):
+        packed.append(scales)
+        return pack(x, scales)
+
+    ops.collective_pack = logged_pack
+
+    def mine(t):
+        return tree_map(lambda x: x[r:r + 1], t)
+
+    def flat(tree):
+        return tree_flatten_to_vector(tree).cpu().numpy()
+
+    out = {}
+    for collective, name in cases:
+        codec = mesh_codec(name)
+        step = make_round_step(
+            model.loss_fn, sgd(0.1), FedAvg(),
+            RoundSpec(max_steps=MESH_STEPS, execution_mode="parallel", codec=codec,
+                      collective=collective),
+            trainable_mask=model.trainable_mask(params), mesh=mesh, client_axes=MESH_AXES,
+        )
+        state = codec.init_client_state(1, n, device=dev)
+        if collective == "int8":
+            state = (state, init_collective_residual(params, 1))
+        g = params
+        rec = {"host_s": [], "launches": [], "metrics": [], "params": [], "codec_rows": [],
+               "scales": [], "resid_over_half_scale": []}
+        for rnd in range(n_rounds):
+            m = mesh_mask((collective, name), rnd)
+            mask = None if m is None else torch.tensor(m[r:r + 1], device=dev)
+            state_in = state
+            torch.cuda.synchronize()
+            dist.barrier()
+            packed.clear()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            g, _, state, met = step(g, (), state, mine(batches), mine(weights), mine(budgets),
+                                    rnd, mask)
+            torch.cuda.synchronize()
+            rec["host_s"].append(time.perf_counter() - t0)
+            rec["launches"].append(ops.launch_counts())
+            rec["metrics"].append({k: float(v) for k, v in met.items()})
+            if mask is not None:
+                pairs = list(zip(tree_leaves(state_in), tree_leaves(state), strict=True))
+                rec["masked_rows_same"] = all(torch.equal(a, b) for a, b in pairs)
+                rec["rows_changed"] = any(not torch.equal(a, b) for a, b in pairs)
+            if r == 0:
+                rec["params"].append(flat(g))
+            codec_state, coll = state if collective == "int8" else (state, None)
+            rec["codec_rows"].append(flat(codec_state) if tree_leaves(codec_state) else None)
+            if coll is not None:
+                if r == 0:
+                    rec["scales"].append([sc.cpu().numpy() for sc in packed])
+                if m is None or m[r] > 0:
+                    # round-half-even leaves |eff - code * s| <= s / 2
+                    rec["resid_over_half_scale"].append(max(
+                        float((row.reshape(-1).abs()
+                               / (sc.repeat_interleave(BLOCK)[:row.numel()] / 2)).max())
+                        for row, sc in zip(tree_leaves(coll), packed, strict=True)))
+        flat_g = tree_flatten_to_vector(g)
+        rec["params_sha"] = hashlib.sha256(flat_g.cpu().numpy().tobytes()).hexdigest()
+        rec["eval_loss"] = float(model.loss_fn(g, ev)[0])
+        if profiled:
+            prof = profile(activities=[ProfilerActivity.CUDA]) if r == 0 else None
+            torch.cuda.synchronize()
+            dist.barrier()
+            if prof is not None:
+                prof.start()
+            t0 = time.perf_counter()
+            step(g, (), state, mine(batches), mine(weights), mine(budgets), n_rounds, None)
+            torch.cuda.synchronize()
+            round_s = time.perf_counter() - t0
+            if prof is not None:
+                prof.stop()
+                busy_us, by_kernel = device_time(prof)
+                rec["profile"] = {
+                    "round_s": round_s, "busy_ms": busy_us / 1e3,
+                    "idle_share_vs_last_round": 1.0 - busy_us / 1e6 / rec["host_s"][-1],
+                    "memcpy_dtoh_us": sum(us for k, us in by_kernel.items() if "DtoH" in k),
+                    "memcpy_htod_us": sum(us for k, us in by_kernel.items() if "HtoD" in k),
+                    "port_kernels_us": sum(us for k, us in by_kernel.items()
+                                           if any(p in k for p in PORT_KERNELS)),
+                    "top": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6],
+                }
+        out[(collective, name)] = rec
+    if profiled:
+        out["breakdown"] = mesh_breakdown(mesh, model, params, mine(batches), mine(budgets))
+    return out
+
+
+def mesh_breakdown(mesh, model, params, batches, budgets) -> dict:
+    """Where a mesh round's host seconds go, each part synchronized, the
+    median of 5: one client's local update alone, and the fp32 collective's
+    transport alone (every leaf's all-reduce over both tiers, inner first,
+    on the card's tensors)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import RoundSpec, make_client_update
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    update = make_client_update(model.loss_fn, sgd(0.1),
+                                RoundSpec(max_steps=MESH_STEPS, execution_mode="parallel"),
+                                model.trainable_mask(params))
+    groups = mesh.tier_groups(MESH_AXES)
+    local, transport = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update(params, tree_map(lambda x: x[0], batches), budgets[0])
+        torch.cuda.synchronize()
+        local.append(time.perf_counter() - t0)
+        leaves = [x.clone() for x in tree_leaves(params)]
+        dist.barrier()
+        t0 = time.perf_counter()
+        for x in leaves:
+            for group in reversed(groups):
+                dist.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        transport.append(time.perf_counter() - t0)
+    return {"local_update_s": statistics.median(local),
+            "fp32_allreduce_s": statistics.median(transport)}
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 7: the mesh round step at full width on a ("pod", 2) x
+    ("data", 2) mesh of 4 gloo ranks on the one card, each rank one client,
+    3 rounds of every case in MESH_CASES; then a 1 x 1 mesh on NCCL.  The
+    kernels were built by phase 1, so no rank compiles."""
+    from repro_torch.launch import run_local_mesh
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    ranks = run_local_mesh(mesh_rank, pod=2, data=2, backend="gloo", device="cuda",
+                           args=(MESH_CASES, 3, True), timeout_s=900)
+    wall = time.perf_counter() - t0
+    model = build_model("mobilenet-head-office31", device="cuda")
+    params = model.init(0)
+    batches, weights, budgets, ev = mesh_inputs(model, torch.device("cuda"))
+    out = {"wall_s": wall, "transport": TRANSPORT}
+    for case in MESH_CASES:
+        collective, name = case
+        recs = [rk[case] for rk in ranks]
+        label = f"mesh {collective} collective x {name}"
+        want = MESH_LAUNCHES[case]
+        got = [[(k["quantize_int8"], k["dequantize_int8"], k["collective_pack"],
+                 k["collective_unpack"]) for k in rec["launches"]] for rec in recs]
+        others = all(k[o] == 0 for rec in recs for k in rec["launches"]
+                     for o in ("fedavg_reduce", "dequant_reduce", "topk_scatter_reduce"))
+        check(f"{label}: launches per rank per round {want} (quantize, dequantize, "
+              "collective_pack, collective_unpack), no reduce kernel",
+              all(x == want for g in got for x in g) and others, launches=got[0])
+        check(f"{label}: the new global is the same on every rank",
+              len({rec["params_sha"] for rec in recs}) == 1)
+        losses = [m["client_loss_mean"] for m in recs[0]["metrics"]]
+        check(f"{label}: client loss finite and falling over 3 rounds",
+              all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], loss=losses)
+        if case == MESH_MASKED:
+            check(f"{label}: rank 0 masked in round 2 keeps its codec and collective "
+                  "residual rows bitwise; the live ranks' rows changed",
+                  recs[0]["masked_rows_same"] and all(rec["rows_changed"] for rec in recs[1:]))
+        if collective == "int8":
+            norms = [m["collective_residual_norm_mean"] for m in recs[0]["metrics"]]
+            check(f"{label}: collective residual bounded (round 3 <= 3 x round 1)",
+                  all(math.isfinite(x) for x in norms) and norms[-1] <= 3 * max(norms[0], 1e-12),
+                  collective_residual_norm_mean=norms)
+        vmap_reference(model, params, batches, weights, budgets, case, recs, label)
+        prof = recs[0]["profile"]
+        print(f"{label}: host s per round {[round(x, 4) for x in recs[0]['host_s']]} "
+              f"(rank 0; ranks' max {[round(max(rec['host_s'][i] for rec in recs), 4) for i in range(3)]}); "
+              f"profiled round: card busy {prof['busy_ms']:.3f} ms (the port's kernels "
+              f"{prof['port_kernels_us']:.1f} us, Memcpy DtoH {prof['memcpy_dtoh_us']:.1f} us, "
+              f"HtoD {prof['memcpy_htod_us']:.1f} us), idle {prof['idle_share_vs_last_round']:.4f} "
+              f"of round 3; {TRANSPORT} ({card})", flush=True)
+        out[f"{collective}/{name}"] = {
+            "host_s": [rec["host_s"] for rec in recs], "launches": got[0],
+            "metrics": recs[0]["metrics"], "eval_loss": recs[0]["eval_loss"], "profile": prof,
+        }
+    out["breakdown"] = ranks[0]["breakdown"]
+    print(f"mesh round parts (rank 0, median of 5): local update "
+          f"{out['breakdown']['local_update_s']:.4f} s, fp32 all-reduce of every leaf over "
+          f"both tiers {out['breakdown']['fp32_allreduce_s']:.4f} s; {TRANSPORT} ({card})",
+          flush=True)
+    # the eval batch is held out from the training draw, so training moves
+    # its loss: a collective that moved nothing would fail here
+    l_0 = float(model.loss_fn(params, ev)[0])
+    l_fp = ranks[0][("fp32", "Int8Codec")]["eval_loss"]
+    l_i8 = ranks[0][("int8", "Int8Codec")]["eval_loss"]
+    check("mesh: held-out eval loss falls over 3 rounds, and the int8 collective's is within "
+          "rel 5e-2 of fp32's (Int8 uplink)",
+          l_fp < l_0 and l_i8 < l_0 and abs(l_i8 - l_fp) <= 5e-2 * abs(l_fp),
+          eval_loss_init=l_0, eval_loss_int8=l_i8, eval_loss_fp32=l_fp)
+    out["eval_loss"] = {"init": l_0, "fp32": l_fp, "int8": l_i8}
+    out["launches"] = {k: sum(c[k] for case in MESH_CASES for c in ranks[0][case]["launches"])
+                       for k in ("collective_pack", "collective_unpack")}
+    out["nccl"] = nccl_single_rank(model, params, batches, weights, budgets, card)
+    print(f"mesh phase: {wall:.1f} s wall for the 4 gloo ranks, spawn included ({card})",
+          flush=True)
+    return out
+
+
+def vmap_reference(model, params, batches, weights, budgets, case, recs, label) -> None:
+    """Each round of a mesh case against the port's vmap-parallel round
+    step (no mesh, fp32 mean, C = len(recs), the same inputs), started from
+    the state the mesh round started from (its global and uplink residual
+    rows), so no difference carries into later rounds.
+
+    Params within rtol=atol=1e-6 plus two a-priori terms, over the weight
+    sum: an uplink code or TopK selection that differs (the two runs train
+    in different kernels; counted, at most 1e-4 of the entries) moves its
+    client's decoded delta by its residual's change (under one block scale:
+    both residuals are under half of it), times the client's weight; and
+    for the int8 collective, each live client's carried residual and new
+    residual, each at most half its shared block scale (round-half-even;
+    every rank checks its new row against that), 1e-4 for fp32 rounding."""
+    from repro_torch.core import FedAvg, RoundSpec, make_round_step
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import (
+        tree_flatten_to_vector, tree_leaves, tree_size, tree_unflatten_from_vector,
+    )
+
+    collective, name = case
+    c = len(recs)
+    codec = mesh_codec(name)
+    step = make_round_step(model.loss_fn, sgd(0.1), FedAvg(),
+                           RoundSpec(max_steps=MESH_STEPS, execution_mode="parallel", codec=codec),
+                           trainable_mask=model.trainable_mask(params))
+    dev = weights.device
+    n = tree_size(params)
+    sizes = [x.numel() for x in tree_leaves(params)]
+    g, state = params, codec.init_client_state(c, n, device=dev)
+    w = weights[:c].cpu().numpy().astype(np.float64)
+    s_in = np.zeros((c, n), np.float32)  # the scale behind each client's carried residual
+    if collective == "int8":
+        ratio = max(x for rec in recs for x in rec["resid_over_half_scale"])
+        check(f"{label}: every live rank's new collective residual within half its block "
+              "scale, every round", ratio <= 1 + 1e-4, max_resid_over_half_scale=ratio)
+    for rnd in range(len(recs[0]["params"])):
+        m = mesh_mask(case, rnd, c)
+        live = np.ones(c) if m is None else m.astype(np.float64)
+        g_v, _, state_v, met = step(g, (), state, {k: v[:c] for k, v in batches.items()},
+                                    weights[:c], budgets[:c], rnd,
+                                    None if m is None else torch.from_numpy(m).to(dev))
+        want = tree_flatten_to_vector(g_v).cpu().numpy()
+        got = recs[0]["params"][rnd]
+        allowed, info = np.zeros(n), {}
+        if recs[0]["codec_rows"][rnd] is not None:
+            rows = np.stack([rec["codec_rows"][rnd] for rec in recs])
+            gap = np.abs(rows - state_v.cpu().numpy())
+            differs = gap > 1e-6 + 1e-6 * np.abs(rows)
+            info["uplink_entries_differing"] = int(differs.sum())
+            check(f"{label}: round {rnd + 1}: uplink codes differing from the vmap round's "
+                  "at most 1e-4 of the entries",
+                  differs.sum() <= 1e-4 * rows.size, **info)
+            allowed += (w * live) @ (gap * differs)
+            state = torch.from_numpy(rows).to(dev)
+        if collective == "int8":
+            s_now = np.concatenate([np.repeat(sc, BLOCK)[:k] for sc, k in
+                                    zip(recs[0]["scales"][rnd], sizes, strict=True)])
+            allowed += (live[:, None] * (s_in + s_now[None, :])).sum(axis=0) / 2 * (1 + 1e-4)
+            s_in = np.where(live[:, None] > 0, s_now[None, :], s_in)
+        wsum = float((w * live).sum())
+        err = np.abs(got - want)
+        bound = 1e-6 + 1e-6 * np.abs(want) + allowed / wsum
+        check(f"{label}: round {rnd + 1} = the vmap fp32 round from the same state within "
+              "rtol=atol=1e-6 + the a-priori terms",
+              bool(np.all(err <= bound)), max_abs_err=float(err.max()),
+              worst_err_over_bound=float((err / bound).max()), **info)
+        m_mesh, m_vmap = recs[0]["metrics"][rnd], {k: float(v) for k, v in met.items()}
+        extra = {"collective_residual_norm_mean"} if collective == "int8" else set()
+        check(f"{label}: round {rnd + 1} metrics = the vmap round's (rtol 1e-5)",
+              set(m_mesh) == set(m_vmap) | extra and all(
+                  math.isclose(m_mesh[k], m_vmap[k], rel_tol=1e-5) for k in m_vmap),
+              mesh=m_mesh, vmap=m_vmap)
+        g = tree_unflatten_from_vector(torch.from_numpy(got).to(dev), params)
+
+
+def nccl_single_rank(model, params, batches, weights, budgets, card) -> dict:
+    """A 1 x 1 mesh on NCCL (one rank, client 0), one round of each
+    collective with the Null uplink, against the C = 1 vmap round
+    (``vmap_reference``): fp32 within rtol=atol=1e-6; int8 within that
+    plus half the block scale over the weight, what one rank's pack ->
+    unpack may round away."""
+    from repro_torch.launch import run_local_mesh
+
+    cases = (("fp32", "NullCodec"), ("int8", "NullCodec"))
+    t0 = time.perf_counter()
+    (rank,) = run_local_mesh(mesh_rank, pod=1, data=1, backend="nccl", device="cuda",
+                             args=(cases, 1, False), timeout_s=600)
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall}
+    for case in cases:
+        rec = rank[case]
+        vmap_reference(model, params, batches, weights, budgets, case, [rec],
+                       f"nccl 1x1 mesh, {case[0]} collective")
+        check(f"nccl 1x1 mesh, {case[0]} collective: launches",
+              rec["launches"][0]["collective_pack"] == (5 if case[0] == "int8" else 0),
+              launches=rec["launches"][0])
+        out[case[0]] = {"host_s": rec["host_s"]}
+    print(f"nccl 1x1 mesh: host s per round fp32 {out['fp32']['host_s'][0]:.4f}, int8 "
+          f"{out['int8']['host_s'][0]:.4f}; {wall:.1f} s wall with spawn ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=Path("smoke_out"),
@@ -775,6 +1273,7 @@ def main() -> int:
     REPORT["profile"] = profile_phase(card, args.out)
     REPORT["profile_mixed_fleet"] = profile_phase(card, args.out, MIXED_FLEET)
     REPORT["engine"] = round_engine_phase(card)
+    mesh = REPORT["mesh"] = mesh_phase(card)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):
@@ -783,11 +1282,15 @@ def main() -> int:
 
     kernels = []
     for name in ("quantize_int8", "dequantize_int8", "dequant_reduce", "fedavg_reduce",
-                 "topk_scatter_reduce"):
+                 "topk_scatter_reduce", "collective_pack", "collective_unpack"):
         r = rows[name]
         # each kernel's launches on the path that runs it: phase 3's loop,
-        # and for the TopK reduce phase 3b's mixed fleet
-        launches = (mixed if name == "topk_scatter_reduce" else loop)["launches"][name]
+        # for the TopK reduce phase 3b's mixed fleet, for the collective
+        # kernels phase 7's mesh (rank 0, rounds 1-3 of every case)
+        path = {"topk_scatter_reduce": mixed, "collective_pack": mesh,
+                "collective_unpack": mesh}.get(name, loop)
+        launches = path["launches"][name]
+        check(f"{name} launched on its path", launches > 0, launches=launches)
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
             "launches": launches, "max_abs_err": r["max_abs_err"],

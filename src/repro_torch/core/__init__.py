@@ -15,7 +15,9 @@ from .scheduler import (
 )
 from .compression import (
     UpdateCodec, Int8Codec, NullCodec, TopKCodec, BandwidthCodecPolicy,
-    compress_update, decompress_update,
+    CompressedPsum, fp32_collective_bytes, compress_update, decompress_update,
 )
 from .strategy import Strategy, FedAvg
-from .rounds import RoundSpec, make_client_update, make_round_step
+from .rounds import (
+    RoundSpec, init_collective_residual, make_client_update, make_round_step,
+)

@@ -26,17 +26,22 @@ residual in, encode the (C, N) deltas, reduce straight off the encoded
 payload, return the new residual) and ``transmit_tree`` (one client's
 encode -> decode, for the sequential mode).
 
+One layer down, ``CompressedPsum`` is the wire of the mesh round step's
+all-reduce (``collective="int8"``): each rank's partial weighted sum as
+int8-valued codes on a block scale shared by every rank.
+
 Not ported yet (ROADMAP.md): the segmented wire and ``LoRACodec`` /
-``MixedCodec`` (queue 1 item 12) and ``CompressedPsum`` (queue 1 item 13).
+``MixedCodec`` (queue 1 item 12).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, ClassVar
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
@@ -365,6 +370,81 @@ class BandwidthCodecPolicy:
         if properties.uplink_mbps < self.topk_below_mbps:
             return self.topk
         return self.int8
+
+
+# ---------------- compressed collective: the mesh all-reduce's wire ----------------
+@dataclass(frozen=True)
+class CompressedPsum:
+    """int8 wire-compressed hierarchical all-reduce for the mesh round step.
+
+    The twin of ``repro.core.compression.CompressedPsum``, with
+    ``torch.distributed`` process groups in place of shard_map's axes.  Per
+    operand (one model leaf):
+
+    1. fold in this rank's error-feedback residual: ``eff = wx + r``;
+    2. per-256-block absmax of ``eff``, then a MAX all-reduce over every
+       tier's group, inner tier first: a 4-byte-a-block sidecar that makes
+       the scale a collective decision, so every rank rounds against the
+       same grid and the codes sum exactly;
+    3. ``ops.collective_pack``: int8-valued codes in an int32 container
+       (|q| <= 127, so the int32 sum cannot overflow below a 2**31/127
+       ~= 16.9M fan-in);
+    4. a SUM all-reduce of the codes per tier, inner tier first (the fp32
+       path's hop order);
+    5. one ``ops.collective_unpack`` after the last hop.
+
+    The residual ``eff - unpack(pack(eff))`` stays on the rank that made
+    it, so the quantized sum telescopes across rounds like the uplink
+    codecs' error feedback.  ``groups`` are the tiers' process groups
+    ordered outer -> inner like the mesh's client axes; an empty sequence
+    reduces over nothing (one rank).  The block is the kernels' 256.
+    """
+
+    block: ClassVar[int] = ops.BLOCK
+
+    def shared_scales(self, eff: torch.Tensor, groups) -> torch.Tensor:
+        """Per-block scales agreed across the reducing ranks: the MAX of the
+        local block absmax over every tier, / 127 (a division by a tensor:
+        CUDA's ``tensor / python_scalar`` multiplies by the reciprocal),
+        zero -> 1."""
+        absmax = eff.abs().reshape(-1, self.block).amax(dim=1)
+        for group in reversed(tuple(groups)):
+            dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+        scale = absmax / torch.full_like(absmax, 127.0)
+        return torch.where(absmax == 0.0, torch.ones_like(scale), scale)
+
+    def psum(self, wx: torch.Tensor, residual: torch.Tensor, groups):
+        """One operand's compressed hierarchical all-reduce.
+
+        ``wx``: (n,) fp32, this rank's partial weighted sum; ``residual``:
+        (n,) fp32, its error-feedback carry (zeros for a masked rank: the
+        caller owns participation).  Returns ``(total, new_residual)``: the
+        fp32 sum over ranks of the quantized ``wx + residual``, and this
+        rank's next residual."""
+        n = wx.shape[0]
+        pad = (-n) % self.block
+        eff = wx + residual
+        effp = F.pad(eff, (0, pad)) if pad else eff
+        scales = self.shared_scales(effp, groups)
+        q = ops.collective_pack(effp, scales)
+        # what THIS rank's codes contribute; the gap is next round's residual
+        sent = ops.collective_unpack(q, scales)[:n]
+        for group in reversed(tuple(groups)):
+            dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+        total = ops.collective_unpack(q, scales)[:n]
+        return total, eff - sent
+
+    def collective_bytes(self, n: int) -> int:
+        """Bytes ONE rank moves across ONE hop for an n-element operand:
+        the int8 payload (1 B/elem; int32 is the accumulator, not the wire),
+        the fp32 scale sidecar and the 4-byte fp32 weight denominator."""
+        return int(n) + 4 * math.ceil(int(n) / self.block) + 4
+
+
+def fp32_collective_bytes(n: int) -> int:
+    """The uncompressed counterpart of ``CompressedPsum.collective_bytes``:
+    the fp32 payload + the same 4-byte weight-denominator sidecar a hop."""
+    return 4 * int(n) + 4
 
 
 def compress_update(

@@ -31,9 +31,27 @@ Modes:
 - **sequential**: one client at a time; each client's delta goes through
   ``codec.transmit_tree`` (encode -> decode) into a bf16 accumulator.
 
-Not ported yet (ROADMAP.md): the mesh mapping, ``execution_mode="fsdp"``
-and ``collective="int8"`` (queue 1 item 13), ``MixedCodec`` and segmented
-codecs (item 12), and ``make_multi_round_step`` (item 11).
+- **parallel + mesh** (``mesh=`` a ``launch.mesh.ClientMesh``): one
+  client per rank, as shard_map's ``per_client`` sees it.  Every rank calls
+  ``round_step`` with its own block: batches, weights, budgets and mask
+  with a leading axis of 1, and its own ``client_state`` row.  It trains
+  locally, sends its delta through ``codec.transmit_tree`` and
+  all-reduces the partial weighted sum ``decoded_delta * w`` over the
+  client axes' process groups, inner tier first; the weight denominator is
+  all-reduced alongside.  ``RoundSpec.collective`` is that all-reduce's
+  wire: ``"fp32"`` as is, ``"int8"`` through ``CompressedPsum`` (codes on
+  a block scale shared by every rank, summed exactly in int32, one
+  dequant after the last hop), with ``client_state = (codec_state,
+  collective_residual)`` (``init_collective_residual``).  A masked rank
+  transmits nothing, not even its carried collective residual, and keeps
+  both residual rows unchanged.  ``strategy.server_update`` runs on every
+  rank, and the metrics, computed from the per-client scalars gathered
+  over the world group, are the same on every rank.
+
+Not ported yet (ROADMAP.md): model axes inside a client (auto-sharded
+params), ``execution_mode="fsdp"``, the sequential mode on a mesh and the
+param-dim sharding of client state (queue 1 item 13), ``MixedCodec`` and
+segmented codecs (item 12), and ``make_multi_round_step`` (item 11).
 """
 from __future__ import annotations
 
@@ -41,13 +59,15 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim import Optimizer
 from repro_torch.utils.pytree import (
-    safe_weight_sum, tree_leaves, tree_map, tree_sq_norm, tree_sub, tree_where,
+    safe_weight_sum, tree_leaves, tree_map, tree_sq_norm, tree_sub, tree_unflatten,
+    tree_where,
 )
 
-from .compression import Int8Codec, NullCodec, TopKCodec
+from .compression import CompressedPsum, Int8Codec, NullCodec, TopKCodec
 from .strategy.base import Strategy
 
 PyTree = Any
@@ -62,7 +82,8 @@ class RoundSpec:
     prox_mu: float = 0.0         # FedProx proximal coefficient (0 = off)
     microbatches: int = 1        # gradient accumulation within one local step
     codec: Any = field(default_factory=NullCodec)  # UpdateCodec (wire format)
-    collective: str = "fp32"     # the mesh psum's wire ("int8": item 13)
+    # the mesh all-reduce's wire: "fp32" (default) or "int8" (CompressedPsum)
+    collective: str = "fp32"
 
 
 def make_client_update(
@@ -121,6 +142,18 @@ def make_client_update(
         return params, mean_loss, steps_done
 
     return client_update
+
+
+def init_collective_residual(global_params: PyTree, n_clients: int) -> PyTree:
+    """Zero error-feedback state of the int8 collective: one fp32 buffer
+    per model leaf with a leading client axis, on the params' device.  On
+    the mesh each rank holds its own row (``n_clients=1``), and
+    ``round_step`` takes ``client_state = (codec_state, this)``."""
+    return tree_map(
+        lambda g: torch.zeros((n_clients,) + tuple(g.shape), dtype=torch.float32,
+                              device=g.device),
+        global_params,
+    )
 
 
 def _state_metrics(new_client_state) -> dict:
@@ -183,18 +216,27 @@ def make_round_step(
     spec: RoundSpec,
     trainable_mask: PyTree | None = None,
     mesh=None,
+    client_axes: tuple[str, ...] = ("data",),
 ):
-    """Builds the uniform round_step (module docstring) for ``spec``.
+    """Builds the uniform round_step (module docstring) for ``spec``;
+    ``mesh`` (a ``launch.mesh.ClientMesh``) maps one client to each rank
+    along ``client_axes``.
 
     Aggregation is codec-mediated on both modes: the weighted mean of the
     codec-decoded deltas feeds ``strategy.server_update``."""
     codec = spec.codec if spec.codec is not None else NullCodec()
     if spec.collective not in ("fp32", "int8"):
         raise ValueError(f"RoundSpec.collective={spec.collective!r}: expected fp32 | int8")
-    if mesh is not None or spec.execution_mode == "fsdp" or spec.collective == "int8":
+    if spec.collective == "int8" and (mesh is None or spec.execution_mode != "parallel"):
         raise NotImplementedError(
-            "the mesh round step (a mesh, execution_mode='fsdp', collective='int8') "
-            "is not ported yet: ROADMAP.md queue 1 item 13"
+            "collective='int8' compresses the mesh all-reduce: it requires "
+            "execution_mode='parallel' with a mesh; the vmap and sequential modes "
+            "have no cross-rank collective to compress"
+        )
+    if spec.execution_mode == "fsdp" or (mesh is not None and spec.execution_mode != "parallel"):
+        raise NotImplementedError(
+            f"execution_mode={spec.execution_mode!r} with mesh={mesh!r} is not ported "
+            "yet: ROADMAP.md queue 1 item 13 (fsdp and the sequential mode on a mesh)"
         )
     if spec.execution_mode not in ("parallel", "sequential"):
         raise ValueError(
@@ -206,6 +248,9 @@ def make_round_step(
             "are not ported yet (ROADMAP.md queue 1 item 12)"
         )
     client_update = make_client_update(loss_fn, opt, spec, trainable_mask)
+
+    if mesh is not None:
+        return _make_mesh_round_step(client_update, codec, strategy, spec, mesh, client_axes)
 
     if spec.execution_mode == "parallel":
 
@@ -305,6 +350,129 @@ def make_round_step(
             "steps_total": steps_acc,
             **_state_metrics(new_client_state),
         }
+        return new_global, new_state, new_client_state, metrics
+
+    return round_step
+
+
+def _gather_rows(row: torch.Tensor) -> torch.Tensor:
+    """(k,) fp32 on every rank -> (world, k), row r from rank r (= client
+    r).  Built from one SUM all-reduce of a zero block holding this rank's
+    row, since gloo's CUDA path has no all_gather; adding zeros is exact."""
+    out = torch.zeros((dist.get_world_size(),) + tuple(row.shape), dtype=row.dtype,
+                      device=row.device)
+    out[dist.get_rank()] = row
+    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    return out
+
+
+def _row_norms(state_rows) -> torch.Tensor:
+    """This rank's residual norm per state leaf (leaves lead with 1)."""
+    leaves = [x for x in tree_leaves(state_rows) if x.dim() >= 2]
+    if not leaves:
+        return torch.zeros(0)
+    return torch.stack([torch.linalg.vector_norm(x.reshape(-1)) for x in leaves])
+
+
+def _make_mesh_round_step(client_update, codec, strategy, spec, mesh, client_axes):
+    """The parallel + mesh round step (module docstring): one client per
+    rank, the weighted delta all-reduced over the client axes."""
+    client_axes = tuple(client_axes)
+    groups = mesh.tier_groups(client_axes)
+    inside = [name for name, size in mesh.axes if name not in client_axes and size > 1]
+    if inside:
+        raise NotImplementedError(
+            f"mesh axes {inside} inside a client (auto-sharded params) are not ported "
+            "yet: ROADMAP.md queue 1 item 13"
+        )
+    cpsum = CompressedPsum() if spec.collective == "int8" else None
+
+    def all_reduce_tiers(t):
+        # hierarchical: inside the pod first, then across pods
+        for group in reversed(groups):
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+    def round_step(global_params, server_state, client_state, batches, weights,
+                   step_budgets, rnd, mask=None):
+        if weights.shape[0] != 1:
+            raise ValueError(
+                f"a mesh rank holds one client (leading axis 1), got {weights.shape[0]}"
+            )
+        codec_state, coll_resid = client_state if cpsum is not None else (client_state, None)
+        new_p, loss, steps = client_update(
+            global_params, tree_map(lambda x: x[0], batches), step_budgets[0]
+        )
+        # this client's uplink, encoded before anything crosses the mesh
+        delta = tree_map(lambda n, g: n.to(torch.float32) - g.to(torch.float32),
+                         new_p, global_params)
+        state_row = tree_map(lambda x: x[0], codec_state)
+        dec_delta, new_row = codec.transmit_tree(delta, state_row)
+        live = None if mask is None else mask[0] > 0
+        wf = weights[:1].to(torch.float32)
+        if live is not None:
+            # a dropped client never transmitted: its row carries unchanged,
+            # and its delta is zeroed BEFORE the all-reduce (zero weight
+            # alone would let a diverged client's 0 * NaN poison the sum)
+            new_row = tree_map(lambda n, o: torch.where(live, n, o), new_row, state_row)
+            dec_delta = tree_map(lambda d: torch.where(live, d, torch.zeros_like(d)), dec_delta)
+            wf = wf * mask[:1].to(torch.float32)
+        wsum = all_reduce_tiers(wf.clone())
+        wsum = torch.where(wsum == 0.0, torch.ones_like(wsum), wsum)  # safe_weight_sum
+        codec_rows = tree_map(lambda x: x[None], new_row)
+
+        if cpsum is None:
+            def leaf_avg(g, d):
+                wx = all_reduce_tiers(d.to(torch.float32) * wf)
+                return (g.to(torch.float32) + wx / wsum).to(g.dtype)
+
+            avg = tree_map(leaf_avg, global_params, dec_delta)
+            coll_rows, new_client_state = (), codec_rows
+        else:
+            # the int8 collective, leaf by leaf; a dropped rank sends nothing,
+            # not even its carried residual, and keeps its residual row
+            def leaf_sum(d, r):
+                wx = d.to(torch.float32).reshape(-1) * wf
+                r = r.reshape(-1)
+                r_in = r if live is None else torch.where(live, r, torch.zeros_like(r))
+                total, new_r = cpsum.psum(wx, r_in, groups)
+                if live is not None:
+                    new_r = torch.where(live, new_r, r)
+                return total.reshape(d.shape), new_r.reshape(d.shape)
+
+            resid_row = tree_map(lambda x: x[0], coll_resid)
+            pairs = [leaf_sum(d, r) for d, r in
+                     zip(tree_leaves(dec_delta), tree_leaves(resid_row), strict=True)]
+            sums = tree_unflatten(dec_delta, [p[0] for p in pairs])
+            avg = tree_map(lambda g, t: (g.to(torch.float32) + t / wsum).to(g.dtype),
+                           global_params, sums)
+            coll_rows = tree_unflatten(resid_row, [p[1][None] for p in pairs])
+            new_client_state = (codec_rows, coll_rows)
+        new_global, new_state = strategy.server_update(avg, global_params, server_state, rnd)
+
+        # the per-client scalars of every rank, for metrics that are the
+        # same on every rank and equal to the unsharded round step's
+        codec_norms, coll_norms = _row_norms(codec_rows), _row_norms(coll_rows)
+        dev = wf.device
+        scalars = [loss.to(torch.float32).reshape(1), steps.to(torch.float32).reshape(1),
+                   weights[:1].to(torch.float32)]
+        if mask is not None:
+            scalars.append(mask[:1].to(torch.float32))
+        rows = _gather_rows(torch.cat(scalars + [codec_norms.to(dev), coll_norms.to(dev)]))
+        losses, steps_all, weights_all = rows[:, 0], rows[:, 1], rows[:, 2]
+        k = 3 if mask is None else 4
+        metrics = _masked_metrics(
+            losses, steps_all.to(step_budgets.dtype), weights_all,
+            None if mask is None else rows[:, 3],
+        )
+        n_codec = codec_norms.shape[0]
+        if n_codec:
+            # leaf-major, as the unsharded step concatenates its rows
+            metrics["residual_norm_mean"] = torch.mean(rows[:, k:k + n_codec].T.reshape(-1))
+        if coll_norms.shape[0]:
+            metrics["collective_residual_norm_mean"] = torch.mean(
+                rows[:, k + n_codec:].T.reshape(-1)
+            )
         return new_global, new_state, new_client_state, metrics
 
     return round_step

@@ -4,4 +4,9 @@ Each kernel has: ``csrc/<file>.cu`` (the CUDA C++ source, built by
 ``_cuda`` with ``nvcc`` on first use), ``<file>.py`` (its wrapper: checks,
 allocation, launch, launch count), an entry in ``ops`` (CPU tensor ->
 ``ref``, CUDA tensor -> kernel) and a plain PyTorch version in ``ref``.
+Every kernel module is imported here, so attribute access never depends
+on what was imported before.
 """
+from . import (
+    collective_quant, dequant_reduce, fedavg_reduce, ops, quantize, ref, scatter_reduce,
+)

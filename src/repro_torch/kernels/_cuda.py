@@ -50,6 +50,10 @@ SIGNATURES = {
     "topk_scatter_reduce": {
         "repro_topk_scatter_reduce": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     },
+    "collective_quant": {
+        "repro_collective_pack": (_P, _P, _P, _I64, _P),
+        "repro_collective_unpack": (_P, _P, _P, _I64, _P),
+    },
 }
 
 # launches per kernel wrapper: each wrapper adds one where it launches its
@@ -57,6 +61,7 @@ SIGNATURES = {
 LAUNCHES = {
     "fedavg_reduce": 0, "quantize_int8": 0, "dequantize_int8": 0,
     "dequant_reduce": 0, "topk_scatter_reduce": 0,
+    "collective_pack": 0, "collective_unpack": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -13,6 +13,8 @@ import torch
 from repro_torch.utils.pytree import safe_weight_sum
 
 from . import _cuda, ref
+from .collective_quant import collective_pack as _pack_kernel
+from .collective_quant import collective_unpack as _unpack_kernel
 from .dequant_reduce import dequant_reduce as _dequant_reduce_kernel
 from .fedavg_reduce import fedavg_reduce as _fedavg_reduce_kernel
 from .quantize import BLOCK, dequantize_int8 as _dequantize_kernel
@@ -100,3 +102,20 @@ def dequantize_int8(q, scale, block: int = 256):
         _check_block(block)
         return _dequantize_kernel(q, scale)
     return ref.dequantize_int8(q, scale, block=block)
+
+
+# ---------------- compressed collective (the mesh all-reduce's wire) ----------------
+def collective_pack(x, scales):
+    """One rank's partial weighted sum against the SHARED per-256-block
+    scales (agreed by a MAX all-reduce) -> int32 codes in [-127, 127]."""
+    if _on_card(x, scales):
+        return _pack_kernel(x, scales)
+    return ref.collective_pack(x, scales, block=BLOCK)
+
+
+def collective_unpack(q, scales):
+    """int32 codes (one rank's, or their all-reduced sum) x shared
+    per-256-block scales -> fp32: the one dequant after the last hop."""
+    if _on_card(q, scales):
+        return _unpack_kernel(q, scales)
+    return ref.collective_unpack(q, scales, block=BLOCK)

@@ -65,6 +65,24 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, block: int = 256) -> t
     return (qf * scale[:, None]).reshape(-1)
 
 
+def collective_pack(x: torch.Tensor, scales: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """(N,) fp32 x (N/block,) shared scales -> int32 (N,):
+    clip(round_half_even(x / scale), -127, 127) per block, the scale an
+    input (never derived from x), the division a true IEEE division by a
+    tensor.  int32 is the all-reduce's accumulator type; the values fit
+    int8."""
+    xf = x.to(torch.float32).reshape(-1, block)
+    q = torch.round(xf / scales.to(torch.float32)[:, None]).clamp(-127, 127)
+    return q.reshape(-1).to(torch.int32)
+
+
+def collective_unpack(q: torch.Tensor, scales: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """int32 (N,) codes (one rank's or their sum) x (N/block,) scales ->
+    fp32 (N,)."""
+    qf = q.reshape(-1, block).to(torch.float32)
+    return (qf * scales.to(torch.float32)[:, None]).reshape(-1)
+
+
 def dequant_reduce(
     q: torch.Tensor,        # (C, N) int8 wire payload
     scales: torch.Tensor,   # (C, N/block) fp32 block scales

@@ -176,3 +176,53 @@ def test_cuda_topk_scatter_reduce_dense_tiles_and_many_rows(cuda):
         out = ops.topk_scatter_reduce(idx, val, w, n)
         torch.testing.assert_close(out, ref.topk_scatter_reduce(idx, val, w, n), **TOL)
         assert torch.equal(out, ops.topk_scatter_reduce(idx, val, w, n))
+
+
+# ---------------- collective_pack / collective_unpack ----------------
+def _shared_scales(xs):
+    """Scales as the MAX all-reduce agrees them: the block absmax over
+    every rank's values, / 127 by a tensor, zero -> 1."""
+    am = xs.abs().reshape(xs.shape[0], -1, 256).amax(dim=(0, 2))
+    s = am / torch.full_like(am, 127.0)
+    return torch.where(am == 0, torch.ones_like(s), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 8192, 327_680, 1_638_400, 1_974_528])
+def test_cuda_collective_pack_unpack_bitwise(cuda, n):
+    """The head model's leaf sizes padded to 256, and its padded total."""
+    rng = np.random.default_rng(n)
+    xs = _t(_delta(rng, (4, n))).to(cuda)
+    xs[:, :256] = 0.0  # a block zero on every rank: shared scale 0 -> 1
+    s = _shared_scales(xs)
+    before = ops.launch_counts()
+    qs = [ops.collective_pack(x, s) for x in xs]
+    after = ops.launch_counts()
+    assert after["collective_pack"] == before["collective_pack"] + 4
+    for x, q in zip(xs, qs):
+        assert q.dtype == torch.int32 and torch.equal(q, ref.collective_pack(x, s))
+        assert torch.equal(ops.collective_unpack(q, s), ref.collective_unpack(q, s))
+    total = sum(qs)
+    got = ops.collective_unpack(total, s)
+    assert torch.equal(got, ref.collective_unpack(total, s))
+    # exactly summable: one fp32 rounding per element apart
+    each = sum(ref.collective_unpack(q, s) for q in qs)
+    torch.testing.assert_close(got, each, rtol=0, atol=float(s.max()) * 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_collective_pack_edges(cuda):
+    """Half-way points (power-of-two scales make (k + 1/2) s exact), zeros,
+    +-127 s, values past it, NaN and inf: bitwise the plain version."""
+    rng = np.random.default_rng(7)
+    s = (2.0 ** rng.integers(-12, 2, 16)).astype(np.float32)
+    k = rng.integers(-140, 140, (16, 256)) + np.where(rng.random((16, 256)) < 0.5, 0.5, 0.0)
+    x = (k * s[:, None]).astype(np.float32)
+    x[:, :8] = np.asarray([0.0, -0.0, 127.0, -127.0, 127.5, -128.5, np.nan, np.inf],
+                          np.float32) * s[:, None]
+    x, s = _t(x.reshape(-1)).to(cuda), _t(s).to(cuda)
+    q = ops.collective_pack(x, s)
+    assert torch.equal(q, ref.collective_pack(x, s))
+    assert torch.equal(ops.collective_unpack(q, s), ref.collective_unpack(q, s))
+    with pytest.raises(ValueError):
+        ops.collective_pack(x[:200], s[:1])  # N % 256 != 0

@@ -1,7 +1,8 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor the JAX package ``repro``, so the port runs where JAX
 is not installed.  An AST scan checks every import statement; a fresh
-interpreter runs one CPU fit and checks that JAX never loaded."""
+interpreter imports every kernel module and the mesh launcher, runs one CPU
+fit and checks that JAX never loaded."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,11 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the mesh tests' rank module runs inside spawned ranks, which start
+# without JAX too
+SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py",
+]
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -41,6 +46,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import FitIns, Int8Codec, TorchClient
 from repro_torch.data.federated import ClientDataset
 from repro_torch.models import build_model
+import repro_torch.kernels, repro_torch.launch
+from repro_torch.core import CompressedPsum, init_collective_residual
 
 m = build_model(get_config("mobilenet-head-office31").reduced(), device="cpu")
 rng = np.random.default_rng(0)

@@ -27,6 +27,7 @@ from repro.optim import sgd as jsgd
 import repro_torch.core as T
 from repro_torch.configs.base import get_config
 from repro_torch.core.rounds import make_multi_round_step
+from repro_torch.launch import ClientMesh
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.optim import sgd
 from repro_torch.utils.pytree import tree_leaves
@@ -286,11 +287,20 @@ def test_unported_paths_raise_with_their_roadmap_item():
         spec = {"max_steps": 1, "execution_mode": "parallel", **spec}
         return T.make_round_step(tm.loss_fn, sgd(0.1), T.FedAvg(), T.RoundSpec(**spec), mesh=mesh)
 
-    for kw in ({"mesh": object()}, {"execution_mode": "fsdp"}, {"collective": "int8"}):
+    # the mesh path is ported; what of queue 1 item 13 stays raises: a model
+    # axis inside a client, fsdp, the sequential mode on a mesh
+    inside = ClientMesh(axes=(("data", 2), ("model", 2)), rank=0,
+                        groups={"data": None, "model": None})
+    flat = ClientMesh(axes=(("data", 2),), rank=0, groups={"data": None})
+    for kw in ({"mesh": inside}, {"execution_mode": "fsdp"},
+               {"mesh": flat, "execution_mode": "sequential"}):
         with pytest.raises(NotImplementedError, match="item 13"):
             build(**kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build(codec=J.MixedCodec(codecs=(J.NullCodec(),), assignment=(0,)))
+    with pytest.raises(NotImplementedError, match="mesh"):  # int8 without a mesh
+        build(collective="int8")
+    for mesh in (None, flat):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            build(mesh=mesh, codec=J.MixedCodec(codecs=(J.NullCodec(),), assignment=(0,)))
     with pytest.raises(NotImplementedError, match="item 11"):
         make_multi_round_step(tm.loss_fn, sgd(0.1), T.FedAvg(), T.RoundSpec(1, "parallel"))
     with pytest.raises(ValueError):
