@@ -43,13 +43,28 @@ Phases (any failure exits non-zero):
    against the vmap fp32 round step from the same state (within bounds
    set a priori: for the int8 collective half a shared block scale per
    live client and residual), the held-out eval loss, a profiled fourth
-   round; then a 1 x 1 mesh on NCCL, held the same way.
+   round; then a 1 x 1 mesh on NCCL, held the same way;
+8. the dense transformer serving path: flash_attention and
+   decode_attention held against their plain versions in phase 2 (the
+   serving shapes in bf16, fp32 at D = 32-256, a window, a q_offset,
+   ragged Sq, rows with no valid key, linear / random / ring-arc /
+   all-invalid decode masks) and timed beside scaled_dot_product_attention;
+   then qwen3-0.6b at full width from init(seed) on the card through
+   launch.serve.generate (B=8, prompt 1024, context 2048, 32 new tokens)
+   with exactly 28 flash launches per prefill and 28 decode launches per
+   step, tokens/s end to end and decoded from unsynchronized generate
+   calls, prefill ms and decode ms per step each synchronized on its own,
+   one profiled prefill and decode step (card busy,
+   the attention kernels, idle share), prefill + decode against the
+   longer prefill, and the card against the port on the CPU, each within
+   a bound set a priori.
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
 to DIR/chip_smoke.json and the profiled round's trace to
-DIR/round3_trace.json and DIR/mixed_fleet_round3_trace.json (DIR defaults
-to smoke_out).
+DIR/round3_trace.json and DIR/mixed_fleet_round3_trace.json, the serving
+traces to DIR/serving_{prefill,decode}_trace.json (DIR defaults to
+smoke_out).
 """
 from __future__ import annotations
 
@@ -68,6 +83,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 BLOCK = 256
 N_PARAMS = 1_974_303          # mobilenet-head-office31, frozen base included
 REPORT = {"checks": [], "timings": []}
@@ -113,8 +129,8 @@ def time_ms(fn, iters: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes: int, flops: int, peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -272,6 +288,7 @@ def kernel_phase(rng) -> dict:
             REPORT["timings"].append({"name": "fedavg_reduce", "case": label, **row})
     rows["topk_scatter_reduce"] = topk_kernel_checks(dev, tol, launch)
     rows.update(collective_kernel_checks(dev, launch))
+    rows.update(attention_kernel_checks(dev, launch))
     return rows
 
 
@@ -374,6 +391,169 @@ def collective_kernel_checks(dev, launch) -> dict:
 
 
 TOPK_K = 19_743               # TopKCodec(frac=0.01).k_of(N_PARAMS)
+
+
+# ---------------- phase 8's kernels: flash and decode attention ----------------
+# qwen3-0.6b's serving shape: B=8, prompt 1024, context 2048, H=16, KV=8, D=128
+SERVE_B, SERVE_PROMPT, SERVE_CONTEXT, SERVE_TOKENS = 8, 1024, 2048, 32
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
+    """The (query, key) pairs that attend: the work these inputs need."""
+    qpos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def decode_slots(valid: torch.Tensor) -> int:
+    """The (batch row, cache slot) pairs whose K and V the decode function
+    needs: the valid slots, or every slot of a row with none valid (its
+    output is the uniform mean over them)."""
+    per_row = valid.sum(1)
+    return int(torch.where(per_row > 0, per_row, valid.shape[1]).sum())
+
+
+def attention_kernel_checks(dev, launch) -> dict:
+    """flash_attention and decode_attention against their plain versions
+    (``kernels/ref.py``) on the card, within 2e-5 (fp32) / 2e-2 (bf16):
+    the serving shapes in bf16; fp32 at D = 32, 64, 128, 256; a window, a
+    q_offset, ragged Sq = 1000 and 17, rows with no valid key; decode with
+    the linear mask, a random mask, ring arcs (whole tiles invalid before,
+    between and after the valid slots), an all-invalid row, fp32, D = 256
+    and G = 4.  The serving shapes are timed: through the ops wrapper, as a bare
+    launch, the plain version and scaled_dot_product_attention (never on
+    the port's path)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    rows = {}
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    def agree(name, out, exp, dtype):
+        tol = ATTN_TOL[dtype]
+        err = float((out.float() - exp.float()).abs().max())
+        check(f"{name} within rtol=atol={tol} of its plain version", out.dtype == dtype
+              and out.shape == exp.shape and bool(torch.isfinite(out).all())
+              and torch.allclose(out.float(), exp.float(), rtol=tol, atol=tol),
+              max_abs_err=err)
+        return err
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash_cases = [  # label, B, Sq, Skv, H, KV, D, dtype, window, q_offset, causal
+        ("main", SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 16, 8, 128, bf16, None, 0, True),
+        ("fp32 D=32", 2, 256, 256, 4, 2, 32, f32, None, 0, True),
+        ("fp32 D=64", 2, 256, 256, 4, 2, 64, f32, None, 0, True),
+        ("fp32 D=128", 2, 256, 256, 4, 2, 128, f32, None, 0, True),
+        ("fp32 D=256", 2, 256, 256, 4, 2, 256, f32, None, 0, True),
+        ("window 128", 2, 512, 512, 8, 2, 64, bf16, 128, 0, True),
+        ("fp32 window 100, D=40", 1, 300, 300, 6, 3, 40, f32, 100, 0, True),
+        ("q_offset 256", 2, 128, 384, 8, 4, 128, f32, None, 256, True),
+        ("ragged Sq=1000", 2, 1000, 1000, 16, 8, 128, bf16, None, 0, True),
+        ("ragged Sq=17", 2, 17, 17, 16, 8, 128, f32, None, 0, True),
+        ("ragged Sq=17 at q_offset 128", 2, 17, 145, 16, 8, 128, bf16, 64, 128, True),
+        ("not causal", 1, 65, 130, 4, 4, 64, f32, None, 0, False),
+        ("rows with no valid key", 1, 8, 8, 2, 1, 32, f32, 3, 20, True),
+    ]
+    for label, b, sq, skv, h, kv, d, dtype, window, q_off, causal in flash_cases:
+        q, k, v = randn(b, sq, h, d, dtype=dtype), randn(b, skv, kv, d, dtype=dtype), \
+            randn(b, skv, kv, d, dtype=dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        out, exp = ops.flash_attention(q, k, v, **kw), ref.attention(q, k, v, **kw)
+        err = agree(f"flash_attention [{label}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                    f"{dtype}, window {window}, q_offset {q_off}, causal {causal}]",
+                    out, exp, dtype)
+        if label != "main":
+            continue
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        check("flash_attention's library call (scaled_dot_product_attention, causal, GQA) "
+              "within 2e-2 of the plain version [main]",
+              torch.allclose(sdpa.float(), exp.float(), rtol=2e-2, atol=2e-2),
+              max_abs_err=float((sdpa.float() - exp.float()).abs().max()))
+        o = torch.empty_like(q)
+        pairs = attention_pairs(sq, skv, causal, window, q_off)
+        b_ms, b_by = bound(nbytes(q, k, v, out), 4 * b * h * d * pairs, BF16_FLOP_PER_S)
+        rows["flash_attention"] = dict(
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:102",
+            max_abs_err=err,
+            ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+            launch_ms=time_ms(launch(
+                "flash_attention", "repro_flash_attention_bf16", "flash_attention",
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, skv, h, kv, d,
+                1, -1, 0, float(d ** -0.5))),
+            plain_ms=time_ms(lambda: ref.attention(q, k, v, **kw)),
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by, flops=4 * b * h * d * pairs,
+            shape=f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {skv}, {kv}, {d}) bf16 causal",
+            bytes=nbytes(q, k, v, out),
+        )
+
+    s = SERVE_CONTEXT
+    decode_cases = [  # label, B, S, H, KV, D, dtype, mask
+        ("main", SERVE_B, s, 16, 8, 128, bf16, "linear"),
+        ("random mask", SERVE_B, s, 16, 8, 128, bf16, "random"),
+        ("ring arcs", SERVE_B, s, 16, 8, 128, bf16, "arcs"),
+        ("fp32 D=64, G=4, ring arcs, ragged S", 3, 1000, 8, 2, 64, f32, "arcs"),
+        ("fp32", SERVE_B, s, 16, 8, 128, f32, "random"),
+        ("fp32 D=256", 2, 300, 8, 4, 256, f32, "random"),
+        ("fp32 D=64, G=4, ragged S", 2, 1000, 8, 2, 64, f32, "linear"),
+        ("an all-invalid row", 2, 256, 4, 2, 128, f32, "none"),
+    ]
+    for label, b, sl, h, kv, d, dtype, mask in decode_cases:
+        q, kc, vc = randn(b, h, d, dtype=dtype), randn(b, sl, kv, d, dtype=dtype), \
+            randn(b, sl, kv, d, dtype=dtype)
+        pos = SERVE_PROMPT + SERVE_TOKENS // 2 if sl == s else sl // 2
+        if mask == "linear":
+            valid = (torch.arange(sl, device=dev) <= pos)[None].expand(b, sl).contiguous()
+        elif mask == "random":
+            valid = torch.rand(b, sl, generator=gen, device=dev) > 0.25
+            valid[:, 0] = True
+        elif mask == "arcs":  # row i: a ring's window of sl // 3 slots ending at slot i * sl // b
+            age = (torch.arange(b, device=dev)[:, None] * (sl // b)
+                   - torch.arange(sl, device=dev)[None]) % sl
+            valid = age < sl // 3
+        else:
+            valid = torch.rand(b, sl, generator=gen, device=dev) > 0.25
+            valid[0] = False
+        out = ops.decode_attention(q, kc, vc, kv_valid=valid)
+        exp = ref.decode_attention(q, kc, vc, kv_valid=valid)
+        err = agree(f"decode_attention [{label}: q {tuple(q.shape)}, cache {tuple(kc.shape)}, "
+                    f"{dtype}, {mask} mask]", out, exp, dtype)
+        if label != "main":
+            continue
+        qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        mask4 = valid[:, None, None, :]
+        o = torch.empty_like(q)
+        # the K and V of the valid slots only: the output does not depend on the rest
+        slots = decode_slots(valid)
+        need = nbytes(q, valid, out) + 2 * slots * kv * d * kc.element_size()
+        b_ms, b_by = bound(need, 4 * h * d * slots, BF16_FLOP_PER_S)
+        rows["decode_attention"] = dict(
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:83",
+            max_abs_err=err,
+            ms=time_ms(lambda: ops.decode_attention(q, kc, vc, kv_valid=valid)),
+            launch_ms=time_ms(launch(
+                "decode_attention", "repro_decode_attention_bf16", "decode_attention",
+                q.data_ptr(), kc.data_ptr(), vc.data_ptr(), valid.data_ptr(), o.data_ptr(),
+                b, sl, h, kv, d, float(d ** -0.5))),
+            plain_ms=time_ms(lambda: ref.decode_attention(q, kc, vc, kv_valid=valid)),
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask4, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by, flops=4 * h * d * slots,
+            shape=f"q ({b}, {h}, {d}), caches ({b}, {sl}, {kv}, {d}) bf16, linear mask, "
+                  f"{slots // b} of {sl} slots valid",
+            bytes=need,
+        )
+    return rows
 
 
 def topk_payload(gen, c: int, k: int, n: int, dev, *, disjoint=False):
@@ -1239,6 +1419,237 @@ def nccl_single_rank(model, params, batches, weights, budgets, card) -> dict:
     return out
 
 
+# ---------------- phase 8: the dense transformer serving path ----------------
+QWEN3_PARAMS = 596_049_920    # qwen3-0.6b, embeddings tied
+# a priori bound for two bf16 runs of the same 28-layer stack that round at
+# other places (kernel against plain, card against CPU, prefill against
+# decode): unit roundoff 2**-8 per rounding, ~6 roundings of the residual
+# stream's inputs a layer, errors adding in random directions:
+# 2**-8 * sqrt(6 * 28) = 5.1e-2 relative L2 on the logits
+LOGITS_REL_L2 = 5e-2
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def serving_phase(card: str, out_dir: Path) -> dict:
+    """Phase 8: qwen3-0.6b at full width (28 layers, d_model 1024, 16 heads,
+    8 KV heads, head_dim 128, d_ff 3072, vocab 151,936, bf16) from
+    ``init(seed)`` on the card, served through ``launch.serve.generate``:
+    B=8, prompt 1024, context 2048, 32 new tokens, with the launch counts
+    set to 0 just before and read just after.  The end-to-end rates come
+    from unsynchronized ``generate`` runs, as a user calls it (the median
+    of 3 of 32 tokens, and of 3 of the prefill alone); a further run
+    synchronizes around each prefill / decode step to time and count it on
+    its own.  Then one prefill and one decode step under the profiler, the
+    prefill/decode consistency check at full width, and the card against
+    the CPU."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves, tree_size
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config("qwen3-0.6b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    check("qwen3-0.6b: init(seed) on the card at full width", tree_size(params) == QWEN3_PARAMS
+          and all(t.device.type == "cuda" for t in leaves), n_params=tree_size(params),
+          init_s=init_s, param_bytes=sum(t.numel() * t.element_size() for t in leaves))
+
+    calls = {"prefill": [], "decode_step": []}
+
+    def timed(fn, log):
+        def call(*args):
+            torch.cuda.synchronize()
+            before, t = ops.launch_counts(), time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            log.append((time.perf_counter() - t,
+                        {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+            return out
+        return call
+
+    served = dataclasses.replace(model, prefill=timed(model.prefill, calls["prefill"]),
+                                 decode_step=timed(model.decode_step, calls["decode_step"]))
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT))
+                              .astype(np.int32)).cuda()
+    def wall(n_tokens):
+        t0 = time.perf_counter()
+        gen = generate(model, params, prompt, n_tokens=n_tokens, context_len=SERVE_CONTEXT)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, gen
+
+    wall(2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    wall_s, gen = wall(SERVE_TOKENS)  # the main path: one generate call, unsynchronized
+    launches = ops.launch_counts()
+    n_steps = SERVE_TOKENS - 1
+    check("serving: generate's tokens", tuple(gen.shape) == (SERVE_B, SERVE_TOKENS)
+          and gen.dtype == torch.int32 and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          shape=tuple(gen.shape))
+    walls = [wall_s] + [wall(SERVE_TOKENS)[0] for _ in range(2)]
+    prefill_walls = [wall(1)[0] for _ in range(3)]
+    wall_med, prefill_med = statistics.median(walls), statistics.median(prefill_walls)
+
+    # per call, synchronized around each: a per-layer statistic beside the rates
+    ops.reset_launch_counts()
+    again = generate(served, params, prompt, n_tokens=SERVE_TOKENS, context_len=SERVE_CONTEXT)
+    check("serving: the synchronized run generates the same tokens", torch.equal(again, gen))
+    check("serving: exactly 28 flash launches per prefill, 28 decode launches per step, "
+          "no other kernel", len(calls["prefill"]) == 1 and len(calls["decode_step"]) == n_steps
+          and calls["prefill"][0][1] == {"flash_attention": cfg.n_layers}
+          and all(c == {"decode_attention": cfg.n_layers} for _, c in calls["decode_step"])
+          and {k: v for k, v in launches.items() if v} == {
+              "flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * n_steps}
+          and ops.launch_counts() == launches,
+          launches=launches, prefill=calls["prefill"][0][1])
+    prefill_s = calls["prefill"][0][0]
+    step_s = [t for t, _ in calls["decode_step"]]
+    decode_s = statistics.median(step_s)
+    out = {
+        "wall_s": walls, "prefill_only_wall_s": prefill_walls,
+        "end_to_end_tokens_per_s": SERVE_B * SERVE_TOKENS / wall_med,
+        "decode_tokens_per_s": SERVE_B * n_steps / (wall_med - prefill_med),
+        "prefill_ms": prefill_s * 1e3, "decode_ms_per_token": decode_s * 1e3,
+        "decode_ms_all": [t * 1e3 for t in step_s],
+        "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / prefill_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "init_s": init_s,
+        "first_tokens": gen[:2].tolist(),
+    }
+    print(f"serving qwen3-0.6b B={SERVE_B} prompt {SERVE_PROMPT} context {SERVE_CONTEXT}, "
+          f"unsynchronized generate: {SERVE_TOKENS} tokens in "
+          f"{[round(w, 4) for w in walls]} s (median {wall_med:.4f} s, "
+          f"{out['end_to_end_tokens_per_s']:.1f} tokens/s end to end), the prefill alone "
+          f"{[round(w, 4) for w in prefill_walls]} s, so {n_steps} decode steps "
+          f"{(wall_med - prefill_med) * 1e3:.2f} ms ({out['decode_tokens_per_s']:.1f} tokens/s); "
+          f"synchronized per call: prefill {prefill_s * 1e3:.2f} ms, decode step median "
+          f"{decode_s * 1e3:.3f} ms (steps 2-{SERVE_TOKENS}: {min(step_s) * 1e3:.2f}-"
+          f"{max(step_s) * 1e3:.2f}); peak {out['peak_memory_gb']:.2f} GB; launches {launches} "
+          f"({card})", flush=True)
+
+    # one prefill and one decode step under the profiler: card busy time,
+    # the attention kernels, idle share against the unprofiled call's time
+    with torch.inference_mode():
+        for phase in ("prefill", "decode"):
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            if phase == "prefill":
+                torch.cuda.synchronize()
+                prof.start()
+                _, cache = model.prefill(params, {"tokens": prompt}, SERVE_CONTEXT)
+                torch.cuda.synchronize()
+                prof.stop()
+                host_s = prefill_s
+            else:
+                tok = gen[:, :1].contiguous()
+                for _ in range(3):
+                    _, cache = model.decode_step(params, {"tokens": tok}, cache, SERVE_CONTEXT)
+                torch.cuda.synchronize()
+                prof.start()
+                _, cache = model.decode_step(params, {"tokens": tok}, cache, SERVE_CONTEXT)
+                torch.cuda.synchronize()
+                prof.stop()
+                host_s = decode_s
+            busy_us, by_kernel = device_time(prof)
+            attn_us = sum(us for name, us in by_kernel.items() if "attention_kernel" in name)
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+            prof.export_chrome_trace(str(out_dir / f"serving_{phase}_trace.json"))
+            out[f"{phase}_profile"] = {
+                "device_busy_ms": busy_us / 1e3, "attention_kernels_us": attn_us,
+                "idle_share": 1.0 - busy_us / 1e6 / host_s, "top_device_us": top,
+            }
+            print(f"serving {phase} profiled: card busy {busy_us / 1e3:.3f} ms, attention "
+                  f"kernels {attn_us:.1f} us; idle {out[f'{phase}_profile']['idle_share']:.4f} "
+                  f"of the unprofiled {host_s * 1e3:.3f} ms ({card})", flush=True)
+            for name, us in top:
+                print(f"  {us:10.1f} us  {name[:100]}", flush=True)
+    del cache
+
+    # prefill(t[:s]) + decode(t[s]) against prefill(t[:s+1]), at full width
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 257)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        full, _ = model.prefill(params, {"tokens": toks}, 512)
+        _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, 512)
+        step, _ = model.decode_step(params, {"tokens": toks[:, -1:]}, cache, 512)
+    err = max(rel_l2(step[i, -1], full[i, -1]) for i in range(2))
+    close = bool(torch.allclose(step.float(), full.float(), atol=0.15, rtol=0.15))
+    check(f"full width: prefill + decode = the longer prefill's logits (relative L2 <= "
+          f"{LOGITS_REL_L2}, elementwise atol = rtol = 0.15 as tests/test_models_smoke.py)",
+          err <= LOGITS_REL_L2 and close, rel_l2=err,
+          max_abs_err=float((step.float() - full.float()).abs().max()))
+    out["prefill_decode_rel_l2"] = err
+    del cache, full, step
+
+    out["card_vs_cpu"] = card_vs_cpu(model, params, rng, card)
+    return out
+
+
+def card_vs_cpu(model, params, rng, card: str) -> dict:
+    """The same full-width bf16 params on the card and, copied, through the
+    port on the CPU (the plain versions): a 128-token prompt (B=1) and 4
+    decode steps, both fed the CPU's greedy tokens.  Each step's logits
+    within LOGITS_REL_L2 relative L2; the card's top-1 token equal to the
+    CPU's wherever the CPU's top-1 / top-2 margin exceeds LOGITS_REL_L2
+    times its largest logit."""
+    import os
+
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_map
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu_model = build_model(model.arch, device="cpu")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    toks = torch.from_numpy(rng.integers(0, model.arch.vocab_size, (1, 128)).astype(np.int32))
+    ctx, n_steps = 256, 4
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, cache = cpu_model.prefill(cpu_params, {"tokens": toks}, ctx)
+        cpu_logits, feed = [logits[0, -1]], []
+        for _ in range(n_steps):
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            feed.append(tok)
+            logits, cache = cpu_model.decode_step(cpu_params, {"tokens": tok}, cache, ctx)
+            cpu_logits.append(logits[0, -1])
+        cpu_s = time.perf_counter() - t0
+        logits, cache = model.prefill(params, {"tokens": toks.cuda()}, ctx)
+        card_logits = [logits[0, -1].cpu()]
+        for tok in feed:
+            logits, cache = model.decode_step(params, {"tokens": tok.cuda()}, cache, ctx)
+            card_logits.append(logits[0, -1].cpu())
+    out = {"cpu_s": cpu_s, "rel_l2": [], "top1_equal": [], "margin_over_threshold": []}
+    for i, (g, c) in enumerate(zip(card_logits, cpu_logits, strict=True)):
+        err = rel_l2(g, c)
+        top2 = torch.topk(c.float(), 2)
+        margin = float(top2.values[0] - top2.values[1])
+        threshold = LOGITS_REL_L2 * float(c.float().abs().max())
+        same = int(torch.argmax(g.float())) == int(top2.indices[0])
+        out["rel_l2"].append(err)
+        out["top1_equal"].append(same)
+        out["margin_over_threshold"].append(margin / threshold)
+        check(f"card against CPU, full width, {'prefill' if i == 0 else f'decode step {i}'}: "
+              f"logits within relative L2 {LOGITS_REL_L2}, top-1 equal where the CPU's margin "
+              "exceeds the bound", err <= LOGITS_REL_L2 and (same or margin <= threshold),
+              rel_l2=err, top1_equal=same, margin=margin, threshold=threshold)
+    print(f"card vs CPU (qwen3-0.6b full width, B=1, 128-token prompt, 4 steps): relative L2 "
+          f"{[f'{e:.2e}' for e in out['rel_l2']]}, top-1 equal {out['top1_equal']}; CPU run "
+          f"{cpu_s:.1f} s ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=Path("smoke_out"),
@@ -1274,6 +1685,7 @@ def main() -> int:
     REPORT["profile_mixed_fleet"] = profile_phase(card, args.out, MIXED_FLEET)
     REPORT["engine"] = round_engine_phase(card)
     mesh = REPORT["mesh"] = mesh_phase(card)
+    serving = REPORT["serving"] = serving_phase(card, args.out)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):
@@ -1282,13 +1694,16 @@ def main() -> int:
 
     kernels = []
     for name in ("quantize_int8", "dequantize_int8", "dequant_reduce", "fedavg_reduce",
-                 "topk_scatter_reduce", "collective_pack", "collective_unpack"):
+                 "topk_scatter_reduce", "collective_pack", "collective_unpack",
+                 "flash_attention", "decode_attention"):
         r = rows[name]
         # each kernel's launches on the path that runs it: phase 3's loop,
         # for the TopK reduce phase 3b's mixed fleet, for the collective
-        # kernels phase 7's mesh (rank 0, rounds 1-3 of every case)
+        # kernels phase 7's mesh (rank 0, rounds 1-3 of every case), for
+        # the attention kernels phase 8's serving run
         path = {"topk_scatter_reduce": mixed, "collective_pack": mesh,
-                "collective_unpack": mesh}.get(name, loop)
+                "collective_unpack": mesh, "flash_attention": serving,
+                "decode_attention": serving}.get(name, loop)
         launches = path["launches"][name]
         check(f"{name} launched on its path", launches > 0, launches=launches)
         kernels.append({

@@ -8,5 +8,6 @@ Every kernel module is imported here, so attribute access never depends
 on what was imported before.
 """
 from . import (
-    collective_quant, dequant_reduce, fedavg_reduce, ops, quantize, ref, scatter_reduce,
+    collective_quant, decode_attention, dequant_reduce, fedavg_reduce, flash_attention, ops,
+    quantize, ref, scatter_reduce,
 )

@@ -8,7 +8,8 @@ library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and never confused with a stale library.
 
 ``--use_fast_math`` stays off: the Int8 codes are bitwise the plain
-version's only with IEEE division.
+version's only with IEEE division, and the attention kernels' softmax
+uses ``expf``, not the approximate ``__expf``.
 
 Nothing here runs at import: CPU-only machines import every module, and
 ``nvcc`` is needed only when a CUDA tensor arrives.
@@ -32,7 +33,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # library -> {C entry point: argtypes}; every entry point returns the
 # cudaError_t of its launch as an int
 SIGNATURES = {
@@ -54,6 +55,14 @@ SIGNATURES = {
         "repro_collective_pack": (_P, _P, _P, _I64, _P),
         "repro_collective_unpack": (_P, _P, _P, _I64, _P),
     },
+    "flash_attention": {
+        "repro_flash_attention_f32": (_P, _P, _P, _P, *(_I64,) * 9, _F, _P),
+        "repro_flash_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 9, _F, _P),
+    },
+    "decode_attention": {
+        "repro_decode_attention_f32": (_P, _P, _P, _P, _P, *(_I64,) * 5, _F, _P),
+        "repro_decode_attention_bf16": (_P, _P, _P, _P, _P, *(_I64,) * 5, _F, _P),
+    },
 }
 
 # launches per kernel wrapper: each wrapper adds one where it launches its
@@ -62,6 +71,7 @@ LAUNCHES = {
     "fedavg_reduce": 0, "quantize_int8": 0, "dequantize_int8": 0,
     "dequant_reduce": 0, "topk_scatter_reduce": 0,
     "collective_pack": 0, "collective_unpack": 0,
+    "flash_attention": 0, "decode_attention": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

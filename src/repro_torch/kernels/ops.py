@@ -15,8 +15,10 @@ from repro_torch.utils.pytree import safe_weight_sum
 from . import _cuda, ref
 from .collective_quant import collective_pack as _pack_kernel
 from .collective_quant import collective_unpack as _unpack_kernel
+from .decode_attention import decode_attention as _decode_kernel
 from .dequant_reduce import dequant_reduce as _dequant_reduce_kernel
 from .fedavg_reduce import fedavg_reduce as _fedavg_reduce_kernel
+from .flash_attention import flash_attention as _flash_kernel
 from .quantize import BLOCK, dequantize_int8 as _dequantize_kernel
 from .quantize import quantize_int8 as _quantize_kernel
 from .scatter_reduce import topk_scatter_reduce as _topk_kernel
@@ -119,3 +121,20 @@ def collective_unpack(q, scales):
     if _on_card(q, scales):
         return _unpack_kernel(q, scales)
     return ref.collective_unpack(q, scales, block=BLOCK)
+
+
+# ---------------- attention (the transformer's prefill and decode) ----------------
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """q (B,Sq,H,D), k/v (B,Skv,KV,D) -> (B,Sq,H,D): causal and/or
+    sliding-window GQA attention, q[:, 0] at absolute position ``q_offset``."""
+    if _on_card(q, k, v):
+        return _flash_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, *, kv_valid):
+    """One token q (B,H,D) against caches (B,S,KV,D) where ``kv_valid``
+    (B,S) holds -> (B,H,D)."""
+    if _on_card(q, k_cache, v_cache, kv_valid):
+        return _decode_kernel(q, k_cache, v_cache, kv_valid=kv_valid)
+    return ref.decode_attention(q, k_cache, v_cache, kv_valid=kv_valid)

@@ -97,3 +97,65 @@ def dequant_reduce(
     wf = weights.to(torch.float32)
     acc = torch.einsum("c,cn->n", wf, x.reshape(c, n))
     return acc / safe_weight_sum(wf)
+
+
+# ---------------- attention ----------------
+NEG_INF = -1e30  # masked scores: finite, so a row with no valid key is a uniform mean, not NaN
+
+
+def attention(
+    q: torch.Tensor,           # (B, Sq, H, D)
+    k: torch.Tensor,           # (B, Skv, KV, D)
+    v: torch.Tensor,           # (B, Skv, KV, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,         # absolute position of q[0]
+) -> torch.Tensor:
+    """GQA attention with one dense score matrix: query head h reads KV head
+    h // G; key j attends to query i iff (not causal or j <= i + q_offset)
+    and (window is None or j > i + q_offset - window).  Scores in fp32 with
+    q scaled by D**-0.5 before the product; the output in q's dtype.  The
+    JAX oracle's banded and streamed paths compute the same function."""
+    b, sq, h, d = q.shape
+    _, skv, kv, _ = k.shape
+    groups = h // kv
+    scale = d ** -0.5
+    qg = (q.to(torch.float32) * scale).transpose(1, 2)                      # (B,H,Sq,D)
+    kf = torch.repeat_interleave(k.to(torch.float32), groups, dim=2).transpose(1, 2)
+    vf = torch.repeat_interleave(v.to(torch.float32), groups, dim=2).transpose(1, 2)
+    scores = torch.matmul(qg, kf.transpose(-1, -2))                          # (B,H,Sq,Skv)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=q.device))
+    out = torch.matmul(torch.softmax(scores, dim=-1), vf)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,           # (B, H, D): the one new token
+    k_cache: torch.Tensor,     # (B, S, KV, D)
+    v_cache: torch.Tensor,     # (B, S, KV, D)
+    *,
+    kv_valid: torch.Tensor,    # (B, S) bool: which cache slots attend
+) -> torch.Tensor:
+    """One query token per head against the cache, GQA grouped (the cache
+    is never repeated).  As the JAX oracle does, ``q * D**-0.5`` and the
+    probabilities are rounded to the cache's dtype before their products,
+    which accumulate in fp32; the output is in q's dtype."""
+    b, h, d = q.shape
+    _, s, kv, _ = k_cache.shape
+    groups = h // kv
+    scale = d ** -0.5
+    qg = (q.to(torch.float32) * scale).to(k_cache.dtype).reshape(b, kv, groups, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32), k_cache.to(torch.float32))
+    scores = torch.where(kv_valid[:, None, None, :], scores,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(torch.float32), v_cache.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)

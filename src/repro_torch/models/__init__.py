@@ -6,9 +6,11 @@ methods are plain functions on nested dicts of tensors:
     init(seed) -> params (on the model's device)
     loss_fn(params, batch) -> (loss, metrics)
     trainable_mask(params) -> bool pytree (None = all trainable)
+    prefill / decode_step / init_cache (transformers)
 
-The port runs the ``head`` family so far; the others raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The port runs the ``head`` family and the ``dense`` transformers' serving
+path (prefill + decode) so far; the others raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ PyTree = Any
 
 _NOT_PORTED = {
     "cnn": "ResNet-18 is ROADMAP.md queue 1 item 14",
+    "ssm": "the mamba and xLSTM mixers are ROADMAP.md queue 1 item 15 (mamba with queue 2 "
+           "item 10, selective_scan)",
 }
 
 
@@ -36,6 +40,9 @@ class Model:
     init: Callable                          # (seed) -> params
     loss_fn: Callable                       # (params, batch) -> (loss, metrics)
     trainable_mask: Optional[Callable] = None
+    prefill: Optional[Callable] = None      # (params, batch, context_len) -> (logits, cache)
+    decode_step: Optional[Callable] = None  # (params, batch, cache, context_len)
+    init_cache: Optional[Callable] = None   # (batch, context_len) -> cache
 
     @property
     def name(self) -> str:
@@ -60,10 +67,29 @@ def build_model(arch, *, device=None) -> Model:
             trainable_mask=headmodel.trainable_mask,
         )
 
+    if arch_cfg.family == "dense":
+        from . import transformer as tfm
+
+        cfg = arch_cfg
+        tfm.check_ported(cfg)
+        return Model(
+            cfg=cfg,
+            arch=arch_cfg,
+            device=dev,
+            init=lambda seed=0: tfm.init_params(cfg, seed, device=dev),
+            loss_fn=tfm.loss_fn,
+            prefill=lambda p, b, ctx: tfm.prefill(cfg, p, b, context_len=ctx),
+            decode_step=lambda p, b, cache, ctx: tfm.decode_step(
+                cfg, p, b, cache, context_len=ctx),
+            init_cache=lambda batch, ctx: tfm.init_cache(cfg, batch, ctx, device=dev),
+        )
+
     raise NotImplementedError(
         f"{arch_cfg.name} ({arch_cfg.family} family) is not ported yet: "
         + _NOT_PORTED.get(
-            arch_cfg.family, "the transformer family is ROADMAP.md queue 1 item 15"
+            arch_cfg.family,
+            "the MoE, hybrid and frontend transformer families are ROADMAP.md queue 1 "
+            "item 15",
         )
     )
 

@@ -1,0 +1,40 @@
+"""Normalization layers: fp32 compute, cast back, scale stored as ``1 + s``.
+
+The twin of ``repro.models.layers.norms`` (``groupnorm`` comes with the
+ResNet, ROADMAP.md queue 1 item 14)."""
+from __future__ import annotations
+
+import torch
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(torch.float32)) + bias.to(torch.float32)).to(dtype)
+
+
+def init_norm(cfg, d: int, *, lead=(), device=None) -> dict:
+    """Zero scale (and bias): the identity map.  ``lead`` prepends the
+    stacked-layers dimension."""
+    z = lambda: torch.zeros((*lead, d), dtype=torch.float32, device=device)  # noqa: E731
+    if cfg.norm == "rmsnorm":
+        return {"scale": z()}
+    return {"scale": z(), "bias": z()}
+
+
+def apply_norm(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params["bias"])

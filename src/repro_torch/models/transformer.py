@@ -1,0 +1,265 @@
+"""Decoder-only stack, the twin of ``repro.models.transformer`` for the
+dense attention family: pre-norm attention + pre-norm gated MLP blocks.
+
+Params and caches keep the JAX trees exactly, so one ``params_from_numpy``
+carries either across: ``blocks`` (and a cache's ``layers``) is a tuple of
+per-position dicts whose leaves are stacked ``(L / period, ...)`` when
+``scan_layers``, and a tuple of per-layer dicts otherwise.  Where JAX scans
+over the stacked leaves, the port loops over layers and indexes views of
+them: nothing is unstacked or copied.  A cache's ``pos`` is a host-side
+int32 scalar, so a decode step reads it once and no layer waits on the
+card.
+
+Not ported yet (each raises ``NotImplementedError``): MLA, MoE, mamba,
+mLSTM/sLSTM, frontend tokens, and training (``loss_fn`` /
+``cross_entropy``); all are ROADMAP.md queue 1 item 15, mamba with queue
+2 item 10 (``selective_scan``).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.utils.pytree import tree_map
+
+from .layers import attention as attn_lib
+from .layers.embeddings import embed, init_embedding, normal
+from .layers.mlp import init_mlp, mlp_forward
+from .layers.norms import apply_norm, init_norm
+
+PyTree = Any
+_ITEM = "ROADMAP.md queue 1 item 15"
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise for what the port's transformer does not run yet."""
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported yet ({_ITEM})")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE feed-forward is not ported yet ({_ITEM})")
+    if cfg.frontend_tokens:
+        raise NotImplementedError(f"{cfg.name}: frontend tokens are not ported yet ({_ITEM})")
+    for spec in cfg.layer_plan():
+        if spec.kind == "mamba":
+            raise NotImplementedError(
+                f"{cfg.name}: the mamba mixer is not ported yet ({_ITEM}, with "
+                "ROADMAP.md queue 2 item 10, selective_scan)")
+        if spec.kind in ("mlstm", "slstm"):
+            raise NotImplementedError(
+                f"{cfg.name}: the {spec.kind} mixer is not ported yet ({_ITEM})")
+
+
+# ============================ block ============================
+def init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, *, lead=(),
+               device=None) -> dict:
+    """One block's params; ``lead`` = (L,) draws the stacked leaves of L
+    layers at once."""
+    dt = _dtype(cfg)
+    p: dict = {
+        "norm1": init_norm(cfg, cfg.d_model, lead=lead, device=device),
+        "mixer": attn_lib.init_attention(gen, cfg, dt, lead=lead, device=device),
+    }
+    if cfg.d_ff > 0:
+        p["norm2"] = init_norm(cfg, cfg.d_model, lead=lead, device=device)
+        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, lead=lead, device=device)
+    return p
+
+
+def _ffn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.d_ff > 0:
+        x = x + mlp_forward(params["ffn"], apply_norm(cfg, params["norm2"], x), cfg.act)
+    return x
+
+
+def block_forward(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor, *,
+                  window=None, cache: dict | None = None, ring: bool = False) -> torch.Tensor:
+    """Full-sequence pass of one block (JAX also returns the MoE aux dict,
+    which is zero for dense blocks).  Given this layer's ``cache`` (prefill),
+    the K and V its attention projected are written into it."""
+    h = apply_norm(cfg, params["norm1"], x)
+    out, k, v = attn_lib.attention_forward(cfg, params["mixer"], h, window=window)
+    if cache is not None:
+        _attn_prefill_cache(cache, k, v, ring)
+    return _ffn(cfg, params, x + out)
+
+
+def block_decode(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor,
+                 cache: dict, pos: int, *, ring: bool, valid: torch.Tensor):
+    """One-token decode. x: (B,1,d). Returns (x, cache), the cache written
+    in place."""
+    h = apply_norm(cfg, params["norm1"], x)
+    out, cache = attn_lib.attention_decode(cfg, params["mixer"], h, cache, pos, ring=ring,
+                                           valid=valid)
+    return _ffn(cfg, params, x + out), cache
+
+
+# ============================ full model ============================
+def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> PyTree:
+    """JAX's tree, shapes and dtypes, with the port's own draws from an
+    explicit ``torch.Generator`` seeded with ``seed`` (on ``device``)."""
+    check_ported(cfg)
+    dev = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = _dtype(cfg)
+    params: dict = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, dev),
+        "final_norm": init_norm(cfg, cfg.d_model, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": normal(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model,
+                                         dt, dev)}
+    plan = cfg.layer_plan()
+    if cfg.scan_layers:
+        period = cfg.plan_period
+        lead = (cfg.n_layers // period,)
+        params["blocks"] = tuple(
+            init_block(gen, cfg, plan[pos], lead=lead, device=dev) for pos in range(period)
+        )
+    else:
+        params["blocks"] = tuple(
+            init_block(gen, cfg, plan[i], device=dev) for i in range(cfg.n_layers)
+        )
+    return params
+
+
+def _layers(cfg: ArchConfig, blocks: tuple):
+    """(layer spec, that layer's params) in stack order: views into the
+    stacked leaves when ``scan_layers``."""
+    plan = cfg.layer_plan()
+    if not cfg.scan_layers:
+        yield from zip(plan, blocks)
+        return
+    period = cfg.plan_period
+    for i in range(cfg.n_layers):
+        yield plan[i], tree_map(lambda x, j=i // period: x[j], blocks[i % period])
+
+
+def _layer_caches(cfg: ArchConfig, layers: tuple):
+    """Each layer's cache dict, views into the stacked caches when
+    ``scan_layers``: writing to one writes the stacked tensor."""
+    if not cfg.scan_layers:
+        yield from layers
+        return
+    period = cfg.plan_period
+    for i in range(cfg.n_layers):
+        yield tree_map(lambda x, j=i // period: x[j], layers[i % period])
+
+
+def _embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    """tokens -> (B, S, d) residual stream."""
+    check_ported(cfg)
+    x = embed(params["embed"], batch["tokens"])
+    return x.to(_dtype(cfg))
+
+
+def _run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, window=None) -> torch.Tensor:
+    for spec, p in _layers(cfg, params["blocks"]):
+        x = block_forward(cfg, spec, p, x, window=window)
+    return x
+
+
+def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.matmul(x, params["embed"]["table"].transpose(0, 1))
+    return torch.matmul(x, params["lm_head"]["w"])
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, window=None) -> torch.Tensor:
+    """Full-sequence logits (B, S, V).  JAX returns (logits, aux); aux is the
+    MoE load-balance terms, which a dense stack does not have."""
+    x = _run_stack(cfg, params, _embed_inputs(cfg, params, batch), window=window)
+    return _logits(cfg, params, apply_norm(cfg, params["final_norm"], x))
+
+
+def cross_entropy(*args, **kwargs):
+    raise NotImplementedError(f"transformer training (cross_entropy) is not ported yet ({_ITEM})")
+
+
+def loss_fn(*args, **kwargs):
+    raise NotImplementedError(f"transformer training (loss_fn) is not ported yet ({_ITEM})")
+
+
+# ---------------- prefill / decode ----------------
+def _ring(cfg: ArchConfig, shape_seq_len: int) -> tuple[bool, int]:
+    """(use ring buffer?, cache_len) for a given context length."""
+    win = cfg.sliding_window
+    if win is None and shape_seq_len > 65_536:
+        win = cfg.long_context_window  # sliding-window variant for long contexts
+    if win is not None and win < shape_seq_len:
+        return True, win
+    return False, shape_seq_len
+
+
+def init_cache(cfg: ArchConfig, batch: int, context_len: int, *, device=None) -> dict:
+    check_ported(cfg)
+    _, cache_len = _ring(cfg, context_len)
+    dt = _dtype(cfg)
+    if not cfg.scan_layers:
+        layers = tuple(attn_lib.init_kv_cache(cfg, batch, cache_len, dt, device=device)
+                       for _ in range(cfg.n_layers))
+    else:
+        lead = (cfg.n_layers // cfg.plan_period,)
+        layers = tuple(attn_lib.init_kv_cache(cfg, batch, cache_len, dt, lead=lead,
+                                              device=device)
+                       for _ in range(cfg.plan_period))
+    return {"layers": layers, "pos": torch.zeros((), dtype=torch.int32)}
+
+
+def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
+                context_len: int):
+    """One-token decode: batch {"tokens": (B,1)} -> (logits (B,1,V), cache).
+    The cache's K and V are written in place; the returned cache holds the
+    same tensors and ``pos + 1``."""
+    ring, _ = _ring(cfg, context_len)
+    pos = int(cache["pos"])  # host-side: no sync (a card tensor syncs once a step)
+    x = embed(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    b, cache_len = x.shape[0], cache["layers"][0]["k"].shape[-3]
+    # every layer masks the same slots: one mask a step, not one a layer
+    valid = attn_lib.kv_valid(b, cache_len, pos, ring=ring, device=x.device)
+    for (spec, p), c in zip(_layers(cfg, params["blocks"]),
+                            _layer_caches(cfg, cache["layers"]), strict=True):
+        x, _ = block_decode(cfg, spec, p, x, c, pos, ring=ring, valid=valid)
+    logits = _logits(cfg, params, apply_norm(cfg, params["final_norm"], x))
+    return logits, {"layers": cache["layers"], "pos": torch.tensor(pos + 1, dtype=torch.int32)}
+
+
+def prefill(cfg: ArchConfig, params: dict, batch: dict, *, context_len: int):
+    """Prefill: full forward + cache construction. Returns (next-token logits
+    (B,1,V), cache)."""
+    ring, _ = _ring(cfg, context_len)
+    x = _embed_inputs(cfg, params, batch)
+    b, s, _ = x.shape
+    cache = init_cache(cfg, b, context_len, device=x.device)
+    for (spec, p), c in zip(_layers(cfg, params["blocks"]),
+                            _layer_caches(cfg, cache["layers"]), strict=True):
+        x = block_forward(cfg, spec, p, x, cache=c, ring=ring)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = _logits(cfg, params, x[:, -1:])  # next-token logits only
+    return logits, {"layers": cache["layers"], "pos": torch.tensor(s, dtype=torch.int32)}
+
+
+def _ring_arrange(full: torch.Tensor, out: torch.Tensor, ring: bool) -> torch.Tensor:
+    """full: (B,S,...) per-position tensor -> its cache layout, written into
+    ``out`` (B,cache_len,...), which holds zeros past S."""
+    s, cache_len = full.shape[1], out.shape[1]
+    if not ring or s <= cache_len:
+        out[:, :s] = full
+        return out
+    # absolute positions s-cache_len .. s-1 -> slot = pos % cache_len
+    slots = torch.arange(s - cache_len, s, device=full.device) % cache_len
+    out[:, slots] = full[:, s - cache_len:]
+    return out
+
+
+def _attn_prefill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, ring: bool) -> None:
+    """One layer's cache from the K and V its prefill attention projected
+    (JAX projects them a second time; the result is the same)."""
+    _ring_arrange(k, cache["k"], ring)
+    _ring_arrange(v, cache["v"], ring)

@@ -1,0 +1,168 @@
+"""The port's plain attention (``repro_torch.kernels.ref``: the CPU route of
+``ops.flash_attention`` / ``ops.decode_attention``, and what the CUDA
+kernels are held against on the card) against the JAX package: its jnp
+oracle and its Pallas bodies run with ``interpret=True``, on the same numpy
+inputs.
+
+Tolerances are ``tests/test_kernels.py``'s: 2e-5 in fp32 (the summation
+order of the softmax and of the products differs), 2e-2 in bf16 (one
+rounding of the output to bf16 can land on either side of a tie).  The
+Pallas bodies need tiles of 128, so ragged shapes are held against the
+oracle alone.  The kernel wrappers' own checks run here as well: they
+raise before any launch.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as jdecode_pallas
+from repro.kernels.flash_attention import flash_attention as jflash_pallas
+from repro_torch.kernels import ops
+from repro_torch.kernels import decode_attention as decode_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(seed, shapes, dtype):
+    """numpy normals, rounded to ``dtype`` once, as both packages' arrays."""
+    rng = np.random.default_rng(seed)
+    jx = [jnp.asarray(rng.normal(size=s).astype(np.float32), JDT[dtype]) for s in shapes]
+    tx = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(TDT[dtype]) for x in jx]
+    return jx, tx
+
+
+def _close(port, jax_out, tol):
+    np.testing.assert_allclose(port.to(torch.float32).numpy(), np.asarray(jax_out, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,s,h,kv,d,window",
+    [
+        (1, 128, 4, 4, 64, None),      # MHA
+        (2, 256, 8, 2, 64, None),      # GQA 4:1
+        (1, 256, 4, 1, 128, None),     # MQA
+        (2, 256, 4, 4, 64, 64),        # sliding window
+        (1, 384, 6, 3, 32, 128),       # non-pow2 heads, window
+    ],
+)
+def test_attention_matches_jax(b, s, h, kv, d, window, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(s + d, [(b, s, h, d), (b, s, kv, d), (b, s, kv, d)],
+                                         dtype)
+    out = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    assert out.dtype == TDT[dtype] and out.shape == (b, s, h, d)
+    _close(out, jref.attention(jq, jk, jv, causal=True, window=window), TOL[dtype])
+    _close(out, jflash_pallas(jq, jk, jv, causal=True, window=window, interpret=True),
+           TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 96])
+def test_attention_q_offset_matches_jax(dtype, window):
+    """A prefill chunk: 128 queries at positions 128..255 against 256 keys."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(7, [(2, 128, 4, 64), (2, 256, 2, 64),
+                                             (2, 256, 2, 64)], dtype)
+    out = ops.flash_attention(tq, tk, tv, causal=True, window=window, q_offset=128)
+    exp = jref.attention(jq, jk, jv, causal=True, window=window, q_offset=128)
+    _close(out, exp, TOL[dtype])
+    _close(out, jflash_pallas(jq, jk, jv, causal=True, window=window, q_offset=128,
+                              interpret=True), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,sq,skv,h,kv,d,window,q_offset,causal",
+    [
+        (2, 17, 17, 4, 2, 32, None, 0, True),     # ragged, shorter than a tile
+        (1, 100, 100, 6, 3, 40, 32, 0, True),     # ragged, D % 32 != 0, window
+        (2, 17, 45, 4, 1, 64, None, 28, True),    # ragged chunk at an offset
+        (1, 33, 33, 2, 2, 48, None, 0, False),    # not causal
+        (1, 8, 8, 2, 1, 32, 3, 20, True),         # rows with no valid key: uniform mean
+    ],
+)
+def test_attention_ragged_matches_jax_oracle(b, sq, skv, h, kv, d, window, q_offset, causal,
+                                             dtype):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(sq * skv, [(b, sq, h, d), (b, skv, kv, d),
+                                                    (b, skv, kv, d)], dtype)
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window, q_offset=q_offset)
+    exp = jref.attention(jq, jk, jv, causal=causal, window=window, q_offset=q_offset)
+    _close(out, exp, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,d", [(2, 256, 8, 4, 64), (1, 128, 4, 1, 128),
+                                        (2, 100, 4, 2, 40)])
+def test_decode_attention_matches_jax(b, s, h, kv, d, dtype):
+    """Against the oracle (both round q * scale and the probabilities to
+    the cache dtype) and, where S % 128 == 0, the Pallas body (which keeps
+    them in fp32: the bf16 tolerance covers it).  Batch row 0 has a
+    linear-cache mask, row 1 a random one."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(s + h, [(b, h, d), (b, s, kv, d), (b, s, kv, d)],
+                                         dtype)
+    rng = np.random.default_rng(s)
+    valid = rng.random((b, s)) > 0.25
+    valid[0] = np.arange(s) <= s // 2
+    valid[:, 0] = True
+    out = ops.decode_attention(tq, tk, tv, kv_valid=torch.from_numpy(valid))
+    assert out.dtype == TDT[dtype] and out.shape == (b, h, d)
+    _close(out, jref.decode_attention(jq, jk, jv, kv_valid=jnp.asarray(valid)), TOL[dtype])
+    if s % 128 == 0:
+        _close(out, jdecode_pallas(jq, jk, jv, kv_valid=jnp.asarray(valid), interpret=True),
+               TOL[dtype])
+
+
+def test_decode_attention_all_invalid_row_is_uniform_mean():
+    """A row with no valid slot takes the mean of V over every slot, as
+    JAX's -1e30 (never -inf) masking gives."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(3, [(1, 2, 32), (1, 64, 1, 32), (1, 64, 1, 32)],
+                                         "float32")
+    valid = np.zeros((1, 64), bool)
+    out = ops.decode_attention(tq, tk, tv, kv_valid=torch.from_numpy(valid))
+    _close(out, jref.decode_attention(jq, jk, jv, kv_valid=jnp.asarray(valid)), 2e-5)
+    torch.testing.assert_close(out[0, 0], tv[0, :, 0].mean(0), rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_route_launches_no_kernel():
+    before = ops.launch_counts()
+    _, (tq, tk, tv) = _inputs(1, [(1, 16, 2, 32), (1, 16, 1, 32), (1, 16, 1, 32)], "float32")
+    ops.flash_attention(tq, tk, tv)
+    ops.decode_attention(tq[:, 0], tk, tv, kv_valid=torch.ones(1, 16, dtype=torch.bool))
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("d", [4, 12, 264])
+def test_kernel_wrappers_raise_on_head_dims_they_do_not_take(d):
+    """No shape gate, no fallback: a head dim the kernels do not take
+    raises before any launch (the wrappers check shapes first)."""
+    q, k = torch.zeros(1, 8, 2, d), torch.zeros(1, 8, 1, d)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_kernel.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_kernel.decode_attention(q[:, 0], k, k,
+                                       kv_valid=torch.ones(1, 8, dtype=torch.bool))
+
+
+def test_kernel_wrappers_raise_off_the_card_and_on_bad_inputs():
+    q, k = torch.zeros(1, 8, 4, 32), torch.zeros(1, 8, 2, 32)
+    valid = torch.ones(1, 8, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_kernel.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_kernel.decode_attention(q[:, 0], k, k, kv_valid=valid)
+    with pytest.raises(ValueError, match="group"):
+        flash_kernel.flash_attention(torch.zeros(1, 8, 3, 32), k, k)
+    with pytest.raises(ValueError, match=">= 0"):
+        flash_kernel.flash_attention(q, k, k, window=-2)
+    with pytest.raises(TypeError):
+        flash_kernel.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        decode_kernel.decode_attention(q[:, 0], k, k, kv_valid=valid.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_kernel.decode_attention(q[:, 0], k, k,
+                                       kv_valid=torch.ones(1, 16, dtype=torch.bool)[:, ::2])

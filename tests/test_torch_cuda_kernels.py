@@ -10,7 +10,11 @@ for bf16 outputs the two fp32 sums may straddle a rounding edge, so one
 bf16 ulp (``rtol=2**-7``).  The TopK scatter reduce adds the same fp32
 products ``w_c * val`` as its plain version and divides by the same weight
 sum: where the rows share no index it is bitwise, and on TopKCodec's wire
-two launches give the same bits.
+two launches give the same bits.  The attention kernels are held at
+``tests/test_kernels.py``'s tolerances, 2e-5 (fp32) and 2e-2 (bf16): their
+sums run in another order than the plain versions', and the plain decode
+rounds q * scale and the probabilities to the cache dtype where the
+kernel, like the Pallas body, keeps fp32.
 """
 import numpy as np
 import pytest
@@ -226,3 +230,71 @@ def test_cuda_collective_pack_edges(cuda):
     assert torch.equal(ops.collective_unpack(q, s), ref.collective_unpack(q, s))
     with pytest.raises(ValueError):
         ops.collective_pack(x[:200], s[:1])  # N % 256 != 0
+
+
+# ---------------- attention (the transformer's prefill and decode) ----------------
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(cuda, seed, shapes, dtype):
+    rng = np.random.default_rng(seed)
+    return [_t(rng.normal(size=s).astype(np.float32)).to(cuda, dtype) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,dtype,window,q_offset", [
+    (8, 1024, 1024, 16, 8, 128, torch.bfloat16, None, 0),   # qwen3-0.6b's prefill
+    (2, 256, 256, 4, 2, 32, torch.float32, None, 0),
+    (2, 256, 256, 4, 2, 64, torch.float32, None, 0),
+    (2, 256, 256, 4, 2, 128, torch.float32, None, 0),
+    (2, 256, 256, 4, 2, 256, torch.float32, None, 0),
+    (2, 512, 512, 8, 2, 64, torch.bfloat16, 128, 0),        # window
+    (2, 128, 384, 8, 4, 128, torch.float32, None, 256),     # q_offset
+    (2, 1000, 1000, 16, 8, 128, torch.bfloat16, None, 0),   # ragged
+    (2, 17, 145, 16, 8, 128, torch.float32, 64, 128),       # ragged chunk, window
+    (1, 8, 8, 2, 1, 40, torch.float32, 3, 20),              # rows with no valid key
+])
+def test_cuda_flash_attention(cuda, b, sq, skv, h, kv, d, dtype, window, q_offset):
+    q, k, v = _attn_inputs(cuda, sq + d, [(b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)],
+                           dtype)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    exp = ref.attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,d,dtype,mask", [
+    (8, 2048, 16, 8, 128, torch.bfloat16, "linear"),         # qwen3-0.6b's decode
+    (8, 2048, 16, 8, 128, torch.bfloat16, "random"),
+    (8, 2048, 16, 8, 128, torch.bfloat16, "arcs"),           # whole tiles invalid
+    (8, 2048, 16, 8, 128, torch.float32, "random"),
+    (2, 300, 8, 4, 256, torch.float32, "random"),
+    (2, 1000, 8, 2, 64, torch.float32, "linear"),             # G = 4, ragged S
+    (3, 1000, 8, 2, 64, torch.float32, "arcs"),
+    (2, 256, 4, 2, 128, torch.float32, "none"),               # an all-invalid row
+])
+def test_cuda_decode_attention(cuda, b, s, h, kv, d, dtype, mask):
+    q, kc, vc = _attn_inputs(cuda, s + d, [(b, h, d), (b, s, kv, d), (b, s, kv, d)], dtype)
+    rng = np.random.default_rng(s)
+    valid = rng.random((b, s)) > 0.25
+    valid[:, 0] = True
+    if mask == "linear":
+        valid[:] = np.arange(s) <= s // 2
+    elif mask == "arcs":  # row i: a ring's window of s // 3 slots ending at slot i * s // b
+        valid[:] = (np.arange(b)[:, None] * (s // b) - np.arange(s)[None]) % s < s // 3
+    elif mask == "none":
+        valid[0] = False
+    valid = _t(valid).to(cuda)
+    before = ops.launch_counts()["decode_attention"]
+    out = ops.decode_attention(q, kc, vc, kv_valid=valid)
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    exp = ref.decode_attention(q, kc, vc, kv_valid=valid)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)

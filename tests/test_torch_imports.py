@@ -1,8 +1,9 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor the JAX package ``repro``, so the port runs where JAX
 is not installed.  An AST scan checks every import statement; a fresh
-interpreter imports every kernel module and the mesh launcher, runs one CPU
-fit and checks that JAX never loaded."""
+interpreter imports every kernel module, the mesh launcher, the transformer
+and the serving driver, runs one CPU fit and a few reduced CPU decode
+steps, and checks that JAX never loaded."""
 import ast
 import os
 import subprocess
@@ -47,7 +48,10 @@ from repro_torch.core import FitIns, Int8Codec, TorchClient
 from repro_torch.data.federated import ClientDataset
 from repro_torch.models import build_model
 import repro_torch.kernels, repro_torch.launch
+import repro_torch.kernels.flash_attention, repro_torch.kernels.decode_attention
+import repro_torch.models.transformer, repro_torch.launch.serve
 from repro_torch.core import CompressedPsum, init_collective_residual
+from repro_torch.launch.serve import generate
 
 m = build_model(get_config("mobilenet-head-office31").reduced(), device="cpu")
 rng = np.random.default_rng(0)
@@ -58,6 +62,11 @@ c = TorchClient(client_id=0, loss_fn=m.loss_fn, dataset=ds,
                 trainable_mask=m.trainable_mask(params), device="cpu")
 res = c.fit(FitIns(parameters=params, config={"epochs": 1, "codec": Int8Codec()}))
 assert res.num_examples == 64 and res.metrics["steps_done"] == 2
+lm = build_model(get_config("qwen3-0.6b").reduced(), device="cpu")
+import torch
+toks = generate(lm, lm.init(0), torch.zeros((1, 8), dtype=torch.int32), n_tokens=3,
+                context_len=16)
+assert toks.shape == (1, 3)
 assert "jax" not in sys.modules and "repro" not in sys.modules, sorted(
     m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
 print("ok")
