@@ -57,14 +57,26 @@ Phases (any failure exits non-zero):
    one profiled prefill and decode step (card busy,
    the attention kernels, idle share), prefill + decode against the
    longer prefill, and the card against the port on the CPU, each within
-   a bound set a priori.
+   a bound set a priori;
+9. the hybrid serving path: selective_scan held against its plain version
+   in phase 2 (the serving shape in bf16; S = 1 and 1000, Di = 300, N = 5,
+   8, 16 and 64, with and without an initial state, fp32 and bf16 x) and
+   timed beside its bound (bytes, fp32 operations and exponentials); then
+   one 8-layer period of jamba-1.5-large-398b at full width without its
+   experts (8,999,034,880 params) from init(seed) on the card through
+   launch.serve.generate at phase 8's shape, with exactly 7 selective_scan
+   and 1 flash launch per prefill and 1 decode launch (no scan) per step,
+   measured and checked as phase 8 is (the CPU check at a 32-token
+   prompt).
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
 to DIR/chip_smoke.json and the profiled round's trace to
 DIR/round3_trace.json and DIR/mixed_fleet_round3_trace.json, the serving
-traces to DIR/serving_{prefill,decode}_trace.json (DIR defaults to
-smoke_out).
+traces to DIR/serving_{prefill,decode}_trace.json and
+DIR/hybrid_{prefill,decode}_trace.json (DIR defaults to smoke_out).  If
+``repro_torch`` cannot be imported (the script run away from the
+repository's ``src/``), it says so on stdout and exits 1.
 """
 from __future__ import annotations
 
@@ -289,6 +301,7 @@ def kernel_phase(rng) -> dict:
     rows["topk_scatter_reduce"] = topk_kernel_checks(dev, tol, launch)
     rows.update(collective_kernel_checks(dev, launch))
     rows.update(attention_kernel_checks(dev, launch))
+    rows["selective_scan"] = scan_kernel_checks(dev, launch)
     return rows
 
 
@@ -554,6 +567,103 @@ def attention_kernel_checks(dev, launch) -> dict:
             bytes=need,
         )
     return rows
+
+
+# ---------------- phase 9's kernel: the mamba selective scan ----------------
+# the Jamba slice's prefill: B=8, prompt 1024, d_inner 16384, d_state 16
+SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+MUFU_EX2_PER_CLOCK_PER_SM = 16   # Hopper: 4 SFUs in each of an SM's 4 partitions
+H100_SMS = 132
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def scan_bound(b: int, s: int, di: int, n: int, moved: int) -> dict:
+    """The scan's least time: its bytes at 3.35 TB/s, its fp32 operations
+    (6 a state element a step, 3 a channel a step) at 67 TFLOP/s, and its
+    B*S*Di*N exponentials, one MUFU ex2 each, at 16 a clock per SM at the
+    card's maximum SM clock; the largest binds."""
+    clock = max_sm_clock_hz()
+    flops = 6 * b * s * di * n + 3 * b * s * di
+    exps = b * s * di * n
+    t = {"bytes": moved / HBM_BYTES_PER_S, "flops": flops / FP32_FLOP_PER_S,
+         "exps": exps / (MUFU_EX2_PER_CLOCK_PER_SM * H100_SMS * clock)}
+    worst = max(t, key=t.get)
+    return dict(bound_ms=t[worst] * 1e3, bound_by="bytes" if worst == "bytes" else "operations",
+                bound_terms_us={k: v * 1e6 for k, v in t.items()}, flops=flops,
+                exponentials=exps, sm_clock_hz=clock, bytes=moved)
+
+
+def scan_kernel_checks(dev, launch) -> dict:
+    """selective_scan against its plain version (``kernels/ref.py``) on the
+    card, y within 1e-5 (fp32) / one bf16 ulp, the state within 1e-5: the
+    serving shape in bf16, S = 1 and S = 1000, Di = 300 (not a multiple of
+    the kernel's 128 channels a block), N = 5, 8, 16, 64, with and without
+    an initial state, fp32 and bf16 x.  The serving shape is timed through
+    the ops wrapper, as a bare launch and the plain version; no single
+    PyTorch call computes the scan."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # label, B, S, Di, N, x dtype, initial state
+        ("main", SERVE_B, SERVE_PROMPT, 16384, 16, bf16, False),
+        ("S=1, Di=300, init", 2, 1, 300, 16, f32, True),
+        ("S=1000, Di=300, N=8, init", 2, 1000, 300, 8, bf16, True),
+        ("S=1000, Di=300", 2, 1000, 300, 16, f32, False),
+        ("N=64, init", 1, 1000, 256, 64, f32, True),
+        ("N=64, bf16", 2, 77, 300, 64, bf16, False),
+        ("N=5", 2, 33, 128, 5, bf16, False),
+    ]
+    row = None
+    for label, b, sl, di, n, dtype, init in cases:
+        x = randn(b, sl, di, scale=0.5).to(dtype)
+        dt = torch.nn.functional.softplus(randn(b, sl, di))
+        a = -torch.exp(randn(di, n, scale=0.3))
+        bm, cm, d = randn(b, sl, n), randn(b, sl, n), randn(di)
+        h0 = randn(b, di, n) if init else None
+        y, h = ops.selective_scan(x, dt, a, bm, cm, d, init_state=h0)
+        y_exp, h_exp = ref.selective_scan(x, dt, a, bm, cm, d, init_state=h0)
+        tol = SCAN_TOL[dtype]
+        err = float((y.float() - y_exp.float()).abs().max())
+        h_err = float((h - h_exp).abs().max())
+        check(f"selective_scan [{label}: x {tuple(x.shape)} {dtype}, N={n}] y within "
+              f"rtol=atol={tol}, state within 1e-5 of its plain version",
+              y.dtype == dtype and h.dtype == f32 and bool(torch.isfinite(y.float()).all())
+              and torch.allclose(y.float(), y_exp.float(), rtol=tol, atol=tol)
+              and torch.allclose(h, h_exp, rtol=1e-5, atol=1e-5),
+              max_abs_err=err, state_max_abs_err=h_err,
+              state_bitwise=bool(torch.equal(h, h_exp)))
+        if label != "main":
+            continue
+        yo, ho = torch.empty_like(x), torch.empty_like(h)
+        row = dict(
+            source="src/repro_torch/kernels/csrc/selective_scan.cu",
+            replaces="src/repro/kernels/selective_scan.py:86",
+            max_abs_err=err,
+            ms=time_ms(lambda: ops.selective_scan(x, dt, a, bm, cm, d)),
+            launch_ms=time_ms(launch(
+                "selective_scan", "repro_selective_scan_bf16", "selective_scan",
+                x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                d.data_ptr(), None, yo.data_ptr(), ho.data_ptr(), b, sl, di, n)),
+            plain_ms=time_ms(lambda: ref.selective_scan(x, dt, a, bm, cm, d), iters=5),
+            library_ms=None,
+            shape=f"x ({b}, {sl}, {di}) bf16, N {n}, no initial state",
+            **scan_bound(b, sl, di, n, nbytes(x, dt, a, bm, cm, d, y, h)),
+        )
+        del yo, ho
+    return row
 
 
 def topk_payload(gen, c: int, k: int, n: int, dev, *, disjoint=False):
@@ -1419,14 +1529,22 @@ def nccl_single_rank(model, params, batches, weights, budgets, card) -> dict:
     return out
 
 
-# ---------------- phase 8: the dense transformer serving path ----------------
+# ---------------- phases 8-9: the transformer serving paths ----------------
 QWEN3_PARAMS = 596_049_920    # qwen3-0.6b, embeddings tied
-# a priori bound for two bf16 runs of the same 28-layer stack that round at
-# other places (kernel against plain, card against CPU, prefill against
-# decode): unit roundoff 2**-8 per rounding, ~6 roundings of the residual
-# stream's inputs a layer, errors adding in random directions:
-# 2**-8 * sqrt(6 * 28) = 5.1e-2 relative L2 on the logits
+# one 8-layer period of jamba-1.5-large-398b without its experts (phase 9),
+# counted from the JAX package's init shapes (tests/test_torch_hybrid.py)
+JAMBA_SLICE_PARAMS = 8_999_034_880
+# a priori bounds for two bf16 runs of the same stack that round at other
+# places (kernel against plain, card against CPU, prefill against decode):
+# unit roundoff 2**-8 per rounding, errors adding in random directions over
+# the roundings of the residual stream's inputs.  qwen3-0.6b: ~6 a layer,
+# 28 layers, 2**-8 * sqrt(6 * 28) = 5.1e-2 relative L2 on the logits.  The
+# Jamba slice: ~24 a layer (a mamba mixer rounds its conv's 4 products and
+# 3 sums, the bias add, silu's 4 steps on x and on z, the scan's output,
+# the gate product and 3 projections; the MLP ~8), 8 layers:
+# 2**-8 * sqrt(24 * 8) = 5.4e-2
 LOGITS_REL_L2 = 5e-2
+JAMBA_LOGITS_REL_L2 = 2 ** -8 * math.sqrt(24 * 8)
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1434,35 +1552,36 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def serving_phase(card: str, out_dir: Path) -> dict:
-    """Phase 8: qwen3-0.6b at full width (28 layers, d_model 1024, 16 heads,
-    8 KV heads, head_dim 128, d_ff 3072, vocab 151,936, bf16) from
-    ``init(seed)`` on the card, served through ``launch.serve.generate``:
-    B=8, prompt 1024, context 2048, 32 new tokens, with the launch counts
-    set to 0 just before and read just after.  The end-to-end rates come
-    from unsynchronized ``generate`` runs, as a user calls it (the median
-    of 3 of 32 tokens, and of 3 of the prefill alone); a further run
-    synchronizes around each prefill / decode step to time and count it on
-    its own.  Then one prefill and one decode step under the profiler, the
+def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
+                  prefill_launches: dict, step_launches: dict, rel_l2_bound: float,
+                  cpu_prompt: int) -> dict:
+    """One transformer at full width from ``init(seed)`` on the card,
+    served through ``launch.serve.generate``: B=8, prompt 1024, context
+    2048, 32 new tokens, with the launch counts set to 0 just before and
+    read just after (exactly ``prefill_launches`` per prefill and
+    ``step_launches`` per decode step, no other kernel).  The end-to-end
+    rates come from unsynchronized ``generate`` runs, as a user calls it
+    (the median of 3 of 32 tokens, and of 3 of the prefill alone); a
+    further run synchronizes around each prefill / decode step to time and
+    count it on its own.  Then one prefill and one decode step under the
+    profiler (traces ``{tag}_{prefill,decode}_trace.json``), the
     prefill/decode consistency check at full width, and the card against
-    the CPU."""
+    the CPU, each within ``rel_l2_bound``."""
     import dataclasses
 
-    from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
     from repro_torch.utils.pytree import tree_leaves, tree_size
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_config("qwen3-0.6b")
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     leaves = tree_leaves(params)
-    check("qwen3-0.6b: init(seed) on the card at full width", tree_size(params) == QWEN3_PARAMS
+    check(f"{tag}: init(seed) on the card at full width", tree_size(params) == n_params
           and all(t.device.type == "cuda" for t in leaves), n_params=tree_size(params),
           init_s=init_s, param_bytes=sum(t.numel() * t.element_size() for t in leaves))
 
@@ -1498,7 +1617,7 @@ def serving_phase(card: str, out_dir: Path) -> dict:
     wall_s, gen = wall(SERVE_TOKENS)  # the main path: one generate call, unsynchronized
     launches = ops.launch_counts()
     n_steps = SERVE_TOKENS - 1
-    check("serving: generate's tokens", tuple(gen.shape) == (SERVE_B, SERVE_TOKENS)
+    check(f"{tag}: generate's tokens", tuple(gen.shape) == (SERVE_B, SERVE_TOKENS)
           and gen.dtype == torch.int32 and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
           shape=tuple(gen.shape))
     walls = [wall_s] + [wall(SERVE_TOKENS)[0] for _ in range(2)]
@@ -1508,13 +1627,15 @@ def serving_phase(card: str, out_dir: Path) -> dict:
     # per call, synchronized around each: a per-layer statistic beside the rates
     ops.reset_launch_counts()
     again = generate(served, params, prompt, n_tokens=SERVE_TOKENS, context_len=SERVE_CONTEXT)
-    check("serving: the synchronized run generates the same tokens", torch.equal(again, gen))
-    check("serving: exactly 28 flash launches per prefill, 28 decode launches per step, "
-          "no other kernel", len(calls["prefill"]) == 1 and len(calls["decode_step"]) == n_steps
-          and calls["prefill"][0][1] == {"flash_attention": cfg.n_layers}
-          and all(c == {"decode_attention": cfg.n_layers} for _, c in calls["decode_step"])
-          and {k: v for k, v in launches.items() if v} == {
-              "flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * n_steps}
+    check(f"{tag}: the synchronized run generates the same tokens", torch.equal(again, gen))
+    total = {k: prefill_launches.get(k, 0) + n_steps * step_launches.get(k, 0)
+             for k in {**prefill_launches, **step_launches}}
+    check(f"{tag}: exactly {prefill_launches} per prefill, {step_launches} per decode step, "
+          "no other kernel", len(calls["prefill"]) == 1
+          and len(calls["decode_step"]) == n_steps
+          and calls["prefill"][0][1] == prefill_launches
+          and all(c == step_launches for _, c in calls["decode_step"])
+          and {k: v for k, v in launches.items() if v} == total
           and ops.launch_counts() == launches,
           launches=launches, prefill=calls["prefill"][0][1])
     prefill_s = calls["prefill"][0][0]
@@ -1531,7 +1652,7 @@ def serving_phase(card: str, out_dir: Path) -> dict:
         "launches": launches, "init_s": init_s,
         "first_tokens": gen[:2].tolist(),
     }
-    print(f"serving qwen3-0.6b B={SERVE_B} prompt {SERVE_PROMPT} context {SERVE_CONTEXT}, "
+    print(f"{tag} B={SERVE_B} prompt {SERVE_PROMPT} context {SERVE_CONTEXT}, "
           f"unsynchronized generate: {SERVE_TOKENS} tokens in "
           f"{[round(w, 4) for w in walls]} s (median {wall_med:.4f} s, "
           f"{out['end_to_end_tokens_per_s']:.1f} tokens/s end to end), the prefill alone "
@@ -1543,7 +1664,7 @@ def serving_phase(card: str, out_dir: Path) -> dict:
           f"({card})", flush=True)
 
     # one prefill and one decode step under the profiler: card busy time,
-    # the attention kernels, idle share against the unprofiled call's time
+    # the port's kernels, idle share against the unprofiled call's time
     with torch.inference_mode():
         for phase in ("prefill", "decode"):
             prof = profile(activities=[ProfilerActivity.CUDA])
@@ -1565,16 +1686,18 @@ def serving_phase(card: str, out_dir: Path) -> dict:
                 prof.stop()
                 host_s = decode_s
             busy_us, by_kernel = device_time(prof)
-            attn_us = sum(us for name, us in by_kernel.items() if "attention_kernel" in name)
+            port_us = {k: sum(us for name, us in by_kernel.items() if f"{k}_kernel" in name)
+                       for k in ("flash_attention", "decode_attention", "selective_scan")}
             top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-            prof.export_chrome_trace(str(out_dir / f"serving_{phase}_trace.json"))
+            prof.export_chrome_trace(str(out_dir / f"{tag}_{phase}_trace.json"))
             out[f"{phase}_profile"] = {
-                "device_busy_ms": busy_us / 1e3, "attention_kernels_us": attn_us,
+                "device_busy_ms": busy_us / 1e3, "port_kernels_us": port_us,
                 "idle_share": 1.0 - busy_us / 1e6 / host_s, "top_device_us": top,
             }
-            print(f"serving {phase} profiled: card busy {busy_us / 1e3:.3f} ms, attention "
-                  f"kernels {attn_us:.1f} us; idle {out[f'{phase}_profile']['idle_share']:.4f} "
-                  f"of the unprofiled {host_s * 1e3:.3f} ms ({card})", flush=True)
+            print(f"{tag} {phase} profiled: card busy {busy_us / 1e3:.3f} ms, the port's "
+                  f"kernels {({k: round(v, 1) for k, v in port_us.items() if v})} us; idle "
+                  f"{out[f'{phase}_profile']['idle_share']:.4f} of the unprofiled "
+                  f"{host_s * 1e3:.3f} ms ({card})", flush=True)
             for name, us in top:
                 print(f"  {us:10.1f} us  {name[:100]}", flush=True)
     del cache
@@ -1587,24 +1710,26 @@ def serving_phase(card: str, out_dir: Path) -> dict:
         step, _ = model.decode_step(params, {"tokens": toks[:, -1:]}, cache, 512)
     err = max(rel_l2(step[i, -1], full[i, -1]) for i in range(2))
     close = bool(torch.allclose(step.float(), full.float(), atol=0.15, rtol=0.15))
-    check(f"full width: prefill + decode = the longer prefill's logits (relative L2 <= "
-          f"{LOGITS_REL_L2}, elementwise atol = rtol = 0.15 as tests/test_models_smoke.py)",
-          err <= LOGITS_REL_L2 and close, rel_l2=err,
+    check(f"{tag}, full width: prefill + decode = the longer prefill's logits (relative L2 <= "
+          f"{rel_l2_bound:.4f}, elementwise atol = rtol = 0.15 as tests/test_models_smoke.py)",
+          err <= rel_l2_bound and close, rel_l2=err,
           max_abs_err=float((step.float() - full.float()).abs().max()))
     out["prefill_decode_rel_l2"] = err
     del cache, full, step
 
-    out["card_vs_cpu"] = card_vs_cpu(model, params, rng, card)
+    out["card_vs_cpu"] = card_vs_cpu(model, params, rng, card, tag=tag, bound=rel_l2_bound,
+                                     prompt_len=cpu_prompt)
     return out
 
 
-def card_vs_cpu(model, params, rng, card: str) -> dict:
+def card_vs_cpu(model, params, rng, card: str, *, tag: str, bound: float,
+                prompt_len: int) -> dict:
     """The same full-width bf16 params on the card and, copied, through the
-    port on the CPU (the plain versions): a 128-token prompt (B=1) and 4
-    decode steps, both fed the CPU's greedy tokens.  Each step's logits
-    within LOGITS_REL_L2 relative L2; the card's top-1 token equal to the
-    CPU's wherever the CPU's top-1 / top-2 margin exceeds LOGITS_REL_L2
-    times its largest logit."""
+    port on the CPU (the plain versions): a ``prompt_len``-token prompt
+    (B=1) and 4 decode steps, both fed the CPU's greedy tokens.  Each
+    step's logits within ``bound`` relative L2; the card's top-1 token
+    equal to the CPU's wherever the CPU's top-1 / top-2 margin exceeds
+    ``bound`` times its largest logit."""
     import os
 
     from repro_torch.models import build_model
@@ -1613,8 +1738,9 @@ def card_vs_cpu(model, params, rng, card: str) -> dict:
     torch.set_num_threads(os.cpu_count() or 1)
     cpu_model = build_model(model.arch, device="cpu")
     cpu_params = tree_map(lambda t: t.cpu(), params)
-    toks = torch.from_numpy(rng.integers(0, model.arch.vocab_size, (1, 128)).astype(np.int32))
-    ctx, n_steps = 256, 4
+    toks = torch.from_numpy(rng.integers(0, model.arch.vocab_size, (1, prompt_len))
+                            .astype(np.int32))
+    ctx, n_steps = 2 * prompt_len, 4
     t0 = time.perf_counter()
     with torch.inference_mode():
         logits, cache = cpu_model.prefill(cpu_params, {"tokens": toks}, ctx)
@@ -1630,24 +1756,60 @@ def card_vs_cpu(model, params, rng, card: str) -> dict:
         for tok in feed:
             logits, cache = model.decode_step(params, {"tokens": tok.cuda()}, cache, ctx)
             card_logits.append(logits[0, -1].cpu())
+    del cpu_params, cache
     out = {"cpu_s": cpu_s, "rel_l2": [], "top1_equal": [], "margin_over_threshold": []}
     for i, (g, c) in enumerate(zip(card_logits, cpu_logits, strict=True)):
         err = rel_l2(g, c)
         top2 = torch.topk(c.float(), 2)
         margin = float(top2.values[0] - top2.values[1])
-        threshold = LOGITS_REL_L2 * float(c.float().abs().max())
+        threshold = bound * float(c.float().abs().max())
         same = int(torch.argmax(g.float())) == int(top2.indices[0])
         out["rel_l2"].append(err)
         out["top1_equal"].append(same)
         out["margin_over_threshold"].append(margin / threshold)
-        check(f"card against CPU, full width, {'prefill' if i == 0 else f'decode step {i}'}: "
-              f"logits within relative L2 {LOGITS_REL_L2}, top-1 equal where the CPU's margin "
-              "exceeds the bound", err <= LOGITS_REL_L2 and (same or margin <= threshold),
+        check(f"{tag}: card against CPU, full width, "
+              f"{'prefill' if i == 0 else f'decode step {i}'}: logits within relative L2 "
+              f"{bound:.4f}, top-1 equal where the CPU's margin exceeds the bound",
+              err <= bound and (same or margin <= threshold),
               rel_l2=err, top1_equal=same, margin=margin, threshold=threshold)
-    print(f"card vs CPU (qwen3-0.6b full width, B=1, 128-token prompt, 4 steps): relative L2 "
-          f"{[f'{e:.2e}' for e in out['rel_l2']]}, top-1 equal {out['top1_equal']}; CPU run "
-          f"{cpu_s:.1f} s ({card})", flush=True)
+    print(f"{tag} card vs CPU (full width, B=1, {prompt_len}-token prompt, {n_steps} steps): "
+          f"relative L2 {[f'{e:.2e}' for e in out['rel_l2']]}, top-1 equal "
+          f"{out['top1_equal']}; CPU run {cpu_s:.1f} s ({card})", flush=True)
     return out
+
+
+def dense_serving_phase(card: str, out_dir: Path) -> dict:
+    """Phase 8: qwen3-0.6b at full width (28 layers, d_model 1024, 16 heads,
+    8 KV heads, head_dim 128, d_ff 3072, vocab 151,936, bf16): 28 flash
+    launches per prefill, 28 decode launches per step."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("qwen3-0.6b")
+    return serving_phase(card, out_dir, cfg=cfg, tag="serving", n_params=QWEN3_PARAMS,
+                         prefill_launches={"flash_attention": cfg.n_layers},
+                         step_launches={"decode_attention": cfg.n_layers},
+                         rel_l2_bound=LOGITS_REL_L2, cpu_prompt=128)
+
+
+def hybrid_serving_phase(card: str, out_dir: Path) -> dict:
+    """Phase 9: one 8-layer period of jamba-1.5-large-398b at full width
+    without its experts (depth cut 72 -> 8, MoE removed; plan [mamba x 4,
+    attn, mamba x 3]; d_model 8192, d_inner 16384, d_state 16, d_conv 4,
+    64 heads, 8 KV heads, d_ff 24576, vocab 65,536, untied lm_head, bf16,
+    stacked layers): 7 selective_scan and 1 flash launch per prefill, 1
+    decode launch and no scan per step; the CPU check at a 32-token
+    prompt."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"), n_layers=8, moe=None)
+    kinds = [spec.kind for spec in cfg.layer_plan()]
+    return serving_phase(card, out_dir, cfg=cfg, tag="hybrid", n_params=JAMBA_SLICE_PARAMS,
+                         prefill_launches={"selective_scan": kinds.count("mamba"),
+                                           "flash_attention": kinds.count("attn")},
+                         step_launches={"decode_attention": kinds.count("attn")},
+                         rel_l2_bound=JAMBA_LOGITS_REL_L2, cpu_prompt=32)
 
 
 def main() -> int:
@@ -1659,7 +1821,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke test needs the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _cuda
+    try:
+        from repro_torch.kernels import _cuda
+    except ImportError as err:  # e.g. the script copied without the repository's src/
+        print(f"chip_smoke: cannot import repro_torch from {ROOT / 'src'}: {err!r}", flush=True)
+        return 1
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1685,7 +1851,8 @@ def main() -> int:
     REPORT["profile_mixed_fleet"] = profile_phase(card, args.out, MIXED_FLEET)
     REPORT["engine"] = round_engine_phase(card)
     mesh = REPORT["mesh"] = mesh_phase(card)
-    serving = REPORT["serving"] = serving_phase(card, args.out)
+    serving = REPORT["serving"] = dense_serving_phase(card, args.out)
+    hybrid = REPORT["hybrid"] = hybrid_serving_phase(card, args.out)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):
@@ -1695,15 +1862,16 @@ def main() -> int:
     kernels = []
     for name in ("quantize_int8", "dequantize_int8", "dequant_reduce", "fedavg_reduce",
                  "topk_scatter_reduce", "collective_pack", "collective_unpack",
-                 "flash_attention", "decode_attention"):
+                 "flash_attention", "decode_attention", "selective_scan"):
         r = rows[name]
         # each kernel's launches on the path that runs it: phase 3's loop,
         # for the TopK reduce phase 3b's mixed fleet, for the collective
         # kernels phase 7's mesh (rank 0, rounds 1-3 of every case), for
-        # the attention kernels phase 8's serving run
+        # the attention kernels phase 8's serving run, for the scan phase
+        # 9's
         path = {"topk_scatter_reduce": mixed, "collective_pack": mesh,
                 "collective_unpack": mesh, "flash_attention": serving,
-                "decode_attention": serving}.get(name, loop)
+                "decode_attention": serving, "selective_scan": hybrid}.get(name, loop)
         launches = path["launches"][name]
         check(f"{name} launched on its path", launches > 0, launches=launches)
         kernels.append({

@@ -9,5 +9,5 @@ on what was imported before.
 """
 from . import (
     collective_quant, decode_attention, dequant_reduce, fedavg_reduce, flash_attention, ops,
-    quantize, ref, scatter_reduce,
+    quantize, ref, scatter_reduce, selective_scan,
 )

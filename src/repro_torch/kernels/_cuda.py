@@ -9,7 +9,7 @@ source is rebuilt and never confused with a stale library.
 
 ``--use_fast_math`` stays off: the Int8 codes are bitwise the plain
 version's only with IEEE division, and the attention kernels' softmax
-uses ``expf``, not the approximate ``__expf``.
+and the selective scan use ``expf``, not the approximate ``__expf``.
 
 Nothing here runs at import: CPU-only machines import every module, and
 ``nvcc`` is needed only when a CUDA tensor arrives.
@@ -63,6 +63,10 @@ SIGNATURES = {
         "repro_decode_attention_f32": (_P, _P, _P, _P, _P, *(_I64,) * 5, _F, _P),
         "repro_decode_attention_bf16": (_P, _P, _P, _P, _P, *(_I64,) * 5, _F, _P),
     },
+    "selective_scan": {
+        "repro_selective_scan_f32": (*(_P,) * 9, *(_I64,) * 4, _P),
+        "repro_selective_scan_bf16": (*(_P,) * 9, *(_I64,) * 4, _P),
+    },
 }
 
 # launches per kernel wrapper: each wrapper adds one where it launches its
@@ -71,7 +75,7 @@ LAUNCHES = {
     "fedavg_reduce": 0, "quantize_int8": 0, "dequantize_int8": 0,
     "dequant_reduce": 0, "topk_scatter_reduce": 0,
     "collective_pack": 0, "collective_unpack": 0,
-    "flash_attention": 0, "decode_attention": 0,
+    "flash_attention": 0, "decode_attention": 0, "selective_scan": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

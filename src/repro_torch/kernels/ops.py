@@ -22,6 +22,7 @@ from .flash_attention import flash_attention as _flash_kernel
 from .quantize import BLOCK, dequantize_int8 as _dequantize_kernel
 from .quantize import quantize_int8 as _quantize_kernel
 from .scatter_reduce import topk_scatter_reduce as _topk_kernel
+from .selective_scan import selective_scan as _scan_kernel
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -138,3 +139,17 @@ def decode_attention(q, k_cache, v_cache, *, kv_valid):
     if _on_card(q, k_cache, v_cache, kv_valid):
         return _decode_kernel(q, k_cache, v_cache, kv_valid=kv_valid)
     return ref.decode_attention(q, k_cache, v_cache, kv_valid=kv_valid)
+
+
+# ---------------- mamba scan (the hybrid transformer's prefill) ----------------
+def selective_scan(x, dt, A, B, C, D, *, init_state=None):
+    """x, dt (B,S,Di); A (Di,N); B, C (B,S,N); D (Di,); optional initial
+    state (B,Di,N) -> (y (B,S,Di) in x's dtype, final state fp32).  Any S:
+    the TPU dispatch's S % 128 gate is not copied."""
+    tensors = (x, dt, A, B, C, D) + (() if init_state is None else (init_state,))
+    if _on_card(*tensors):
+        return _scan_kernel(x, dt, A, B, C, D, init_state=init_state)
+    return ref.selective_scan(x, dt, A, B, C, D, init_state=init_state)
+
+
+selective_scan_step = ref.selective_scan_step  # one token: plain ops, JAX has no kernel for it

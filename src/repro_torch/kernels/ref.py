@@ -159,3 +159,56 @@ def decode_attention(
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(torch.float32), v_cache.to(torch.float32))
     return out.reshape(b, h, d).to(q.dtype)
+
+
+# ---------------- mamba selective scan ----------------
+def selective_scan(
+    x: torch.Tensor,    # (B, S, Di)  input sequence
+    dt: torch.Tensor,   # (B, S, Di)  softplus'd step sizes
+    A: torch.Tensor,    # (Di, N)     negative-real state matrix
+    Bm: torch.Tensor,   # (B, S, N)   input -> state projection
+    Cm: torch.Tensor,   # (B, S, N)   state -> output projection
+    D: torch.Tensor,    # (Di,)       skip
+    *,
+    init_state: torch.Tensor | None = None,  # (B, Di, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t,  y_t = h_t C_t + D x_t:
+    the literal recurrence, one step at a time in the Pallas kernel's
+    arithmetic (``repro/kernels/selective_scan.py:42-51``), the (B, Di, N)
+    state in fp32.  Returns (y in x's dtype, final state fp32).  JAX's
+    oracle sums the same terms by a chunked associative scan instead."""
+    bsz, s, di = x.shape
+    f32 = torch.float32
+    a = A.to(f32)
+    d = D.to(f32)
+    h = (init_state.to(f32) if init_state is not None
+         else torch.zeros((bsz, di, A.shape[-1]), dtype=f32, device=x.device))
+    y = torch.empty_like(x)
+    for t in range(s):
+        x_t = x[:, t].to(f32)                                   # (B, Di)
+        dt_t = dt[:, t].to(f32)
+        b_t, c_t = Bm[:, t].to(f32), Cm[:, t].to(f32)           # (B, N)
+        h = torch.exp(dt_t[..., None] * a) * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
+        y[:, t] = ((h * c_t[:, None, :]).sum(-1) + d * x_t).to(x.dtype)
+    return y, h
+
+
+def selective_scan_step(
+    x: torch.Tensor,      # (B, Di)
+    dt: torch.Tensor,     # (B, Di)
+    A: torch.Tensor,      # (Di, N)
+    Bm: torch.Tensor,     # (B, N)
+    Cm: torch.Tensor,     # (B, N)
+    D: torch.Tensor,      # (Di,)
+    state: torch.Tensor,  # (B, Di, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token's recurrent step (decode), in JAX's step arithmetic
+    (``repro/kernels/ref.py:229``): (dt B) x for the input term, the
+    output an einsum over N.  Returns (y in x's dtype, new state fp32)."""
+    f32 = torch.float32
+    xf, dtf = x.to(f32), dt.to(f32)
+    new_state = torch.exp(dtf[..., None] * A.to(f32)[None]) * state.to(f32) + (
+        dtf[..., None] * Bm[:, None, :].to(f32) * xf[..., None]
+    )
+    y = torch.einsum("bn,bdn->bd", Cm.to(f32), new_state) + D[None].to(f32) * xf
+    return y.to(x.dtype), new_state

@@ -8,9 +8,10 @@ methods are plain functions on nested dicts of tensors:
     trainable_mask(params) -> bool pytree (None = all trainable)
     prefill / decode_step / init_cache (transformers)
 
-The port runs the ``head`` family and the ``dense`` transformers' serving
-path (prefill + decode) so far; the others raise ``NotImplementedError``
-naming their ROADMAP.md item.
+The port runs the ``head`` family and the serving path (prefill + decode)
+of the transformers whose layers it has: attention, mamba and the gated
+MLP, so the dense family and the hybrid one without experts.  What is not
+ported raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -25,10 +26,13 @@ from repro_torch.utils.pytree import tensor_from_numpy, tree_map
 
 PyTree = Any
 
+# the families none of whose models the port can run yet, and what they need
 _NOT_PORTED = {
     "cnn": "ResNet-18 is ROADMAP.md queue 1 item 14",
-    "ssm": "the mamba and xLSTM mixers are ROADMAP.md queue 1 item 15 (mamba with queue 2 "
-           "item 10, selective_scan)",
+    "ssm": "the mLSTM/sLSTM mixers (xLSTM) are ROADMAP.md queue 1 item 15",
+    "moe": "the MoE feed-forward is ROADMAP.md queue 1 item 15",
+    "vlm": "the frontend tokens are ROADMAP.md queue 1 item 15",
+    "audio": "the frontend tokens are ROADMAP.md queue 1 item 15",
 }
 
 
@@ -67,7 +71,9 @@ def build_model(arch, *, device=None) -> Model:
             trainable_mask=headmodel.trainable_mask,
         )
 
-    if arch_cfg.family == "dense":
+    if arch_cfg.family in ("dense", "hybrid"):
+        # what a transformer needs is read from its layers: check_ported
+        # raises for a layer kind, MoE, MLA or frontend not ported yet
         from . import transformer as tfm
 
         cfg = arch_cfg
@@ -86,11 +92,7 @@ def build_model(arch, *, device=None) -> Model:
 
     raise NotImplementedError(
         f"{arch_cfg.name} ({arch_cfg.family} family) is not ported yet: "
-        + _NOT_PORTED.get(
-            arch_cfg.family,
-            "the MoE, hybrid and frontend transformer families are ROADMAP.md queue 1 "
-            "item 15",
-        )
+        + _NOT_PORTED[arch_cfg.family]
     )
 
 

@@ -1,19 +1,20 @@
 """Decoder-only stack, the twin of ``repro.models.transformer`` for the
-dense attention family: pre-norm attention + pre-norm gated MLP blocks.
+dense and hybrid families: pre-norm mixer (attention or mamba, by the
+layer plan) + pre-norm gated MLP blocks.
 
 Params and caches keep the JAX trees exactly, so one ``params_from_numpy``
 carries either across: ``blocks`` (and a cache's ``layers``) is a tuple of
 per-position dicts whose leaves are stacked ``(L / period, ...)`` when
-``scan_layers``, and a tuple of per-layer dicts otherwise.  Where JAX scans
-over the stacked leaves, the port loops over layers and indexes views of
-them: nothing is unstacked or copied.  A cache's ``pos`` is a host-side
-int32 scalar, so a decode step reads it once and no layer waits on the
-card.
+``scan_layers``, and a tuple of per-layer dicts otherwise.  A cache holds
+K and V at an attention position and the (conv, ssm) state at a mamba
+one.  Where JAX scans over the stacked leaves, the port loops over layers
+and indexes views of them: nothing is unstacked or copied.  A cache's
+``pos`` is a host-side int32 scalar, so a decode step reads it once and no
+layer waits on the card.
 
-Not ported yet (each raises ``NotImplementedError``): MLA, MoE, mamba,
+Not ported yet (each raises ``NotImplementedError``): MLA, MoE,
 mLSTM/sLSTM, frontend tokens, and training (``loss_fn`` /
-``cross_entropy``); all are ROADMAP.md queue 1 item 15, mamba with queue
-2 item 10 (``selective_scan``).
+``cross_entropy``); all are ROADMAP.md queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.utils.pytree import tree_map
 
 from .layers import attention as attn_lib
+from .layers import mamba as mamba_lib
 from .layers.embeddings import embed, init_embedding, normal
 from .layers.mlp import init_mlp, mlp_forward
 from .layers.norms import apply_norm, init_norm
@@ -46,13 +48,12 @@ def check_ported(cfg: ArchConfig) -> None:
     if cfg.frontend_tokens:
         raise NotImplementedError(f"{cfg.name}: frontend tokens are not ported yet ({_ITEM})")
     for spec in cfg.layer_plan():
-        if spec.kind == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: the mamba mixer is not ported yet ({_ITEM}, with "
-                "ROADMAP.md queue 2 item 10, selective_scan)")
         if spec.kind in ("mlstm", "slstm"):
             raise NotImplementedError(
                 f"{cfg.name}: the {spec.kind} mixer is not ported yet ({_ITEM})")
+        if spec.kind == "mamba" and cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: a mamba layer needs cfg.ssm (d_state, d_conv, "
+                             "expand)")
 
 
 # ============================ block ============================
@@ -61,9 +62,10 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, *, lead=(
     """One block's params; ``lead`` = (L,) draws the stacked leaves of L
     layers at once."""
     dt = _dtype(cfg)
+    init_mixer = attn_lib.init_attention if spec.kind == "attn" else mamba_lib.init_mamba
     p: dict = {
         "norm1": init_norm(cfg, cfg.d_model, lead=lead, device=device),
-        "mixer": attn_lib.init_attention(gen, cfg, dt, lead=lead, device=device),
+        "mixer": init_mixer(gen, cfg, dt, lead=lead, device=device),
     }
     if cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg, cfg.d_model, lead=lead, device=device)
@@ -80,22 +82,33 @@ def _ffn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 def block_forward(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor, *,
                   window=None, cache: dict | None = None, ring: bool = False) -> torch.Tensor:
     """Full-sequence pass of one block (JAX also returns the MoE aux dict,
-    which is zero for dense blocks).  Given this layer's ``cache`` (prefill),
-    the K and V its attention projected are written into it."""
+    which is zero without experts).  Given this layer's ``cache`` (prefill),
+    what its mixer leaves for decode is written into it: the K and V its
+    attention projected, or the mamba layer's final (conv, ssm) state."""
     h = apply_norm(cfg, params["norm1"], x)
-    out, k, v = attn_lib.attention_forward(cfg, params["mixer"], h, window=window)
-    if cache is not None:
-        _attn_prefill_cache(cache, k, v, ring)
+    if spec.kind == "attn":
+        out, k, v = attn_lib.attention_forward(cfg, params["mixer"], h, window=window)
+        if cache is not None:
+            _attn_prefill_cache(cache, k, v, ring)
+    else:
+        out, state = mamba_lib.mamba_forward(cfg, params["mixer"], h)
+        if cache is not None:
+            cache["conv"].copy_(state["conv"])
+            cache["ssm"].copy_(state["ssm"])
     return _ffn(cfg, params, x + out)
 
 
 def block_decode(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor,
-                 cache: dict, pos: int, *, ring: bool, valid: torch.Tensor):
+                 cache: dict, pos: int, *, ring: bool, valid: torch.Tensor | None):
     """One-token decode. x: (B,1,d). Returns (x, cache), the cache written
-    in place."""
+    in place.  ``valid`` is the attention layers' slot mask (None in a
+    stack without attention)."""
     h = apply_norm(cfg, params["norm1"], x)
-    out, cache = attn_lib.attention_decode(cfg, params["mixer"], h, cache, pos, ring=ring,
-                                           valid=valid)
+    if spec.kind == "attn":
+        out, cache = attn_lib.attention_decode(cfg, params["mixer"], h, cache, pos, ring=ring,
+                                               valid=valid)
+    else:
+        out, cache = mamba_lib.mamba_decode(cfg, params["mixer"], h, cache)
     return _ffn(cfg, params, x + out), cache
 
 
@@ -198,17 +211,24 @@ def _ring(cfg: ArchConfig, shape_seq_len: int) -> tuple[bool, int]:
 
 
 def init_cache(cfg: ArchConfig, batch: int, context_len: int, *, device=None) -> dict:
+    """Each layer's cache by its kind: K and V (B, cache_len, KV, hd) for
+    attention, conv (B, d_conv - 1, di) and fp32 ssm (B, di, N) state for
+    mamba; stacked ``(L / period, ...)`` per position when ``scan_layers``."""
     check_ported(cfg)
     _, cache_len = _ring(cfg, context_len)
     dt = _dtype(cfg)
+    plan = cfg.layer_plan()
+
+    def one(spec, lead):
+        if spec.kind == "attn":
+            return attn_lib.init_kv_cache(cfg, batch, cache_len, dt, lead=lead, device=device)
+        return mamba_lib.init_mamba_cache(cfg, batch, dt, lead=lead, device=device)
+
     if not cfg.scan_layers:
-        layers = tuple(attn_lib.init_kv_cache(cfg, batch, cache_len, dt, device=device)
-                       for _ in range(cfg.n_layers))
+        layers = tuple(one(plan[i], ()) for i in range(cfg.n_layers))
     else:
         lead = (cfg.n_layers // cfg.plan_period,)
-        layers = tuple(attn_lib.init_kv_cache(cfg, batch, cache_len, dt, lead=lead,
-                                              device=device)
-                       for _ in range(cfg.plan_period))
+        layers = tuple(one(plan[pos], lead) for pos in range(cfg.plan_period))
     return {"layers": layers, "pos": torch.zeros((), dtype=torch.int32)}
 
 
@@ -220,9 +240,13 @@ def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
     ring, _ = _ring(cfg, context_len)
     pos = int(cache["pos"])  # host-side: no sync (a card tensor syncs once a step)
     x = embed(params["embed"], batch["tokens"]).to(_dtype(cfg))
-    b, cache_len = x.shape[0], cache["layers"][0]["k"].shape[-3]
-    # every layer masks the same slots: one mask a step, not one a layer
-    valid = attn_lib.kv_valid(b, cache_len, pos, ring=ring, device=x.device)
+    # every attention layer masks the same slots: one mask a step, not one a
+    # layer, its length read from the first attention layer's cache
+    kinds = [spec.kind for spec in cfg.layer_plan()]
+    valid = None
+    if "attn" in kinds:
+        cache_len = cache["layers"][kinds.index("attn")]["k"].shape[-3]
+        valid = attn_lib.kv_valid(x.shape[0], cache_len, pos, ring=ring, device=x.device)
     for (spec, p), c in zip(_layers(cfg, params["blocks"]),
                             _layer_caches(cfg, cache["layers"]), strict=True):
         x, _ = block_decode(cfg, spec, p, x, c, pos, ring=ring, valid=valid)

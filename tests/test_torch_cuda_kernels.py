@@ -14,7 +14,12 @@ two launches give the same bits.  The attention kernels are held at
 ``tests/test_kernels.py``'s tolerances, 2e-5 (fp32) and 2e-2 (bf16): their
 sums run in another order than the plain versions', and the plain decode
 rounds q * scale and the probabilities to the cache dtype where the
-kernel, like the Pallas body, keeps fp32.
+kernel, like the Pallas body, keeps fp32.  The selective scan rounds each
+product and sum of its state update as the plain version's PyTorch ops do
+and calls the same ``expf``; only the output's sum over N runs in another
+order: ``rtol=atol=1e-5`` for fp32 y and the state, and one bf16 ulp
+(``rtol=atol=2**-7``) for bf16 y, whose fp32 sums may straddle a rounding
+edge.
 """
 import numpy as np
 import pytest
@@ -298,3 +303,102 @@ def test_cuda_decode_attention(cuda, b, s, h, kv, d, dtype, mask):
     tol = ATTN_TOL[dtype]
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _scan_inputs(cuda, seed, b, s, di, n, dtype, init):
+    """The reference test's distributions, drawn on the card: x ~ 0.5 N,
+    dt = softplus(N), A = -exp(0.3 N), B, C, D ~ N, a N state."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    x = randn(b, s, di, scale=0.5).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, di))
+    a = -torch.exp(randn(di, n, scale=0.3))
+    h0 = randn(b, di, n) if init else None
+    return (x, dt, a, randn(b, s, n), randn(b, s, n), randn(di)), h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n,dtype,init", [
+    (8, 1024, 16384, 16, torch.bfloat16, False),  # the Jamba slice's prefill
+    (2, 1, 300, 16, torch.float32, True),          # one step, Di not a block multiple
+    (2, 1000, 300, 8, torch.bfloat16, True),       # ragged S and Di
+    (2, 1000, 300, 16, torch.float32, False),
+    (1, 1000, 256, 64, torch.float32, True),       # the largest N
+    (3, 77, 512, 16, torch.float32, True),
+    (2, 33, 128, 5, torch.bfloat16, False),        # N below its register bucket
+])
+def test_cuda_selective_scan(cuda, b, s, di, n, dtype, init):
+    args, h0 = _scan_inputs(cuda, s + di + n, b, s, di, n, dtype, init)
+    before = ops.launch_counts()["selective_scan"]
+    y, h = ops.selective_scan(*args, init_state=h0)
+    assert ops.launch_counts()["selective_scan"] == before + 1
+    y_exp, h_exp = ref.selective_scan(*args, init_state=h0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (b, s, di)
+    assert h.dtype == torch.float32 and h.shape == (b, di, n)
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_exp.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_exp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_never_reaches_ref(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel or raises: with the plain version
+    replaced by a trap, the scan still runs, and a shape the kernel does
+    not take raises instead of falling back."""
+    def trap(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "selective_scan", trap)
+    args, h0 = _scan_inputs(cuda, 1, 2, 64, 128, 16, torch.bfloat16, True)
+    y, h = ops.selective_scan(*args, init_state=h0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
+    args, _ = _scan_inputs(cuda, 2, 1, 8, 32, 65, torch.float32, False)
+    with pytest.raises(ValueError, match="N <= 64"):
+        ops.selective_scan(*args)
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_stack_matches_the_cpu(cuda):
+    """The reduced hybrid (jamba without experts, 4 layers, fp32) from one
+    set of params on the card and on the CPU: prefill and 4 decode steps'
+    logits within 1e-4 of their scale (the kernels' sums run in other
+    orders), one selective_scan launch per mamba layer per prefill and none
+    in a decode step."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(), moe=None,
+                              n_layers=4, dtype="float32")
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu.init(0)
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    toks = _t(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    n_mamba = sum(spec.kind == "mamba" for spec in cfg.layer_plan())
+    with torch.inference_mode():
+        want, cache = cpu.prefill(params, {"tokens": toks}, 128)
+        ops.reset_launch_counts()
+        got, card_cache = card.prefill(card_params, {"tokens": toks.to(cuda)}, 128)
+        assert ops.launch_counts()["selective_scan"] == n_mamba
+        assert ops.launch_counts()["flash_attention"] == cfg.n_layers - n_mamba
+        for _ in range(4):
+            torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                       atol=1e-4 * float(want.abs().max()))
+            tok = torch.argmax(want[:, -1], -1)[:, None].to(torch.int32)
+            ops.reset_launch_counts()
+            got, card_cache = card.decode_step(card_params, {"tokens": tok.to(cuda)},
+                                               card_cache, 128)
+            assert ops.launch_counts()["selective_scan"] == 0
+            assert ops.launch_counts()["decode_attention"] == cfg.n_layers - n_mamba
+            want, cache = cpu.decode_step(params, {"tokens": tok}, cache, 128)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * float(want.abs().max()))

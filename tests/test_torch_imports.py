@@ -1,9 +1,10 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor the JAX package ``repro``, so the port runs where JAX
 is not installed.  An AST scan checks every import statement; a fresh
-interpreter imports every kernel module, the mesh launcher, the transformer
-and the serving driver, runs one CPU fit and a few reduced CPU decode
-steps, and checks that JAX never loaded."""
+interpreter imports every kernel module, the mesh launcher, the transformer,
+the mamba mixer and the serving driver, runs one CPU fit and a few reduced
+CPU decode steps of the dense and the hybrid stack, and checks that JAX
+never loaded."""
 import ast
 import os
 import subprocess
@@ -50,6 +51,7 @@ from repro_torch.models import build_model
 import repro_torch.kernels, repro_torch.launch
 import repro_torch.kernels.flash_attention, repro_torch.kernels.decode_attention
 import repro_torch.models.transformer, repro_torch.launch.serve
+import repro_torch.kernels.selective_scan, repro_torch.models.layers.mamba
 from repro_torch.core import CompressedPsum, init_collective_residual
 from repro_torch.launch.serve import generate
 
@@ -65,6 +67,12 @@ assert res.num_examples == 64 and res.metrics["steps_done"] == 2
 lm = build_model(get_config("qwen3-0.6b").reduced(), device="cpu")
 import torch
 toks = generate(lm, lm.init(0), torch.zeros((1, 8), dtype=torch.int32), n_tokens=3,
+                context_len=16)
+assert toks.shape == (1, 3)
+import dataclasses
+hy = build_model(dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(), moe=None),
+                 device="cpu")
+toks = generate(hy, hy.init(0), torch.zeros((1, 8), dtype=torch.int32), n_tokens=3,
                 context_len=16)
 assert toks.shape == (1, 3)
 assert "jax" not in sys.modules and "repro" not in sys.modules, sorted(

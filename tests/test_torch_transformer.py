@@ -348,7 +348,6 @@ def test_serve_main_runs_on_the_cpu_when_asked(capsys):
     (dict(mla=MLAConfig()), "MLA"),
     (dict(moe=MoEConfig()), "MoE"),
     (dict(frontend_tokens=16), "frontend"),
-    (dict(attn_layer_period=2, alt_kind="mamba"), "mamba"),
     (dict(attn_layer_period=2, alt_kind="mlstm"), "mlstm"),
 ])
 def test_unported_features_raise_naming_their_item(change, what):
@@ -357,10 +356,35 @@ def test_unported_features_raise_naming_their_item(change, what):
         build_model(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["moe", "ssm", "vlm", "audio"])
 def test_unported_families_raise_naming_their_item(family):
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
+        build_model(cfg, device="cpu")
+
+
+_JAMBA = "jamba-1.5-large-398b"
+
+
+@pytest.mark.parametrize("make,what", [
+    (lambda: get_config(_JAMBA), "MoE"),
+    (lambda: get_config(_JAMBA).reduced(), "MoE"),
+    (lambda: dataclasses.replace(get_config(_JAMBA).reduced(), moe=None, alt_kind="mlstm"),
+     "mlstm"),
+], ids=["jamba", "jamba-reduced", "hybrid-mlstm"])
+def test_unported_hybrids_raise_naming_their_item(make, what):
+    """The hybrid family builds by what its layers need: Jamba as
+    registered needs MoE, a hybrid of attention and mLSTM needs mLSTM."""
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md queue 1 item 15"):
+        build_model(make(), device="cpu")
+
+
+def test_mamba_layers_need_an_ssm_config():
+    """A mamba layer in a config without ``ssm`` (qwen3's) is refused with
+    what is missing, not an AttributeError from inside the init."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), attn_layer_period=2,
+                              alt_kind="mamba")
+    with pytest.raises(ValueError, match="needs cfg.ssm"):
         build_model(cfg, device="cpu")
 
 
