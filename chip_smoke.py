@@ -46,9 +46,12 @@ Phases (any failure exits non-zero):
    round; then a 1 x 1 mesh on NCCL, held the same way;
 8. the dense transformer serving path: flash_attention and
    decode_attention held against their plain versions in phase 2 (the
-   serving shapes in bf16, fp32 at D = 32-256, a window, a q_offset,
-   ragged Sq, rows with no valid key, linear / random / ring-arc /
-   all-invalid decode masks) and timed beside scaled_dot_product_attention;
+   serving shapes in bf16, fp32 and bf16 at D = 32-256, a window, a
+   q_offset, ragged Sq and Skv, not causal, rows with no valid key,
+   linear / random / ring-arc / all-invalid decode masks) and timed beside
+   scaled_dot_product_attention, flash also at the Jamba slice's 64 heads;
+   the flash library's SASS must hold HGMMA (cuobjdump) and ptxas must
+   report no spill in its wgmma kernels;
    then qwen3-0.6b at full width from init(seed) on the card through
    launch.serve.generate (B=8, prompt 1024, context 2048, 32 new tokens)
    with exactly 28 flash launches per prefill and 28 decode launches per
@@ -94,8 +97,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
-FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores (1980 MHz)
+H100_SMS = 132
+# dense bf16 on the tensor cores: 4 tensor cores an SM, 1024 FLOP a clock each.
+# The data sheet's 989 TFLOP/s is this at 1830 MHz; the bounds take the
+# card's own maximum SM clock (1980 MHz on the H100 SXM: 1070 TFLOP/s), the
+# clock the fp32 rate and the selective scan's exponentials assume too.
+BF16_FLOP_PER_CLOCK_PER_SM = 4096
 BLOCK = 256
 N_PARAMS = 1_974_303          # mobilenet-head-office31, frozen base included
 REPORT = {"checks": [], "timings": []}
@@ -139,6 +147,19 @@ def time_ms(fn, iters: int = 30) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def bf16_flop_per_s() -> float:
+    """The card's dense bf16 tensor-core peak at its maximum SM clock."""
+    return H100_SMS * BF16_FLOP_PER_CLOCK_PER_SM * max_sm_clock_hz()
 
 
 def bound(nbytes: int, flops: int, peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
@@ -428,16 +449,62 @@ def decode_slots(valid: torch.Tensor) -> int:
     return int(torch.where(per_row > 0, per_row, valid.shape[1]).sum())
 
 
+def flash_build_checks() -> dict:
+    """The built flash library: its SASS holds HGMMA (the bf16 route runs
+    on the tensor cores; a missing cuobjdump fails the check), and ptxas'
+    registers and spills for each flash kernel, none in the wgmma ones."""
+    import os
+    import re
+    import shutil
+
+    from repro_torch.kernels import _cuda
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check("cuobjdump is there to read the flash library's SASS", os.path.exists(tool),
+          path=tool)
+    sass = subprocess.run([tool, "-sass", str(_cuda.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    n_hgmma = sass.count("HGMMA")
+    print(f"flash_attention SASS: {n_hgmma} HGMMA instructions", flush=True)
+    check("the flash library's SASS holds HGMMA", n_hgmma > 0, hgmma=n_hgmma)
+    ptxas, name = {}, None
+    for line in _cuda.build_log("flash_attention").splitlines():
+        entry = re.search(r"Compiling entry function '\S*?(flash_attention_kernel\w*?)I(\w*?)Li"
+                          r"(\d+)E", line)
+        if entry:
+            kind, dtype, dp = entry.groups()
+            name = f"{kind}<{'float, ' if dtype == 'f' else ''}{dp}>"
+            ptxas[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line)):
+            ptxas[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            ptxas[name]["registers"] = int(m[1])
+    for name, info in ptxas.items():
+        print(f"ptxas {name}: {info}", flush=True)
+    wgmma = {k: v for k, v in ptxas.items() if "wgmma" in k}
+    check("ptxas reports every flash kernel, and no spill in the wgmma ones",
+          len(ptxas) == 6 and len(wgmma) == 3
+          and all(v.get("spill_stores") == 0 == v.get("spill_loads") for v in wgmma.values()),
+          kernels=ptxas)
+    return {"hgmma": n_hgmma, "ptxas": ptxas}
+
+
 def attention_kernel_checks(dev, launch) -> dict:
     """flash_attention and decode_attention against their plain versions
     (``kernels/ref.py``) on the card, within 2e-5 (fp32) / 2e-2 (bf16):
-    the serving shapes in bf16; fp32 at D = 32, 64, 128, 256; a window, a
-    q_offset, ragged Sq = 1000 and 17, rows with no valid key; decode with
-    the linear mask, a random mask, ring arcs (whole tiles invalid before,
-    between and after the valid slots), an all-invalid row, fp32, D = 256
-    and G = 4.  The serving shapes are timed: through the ops wrapper, as a bare
-    launch, the plain version and scaled_dot_product_attention (never on
-    the port's path)."""
+    the serving shapes in bf16; fp32 (the CUDA-core route) and bf16 (the
+    wgmma route) at D = 32, 64, 128, 256; a window, a q_offset, ragged Sq =
+    1000 and 17, Skv not a multiple of the key tile, not causal, rows with
+    no valid key, a bf16 item that walks every key tile with rows with and
+    without a valid key (D = 128 and 256); decode with the linear mask, a random mask, ring arcs
+    (whole tiles invalid before, between and after the valid slots), an
+    all-invalid row, fp32, D = 256 and G = 4.  The serving shapes and the
+    Jamba slice's flash shape (64 query heads) are timed: through the ops
+    wrapper, as a bare launch, the plain version and
+    scaled_dot_product_attention (never on the port's path), and so is the
+    fp32 route at the serving shape.  Then the flash library's SASS and
+    ptxas report (``flash_build_checks``)."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev)
@@ -457,6 +524,9 @@ def attention_kernel_checks(dev, launch) -> dict:
         return err
 
     bf16, f32 = torch.bfloat16, torch.float32
+    bf16_peak = bf16_flop_per_s()
+    print(f"bf16 tensor-core peak at the card's maximum SM clock: {bf16_peak / 1e12:.1f} "
+          f"TFLOP/s", flush=True)
     flash_cases = [  # label, B, Sq, Skv, H, KV, D, dtype, window, q_offset, causal
         ("main", SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 16, 8, 128, bf16, None, 0, True),
         ("fp32 D=32", 2, 256, 256, 4, 2, 32, f32, None, 0, True),
@@ -471,6 +541,21 @@ def attention_kernel_checks(dev, launch) -> dict:
         ("ragged Sq=17 at q_offset 128", 2, 17, 145, 16, 8, 128, bf16, 64, 128, True),
         ("not causal", 1, 65, 130, 4, 4, 64, f32, None, 0, False),
         ("rows with no valid key", 1, 8, 8, 2, 1, 32, f32, 3, 20, True),
+        # the bf16 route (wgmma): D_pad 64 / 128 / 256, key tiles of 128 (32 at 256)
+        ("bf16 D=32", 2, 256, 256, 4, 2, 32, bf16, None, 0, True),
+        ("bf16 D=64", 2, 256, 256, 4, 2, 64, bf16, None, 0, True),
+        ("bf16 D=256", 2, 256, 256, 4, 2, 256, bf16, None, 0, True),
+        ("bf16 not causal", 1, 65, 130, 4, 4, 64, bf16, None, 0, False),
+        ("bf16 q_offset 256", 2, 128, 384, 8, 4, 128, bf16, None, 256, True),
+        ("bf16 rows with no valid key", 1, 8, 8, 2, 1, 32, bf16, 3, 20, True),
+        ("bf16 Skv=333, not a multiple of the key tile", 2, 200, 333, 8, 2, 128, bf16, None,
+         133, True),
+        ("bf16 D=256, Skv=77, not causal", 1, 100, 77, 4, 1, 256, bf16, None, 0, False),
+        # the first item walks every key tile; its rows from 115 on have no valid key
+        ("bf16 item mixing rows with and without a valid key, 3 key tiles", 2, 256, 300, 4,
+         2, 128, bf16, 16, 200, True),
+        ("bf16 item mixing rows with and without a valid key, D=256, 10 key tiles", 2, 256,
+         300, 4, 2, 256, bf16, 16, 200, True),
     ]
     for label, b, sq, skv, h, kv, d, dtype, window, q_off, causal in flash_cases:
         q, k, v = randn(b, sq, h, d, dtype=dtype), randn(b, skv, kv, d, dtype=dtype), \
@@ -491,7 +576,7 @@ def attention_kernel_checks(dev, launch) -> dict:
               max_abs_err=float((sdpa.float() - exp.float()).abs().max()))
         o = torch.empty_like(q)
         pairs = attention_pairs(sq, skv, causal, window, q_off)
-        b_ms, b_by = bound(nbytes(q, k, v, out), 4 * b * h * d * pairs, BF16_FLOP_PER_S)
+        b_ms, b_by = bound(nbytes(q, k, v, out), 4 * b * h * d * pairs, bf16_peak)
         rows["flash_attention"] = dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:102",
@@ -505,9 +590,43 @@ def attention_kernel_checks(dev, launch) -> dict:
             library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by, flops=4 * b * h * d * pairs,
+            peak_flop_per_s=bf16_peak,
             shape=f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {skv}, {kv}, {d}) bf16 causal",
             bytes=nbytes(q, k, v, out),
         )
+
+    # on lines of their own: the Jamba slice's attention layer (64 query heads
+    # over 8 KV heads), and the fp32 route (the CUDA-core kernel) at the
+    # serving shape beside its bound at the fp32 rate outside the tensor cores
+    for case, h, dtype, entry, peak in (
+            ("Jamba head shape", 64, bf16, "repro_flash_attention_bf16", bf16_peak),
+            ("fp32 route, serving shape", 16, f32, "repro_flash_attention_f32",
+             FP32_FLOP_PER_S)):
+        b, sq, kv, d = SERVE_B, SERVE_PROMPT, 8, 128
+        q, k, v = randn(b, sq, h, d, dtype=dtype), randn(b, sq, kv, d, dtype=dtype), \
+            randn(b, sq, kv, d, dtype=dtype)
+        out, exp = ops.flash_attention(q, k, v), ref.attention(q, k, v)
+        err = agree(f"flash_attention [{case}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                    f"{dtype}, causal]", out, exp, dtype)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        o = torch.empty_like(q)
+        flops = 4 * b * h * d * attention_pairs(sq, sq, True, None, 0)
+        b_ms, b_by = bound(nbytes(q, k, v, out), flops, peak)
+        REPORT["timings"].append(dict(
+            name="flash_attention", case=case, max_abs_err=err,
+            ms=time_ms(lambda: ops.flash_attention(q, k, v)),
+            launch_ms=time_ms(launch(
+                "flash_attention", entry, "flash_attention", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), b, sq, sq, h, kv, d, 1, -1, 0, float(d ** -0.5))),
+            plain_ms=time_ms(lambda: ref.attention(q, k, v), iters=5),
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by, flops=flops, peak_flop_per_s=peak,
+            bytes=nbytes(q, k, v, out),
+            shape=f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {sq}, {kv}, {d}) {dtype} causal",
+        ))
+        del q, k, v, o, out, exp, qt, kt, vt
+    rows["flash_build"] = flash_build_checks()
 
     s = SERVE_CONTEXT
     decode_cases = [  # label, B, S, H, KV, D, dtype, mask
@@ -548,7 +667,7 @@ def attention_kernel_checks(dev, launch) -> dict:
         # the K and V of the valid slots only: the output does not depend on the rest
         slots = decode_slots(valid)
         need = nbytes(q, valid, out) + 2 * slots * kv * d * kc.element_size()
-        b_ms, b_by = bound(need, 4 * h * d * slots, BF16_FLOP_PER_S)
+        b_ms, b_by = bound(need, 4 * h * d * slots, bf16_peak)
         rows["decode_attention"] = dict(
             source="src/repro_torch/kernels/csrc/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention.py:83",
@@ -573,15 +692,6 @@ def attention_kernel_checks(dev, launch) -> dict:
 # the Jamba slice's prefill: B=8, prompt 1024, d_inner 16384, d_state 16
 SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 MUFU_EX2_PER_CLOCK_PER_SM = 16   # Hopper: 4 SFUs in each of an SM's 4 partitions
-H100_SMS = 132
-
-
-def max_sm_clock_hz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def scan_bound(b: int, s: int, di: int, n: int, moved: int) -> dict:

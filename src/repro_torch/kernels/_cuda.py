@@ -98,7 +98,8 @@ def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
     """Compile every library of ``names`` that is not built yet, one
     ``nvcc`` per source, all started together.  Returns, per library
     compiled here, its build seconds and nvcc's output (``-Xptxas=-v``:
-    registers, shared memory, spills).  Raises if any build fails."""
+    registers, shared memory, spills), which also stays beside the library
+    (``build_log``).  Raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = {}
@@ -119,11 +120,18 @@ def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)  # before the library: a reader finds both
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
         report[name] = {"seconds": seconds, "log": log}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the built library ``name`` (ptxas' registers,
+    shared memory and spills per kernel), kept beside it."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

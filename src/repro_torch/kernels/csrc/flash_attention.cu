@@ -1,46 +1,92 @@
 // Causal / sliding-window GQA flash attention (prefill), for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
-// flash_attention (pallas_call at :102, body _flash_kernel at :30).
+// flash_attention (pallas_call at :102, body _flash_kernel at :28).
 //
 // Computes, for q (B,Sq,H,D) and k, v (B,Skv,KV,D), query head h reading
-// KV head h / (H/KV): s = (q * D^-1/2 in fp32) . k^T; key j is masked for
+// KV head h / (H/KV): the scores q . k^T times D^-1/2; key j is masked for
 // query row i (position i + q_offset) when causal and j > i + q_offset, or
 // when a window is given and j <= i + q_offset - window; masked scores are
 // -1e30 (finite: a row with no valid key becomes the uniform mean, never
-// NaN); fp32 online softmax (m, l, acc); out = acc / max(l, 1e-30) in q's
-// dtype.
+// NaN) and keys past Skv -inf; online softmax (m, l, acc) in fp32; out =
+// acc / max(l, 1e-30) in q's dtype.
 //
 // Bound: operations at the serving shape.  4*B*H*D flops per valid (query,
 // key) pair: 34.4 GFLOP a layer at B=8, Sq=Skv=1024, H=16, D=128, causal,
-// 34.8 us at the card's 989 TFLOP/s bf16 peak, against ~100 MB of q, k, v
-// and out (30 us at 3.35 TB/s).
+// 32.1 us at 1070 TFLOP/s (the H100's dense bf16 rate at its 1980 MHz
+// maximum SM clock: 132 SMs x 4096 flops a clock), against ~100 MB of q,
+// k, v and out (30 us at 3.35 TB/s).  Only the tensor cores come near it.
 //
-// Design (a first, simple kernel; products on the CUDA cores in fp32):
-// - one CTA of 256 threads per (b*h, 64-row query tile); the JAX wrapper's
-//   transposes are gone: tiles are read straight from the (B,S,H,D) strides;
-// - the scaled Q tile stays in shared memory as fp32; each 64-key tile of K,
-//   then of V, is staged through one shared buffer (rows padded to D_pad + 4
-//   floats: 16-byte aligned, conflict-free float4 reads);
+// The dtype picks the route in the C entry points (a route, not a fallback):
+//
+// bf16, flash_attention_kernel_wgmma: both products on the tensor cores.
+// - work items of (b*h, 128-row query tile), walked heaviest first (under
+//   causal masking the last tiles see the most keys) by one persistent CTA
+//   an SM; warpgroups 0 and 1 each own 64 of an item's rows.  Two
+//   warpgroups, not a third that loads: ptxas held a 12-warp CTA to 168
+//   registers a thread despite setmaxnreg (D_pad 256 spilled), and 8 warps
+//   get 255;
+// - thread 0 loads with TMA, in the order the tiles are used: each item's Q
+//   into one of two slots, its K and V tiles (128 keys; 32 at D_pad = 256,
+//   for registers) into a 2-stage ring that runs on from one item into the
+//   next, completing on mbarriers.  A stage refills once both warpgroups
+//   release it (K after the scores, V after P . V), so copies overlap the
+//   products and the next item's first tiles the current item's last.
+//   Warpgroup 0 meets (a named barrier) after thread 0 may have waited, so
+//   no warp asks for a wgmma its warpgroup's other warps have not;
+// - the tensor maps view q, k, v as 4-D (D, heads, S, B), read in
+//   64-column boxes with the 128-byte swizzle: rows past Sq / Skv and
+//   columns past D arrive as zeros.  They are made on the host per call
+//   (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda)
+//   and passed as __grid_constant__;
+// - S = Q . K^T: wgmma m64nBKk16 from shared memory, both operands K-major
+//   (D contiguous, as they lie in memory), fp32 accumulators; the scale
+//   (times log2 e) multiplies the fp32 scores, masks apply before the max,
+//   exp2 on the special function unit; a row's max and sum run over the 4
+//   threads of a quad;
+// - O += P . V: wgmma m64nDk16 with P from registers: the score
+//   accumulator's layout is the A fragment's, so P is rounded to bf16 in
+//   place and never goes through shared memory; V (keys x D, D contiguous)
+//   is the MN-major B operand (the transpose bit);
+// - bf16 operands with fp32 sums are the route's one departure from the
+//   JAX kernel's fp32 products; XLA on a TPU runs those as bf16 passes at
+//   default precision too;
+// - where its time goes (flash_ablation.py, H100 at 700 W): at the serving
+//   shape no single part dominates; taking out either product or the
+//   softmax saves 10-13 us of ~105, and the copies with nothing to hide
+//   them behind take ~82.
+//
+// fp32, flash_attention_kernel: the CUDA-core kernel, unchanged: TF32 on
+// the tensor cores keeps 10 mantissa bits and would fail fp32's 2e-5 gate
+// (no model path serves attention in fp32).
+// - one CTA of 256 threads per (b*h, 64-row query tile); the scaled Q tile
+//   stays in shared memory as fp32; each 64-key tile of K, then of V, is
+//   staged through one shared buffer (rows padded to D_pad + 4 floats:
+//   16-byte aligned, conflict-free float4 reads);
 // - thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 16i and key
 //   columns tx + 16j (i, j < 4) of the score tile, and output columns
 //   4*tx + 64*jj .. +3 of its rows; a row's 16 threads sit in one half-warp,
 //   so its max and sum are shuffle reductions, and the softmax state (m, l)
-//   and the output accumulator live in registers;
-// - ragged Sq / Skv: rows past Sq are zero and never written, keys past Skv
-//   score -inf (exactly no weight, even for a row with no valid key);
+//   and the output accumulator live in registers; expf and IEEE division.
+//
+// Both routes:
+// - tiles are read straight from the (B,S,H,D) strides (no transposes);
+// - ragged Sq / Skv: rows past Sq are never written, keys past Skv score
+//   -inf (exactly no weight, even for a row with no valid key);
 // - key tiles wholly above the diagonal or before the window are skipped.
 //   The JAX kernel walks them, but once a valid key arrives their weight is
 //   wiped by alpha = exp(-1e30 - m) = 0, so the result is the same -- except
 //   for a tile holding a row with no valid key at all, which walks every key
 //   tile as the JAX kernel does;
-// - head dims: any D % 8 == 0 up to 256, zero-padded in shared memory to
-//   D_pad in {64, 128, 256} (zeros add nothing to the products).
-// expf and IEEE division, never fast math.
+// - head dims: any D % 8 == 0 up to 256, zero-padded to D_pad in
+//   {64, 128, 256} (zeros add nothing to the products);
+// - never fast math.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
 
 namespace {
 
@@ -60,29 +106,8 @@ __device__ __forceinline__ void load8(const float* src, float* dst) {
   dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store4(float* dst, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b, float c,
-                                       float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = u;
 }
 
 // Rows [row0, row0 + ROWS) of one head, row r at base + r * row_stride,
@@ -310,6 +335,631 @@ int launch(const T* q, const T* k, const T* v, T* o, int64_t b, int64_t sq, int6
 
 }  // namespace
 
+// ---------------- bf16: warpgroup MMA on the tensor cores, TMA copies ----------------
+namespace {
+
+constexpr int kWgBQ = 128;          // query rows per work item: two warpgroups of 64
+constexpr int kWgThreads = 256;     // two warpgroups: 255 registers a thread
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one CTA, every tile 1024-byte aligned (the 128-byte
+// swizzle's period).  A tile is DP / 64 panels of 64 columns (128 bytes a
+// row), each panel its rows x 128 bytes, as TMA writes a 64-column box.
+template <int DP>
+struct WgTile {
+  static constexpr int kBK = DP == 256 ? 32 : 128;   // keys per tile (registers at 256)
+  static constexpr int kStages = 2;                   // the K / V ring
+  static constexpr int kQSlots = 2;  // the next item's Q loads while this one computes
+  static constexpr int kPanels = DP / 64;
+  static constexpr uint32_t kQBytes = kWgBQ * DP * 2;  // one Q slot
+  static constexpr uint32_t kKVBytes = kBK * DP * 2;   // one K or V tile
+  static constexpr uint32_t kK = kQSlots * kQBytes;    // K stage s at kK + s * kKVBytes
+  static constexpr uint32_t kV = kK + kStages * kKVBytes;
+  static constexpr uint32_t kBars = kV + kStages * kKVBytes;
+  static constexpr size_t kSmem = kBars + 16 * 8 + 1024;  // 12 mbarriers; slack to align
+  // In its turn on tile g, before it releases that tile's Q slot, thread 0
+  // loads tile g + kStages - 1; when that tile starts an item, it first
+  // waits for every thread to release the item kQSlots back.  Every item
+  // holds at least one tile (Skv >= 1, q_offset >= 0), so that item ended
+  // at tile g + kStages - 1 - kQSlots or before: before g, released by
+  // thread 0 already, only if kStages <= kQSlots.  Otherwise thread 0 can
+  // wait for its own release, still to come.
+  static_assert(kStages <= kQSlots, "thread 0 would wait on its own Q release");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled tile: start
+// address, leading byte offset (K-major: unused, 16; MN-major: the stride
+// between 64-column panels), stride byte offset 1024 (between 8-row groups).
+// The address sits in the low 14 bits, in 16-byte units: adding n / 16 to
+// a descriptor moves its start n bytes on.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until this warpgroup's committed products are done.
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads of asynchronously written
+// accumulators above the wait that completes them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x on the special function unit; results below 2^-126 flush to 0
+// (exp2f's denormal path is the same instruction between two rescales):
+// a probability that small is no weight next to the row's largest, 1.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x 32 fp32) += A (64 x 16, shared, K-major) * B (16 x 32, shared,
+// K-major); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 fp32) += A (64 x 16, shared, K-major) * B (16 x 128, shared,
+// K-major); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 fp32) += A (64 x 16 bf16, registers) * B (16 x 64, shared,
+// MN-major: the transpose bit); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 fp32) += A (64 x 16 bf16, registers) * B (16 x 128, shared,
+// MN-major: the transpose bit); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 256 fp32) += A (64 x 16 bf16, registers) * B (16 x 256, shared,
+// MN-major: the transpose bit); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 128, "no such key tile");
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 64 || N == 128 || N == 256, "no such head dim");
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db, 1);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
+  else wgmma_rs_n256(d, a, db, 1);
+}
+
+// The scores of one key tile, in place: scale into log2 units, mask (only
+// a tile that holds a masked key), fold the tile into the row max m; then
+// sc = exp2(sc - m), l = l * alpha + the tile's row sums, with alpha the
+// factor that rescales what was summed before.  A row's 4 threads form a
+// quad; this thread holds rows `row` and row + 8 (r = 0, 1) and, of each
+// 8-column chunk ch, columns 8 * ch + cq and + 1 (sc[4 * ch + 2 * r + 0/1]).
+// Off the edges the scale rides in the exponent's multiply-add (the scale
+// is positive, so the max of the raw scores gives the max of the scaled).
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2], bool edge,
+                                               int64_t k0, int64_t qpos0, int64_t skv,
+                                               int causal, int64_t window, int cq,
+                                               float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  float sl = scale_log2;
+  if (edge) {
+    // per row, in tile-local columns c: c >= end is past Skv, c > hi after
+    // the diagonal, c <= lo before the window
+    const int end = static_cast<int>(min64(skv - k0, BK));
+    int hi[2], lo[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int64_t qp = qpos0 + 8 * r - k0;
+      hi[r] = causal ? static_cast<int>(max64(-1, min64(qp, BK))) : BK;
+      lo[r] = window >= 0 ? static_cast<int>(max64(-1, min64(qp - window, BK))) : -1;
+    }
+#pragma unroll
+    for (int ch = 0; ch < BK / 8; ++ch)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2, c = 8 * ch + cq + e % 2;
+        float x = sc[4 * ch + e] * scale_log2;
+        if (c >= end) x = -INFINITY;
+        else if (c > hi[r] || c <= lo[r]) x = kNegInf;
+        sc[4 * ch + e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    sl = 1.0f;
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < BK / 8; ++ch)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * ch + e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r] *= scale_log2;
+  }
+  float rs[2] = {0.0f, 0.0f}, neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);  // finite: m starts at -1e30
+    alpha[r] = exp2_ftz(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+  }
+#pragma unroll
+  for (int ch = 0; ch < BK / 8; ++ch)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * ch + e] = exp2_ftz(fmaf(sc[4 * ch + e], sl, neg_m[e / 2]));
+      rs[e / 2] += sc[4 * ch + e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// P in bf16, as the A fragments of the k16 steps j: registers (row, keys
+// 16j + cq, + 1), (row + 8, same), (row, 16j + 8 + cq, + 1), (row + 8, same)
+// -- the score accumulator's own layout.
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2], uint32_t (&pf)[BK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) pf[j][g] = pack_bf16(sc[8 * j + 2 * g], sc[8 * j + 2 * g + 1]);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ o, int64_t sq, int64_t skv, int h,
+                             int kv, int d, int causal, int64_t window, int64_t q_offset,
+                             float scale_log2, int n_items) {
+  using C = WgTile<DP>;
+  constexpr int kBK = C::kBK, kStages = C::kStages, kQSlots = C::kQSlots;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // mbarriers: per Q slot full, free; per K / V stage K full, V full, K free, V free
+  const uint32_t bars = base + C::kBars;
+  auto q_full = [&](int j) { return bars + 8u * (j % kQSlots); };
+  auto q_free = [&](int j) { return bars + 8u * (2 + j % kQSlots); };
+  auto k_full = [&](int s) { return bars + 8u * (4 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (4 + kStages + s); };
+  auto k_free = [&](int s) { return bars + 8u * (4 + 2 * kStages + s); };
+  auto v_free = [&](int s) { return bars + 8u * (4 + 3 * kStages + s); };
+
+  // This CTA's work: items blockIdx.x, + gridDim.x, ...  Item w is one
+  // (b*h, 128-row query tile), the query tiles heaviest first: under causal
+  // masking the last see the most keys.  Its key tiles are those the fp32
+  // kernel walks.
+  const bool has_window = window >= 0;
+  const int n_qt = static_cast<int>((sq + kWgBQ - 1) / kWgBQ);
+  const int n_mine = (n_items - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  struct Item {
+    int b, hh, n;
+    int64_t q0, kt0;
+  };
+  auto item = [&](int j) {
+    const int w = static_cast<int>(blockIdx.x) + j * static_cast<int>(gridDim.x);
+    const int bh = w % (n_items / n_qt);
+    Item it;
+    it.b = bh / h;
+    it.hh = bh % h;
+    it.q0 = static_cast<int64_t>(n_qt - 1 - w / (n_items / n_qt)) * kWgBQ;
+    const int64_t qlo = it.q0 + q_offset, qhi = min64(it.q0 + kWgBQ, sq) - 1 + q_offset;
+    // whether a row has no valid key grows with its position: the last decides
+    const bool empty_row =
+        has_window && qhi - window + 1 > min64(causal ? qhi : skv - 1, skv - 1);
+    int64_t kt0 = 0, kt1 = (skv + kBK - 1) / kBK;
+    if (!empty_row) {
+      if (causal) kt1 = min64(kt1, qhi / kBK + 1);
+      if (has_window) kt0 = max64(0, qlo - window + 1) / kBK;
+    }
+    it.kt0 = kt0;
+    it.n = static_cast<int>(kt1 - kt0);
+    return it;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < kQSlots; ++j) {
+      mbar_init(q_full(j), 1);
+      mbar_init(q_free(j), kWgThreads);  // every thread releases a slot or stage
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_free(s), kWgThreads);
+      mbar_init(v_free(s), kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0 loads, in the order the tiles are used: the K / V ring runs on
+  // from one item into the next, and an item's Q goes into its slot with
+  // its first tile.  load_next() copies the next tile once its stage is
+  // free (both warpgroups released the tile kStages before it).
+  int lj = 0, lt = 0, gl = 0;  // the next load: item, its tile, tiles loaded so far
+  Item li = item(0);
+  auto load_next = [&]() {
+    if (lj >= n_mine) return;
+    if (lt == 0) {
+      if (lj >= kQSlots) mbar_wait(q_free(lj), (lj / kQSlots - 1) & 1);
+      const uint32_t qs = base + (lj % kQSlots) * C::kQBytes;
+      mbar_expect_tx(q_full(lj), C::kQBytes);
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p)
+        tma_load(qs + p * kWgBQ * 128, &tq, q_full(lj), 64 * p, li.hh,
+                 static_cast<int>(li.q0), li.b);
+    }
+    const int s = gl % kStages, kvh = li.hh / (h / kv);
+    const int k0 = static_cast<int>((li.kt0 + lt) * kBK);
+    if (gl >= kStages) {
+      mbar_wait(k_free(s), (gl / kStages - 1) & 1);
+      mbar_wait(v_free(s), (gl / kStages - 1) & 1);
+    }
+    mbar_expect_tx(k_full(s), C::kKVBytes);
+#pragma unroll
+    for (int p = 0; p < C::kPanels; ++p)
+      tma_load(base + C::kK + s * C::kKVBytes + p * kBK * 128, &tk, k_full(s), 64 * p, kvh,
+               k0, li.b);
+    mbar_expect_tx(v_full(s), C::kKVBytes);
+#pragma unroll
+    for (int p = 0; p < C::kPanels; ++p)
+      tma_load(base + C::kV + s * C::kKVBytes + p * kBK * 128, &tv, v_full(s), 64 * p, kvh,
+               k0, li.b);
+    ++gl;
+    if (++lt == li.n) {
+      lt = 0;
+      if (++lj < n_mine) li = item(lj);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kStages; ++i) load_next();
+
+  // Warpgroup wg owns rows wg * 64 .. + 63 of an item.  The accumulator
+  // layout: this thread holds rows `row` and row + 8, columns 8 * ch + cq
+  // and + 1 of every 8-column chunk ch.
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int row = wg * 64 + (t / 32) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+
+  int g = 0;  // tiles used so far, over all items
+  for (int j = 0; j < n_mine; ++j) {
+    const Item it = item(j);
+    const int64_t qlo = it.q0 + q_offset, qhi = min64(it.q0 + kWgBQ, sq) - 1 + q_offset;
+    const int64_t qpos0 = it.q0 + row + q_offset;
+    const uint64_t dq = sw128_desc(base + (j % kQSlots) * C::kQBytes + wg * 64 * 128, 16);
+    float acc[DP / 2];
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) acc[e] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+    mbar_wait(q_full(j), (j / kQSlots) & 1);
+    for (int i = 0; i < it.n; ++i, ++g) {
+      const int s = g % kStages;
+      const uint32_t parity = (g / kStages) & 1;
+      const int64_t k0 = (it.kt0 + i) * kBK;
+
+      // S = Q . K^T: DP / 64 panels of 4 k16 steps (32 bytes) each; the
+      // first step overwrites sc
+      float sc[kBK / 2];
+      const uint64_t dk = sw128_desc(base + C::kK + s * C::kKVBytes, 16);
+      mbar_wait(k_full(s), parity);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<kBK>(sc, dq + (p * kWgBQ * 128 + kk * 32) / 16,
+                        dk + (p * kBK * 128 + kk * 32) / 16, p | kk);
+      wgmma_commit();
+      // Refill tile g - 1's stage.  Its wait may hold warp 0 until the other
+      // warpgroup releases that tile, so warpgroup 0 meets before its next
+      // wgmma: a warpgroup whose other warps went on would leave the tensor
+      // cores a partial instruction, and the other warpgroup stuck behind it.
+      if (threadIdx.x == 0 && g >= 1) load_next();
+      if (wg == 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      wgmma_wait();
+      fence_regs(sc);
+      mbar_arrive(k_free(s));
+      if (i == it.n - 1) mbar_arrive(q_free(j));
+
+      float alpha[2];
+      const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > qlo) ||
+                        (has_window && k0 <= qhi - window);
+      online_softmax<kBK>(sc, m, l, alpha, edge, k0, qpos0, skv, causal, window, cq,
+                          scale_log2);
+#pragma unroll
+      for (int ch = 0; ch < DP / 8; ++ch)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * ch + e] *= alpha[e / 2];
+      uint32_t pf[kBK / 16][4];
+      pack_p<kBK>(sc, pf);
+
+      // O += P . V, 16 keys (2048 bytes) a step; V's panels kBK * 128 bytes apart
+      const uint64_t dv = sw128_desc(base + C::kV + s * C::kKVBytes, kBK * 128);
+      mbar_wait(v_full(s), parity);
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < kBK / 16; ++jj) wgmma_rs<DP>(acc, pf[jj], dv + jj * 2048 / 16);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+      mbar_arrive(v_free(s));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int64_t qr = it.q0 + row + 8 * r;
+      if (qr >= sq) continue;
+      const float inv = 1.0f / fmaxf(l[r], 1e-30f);  // IEEE; one rounding more than a division
+      __nv_bfloat16* orow = o + ((it.b * sq + qr) * h + it.hh) * static_cast<int64_t>(d);
+#pragma unroll
+      for (int ch = 0; ch < DP / 8; ++ch) {
+        const int col = 8 * ch + cq;
+        if (col < d)  // d % 8 == 0, so col + 1 < d too
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[4 * ch + 2 * r] * inv, acc[4 * ch + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded: no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// x (B, S, heads, D) bf16 as the 4-D tensor (D, heads, S, B), read in boxes
+// of 64 columns x 1 head x `rows` rows x 1 batch row, 128-byte swizzled;
+// what lies outside the tensor arrives as zeros.
+int tensor_map(CUtensorMap* map, const void* x, int64_t b, int64_t s, int64_t heads,
+               int64_t d, uint32_t rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d * 2),
+                                 static_cast<cuuint64_t>(heads * d * 2),
+                                 static_cast<cuuint64_t>(s * heads * d * 2)};
+  const cuuint32_t box[4] = {64, 1, rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DP>
+int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                 __nv_bfloat16* o, int64_t b, int64_t sq, int64_t skv, int64_t h, int64_t kv,
+                 int64_t d, int64_t causal, int64_t window, int64_t q_offset, float scale,
+                 cudaStream_t stream) {
+  using C = WgTile<DP>;
+  static bool configured = false;  // the attribute is per function, set once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel_wgmma<DP>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(C::kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  static int n_sms = 0;  // one persistent CTA an SM
+  if (n_sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t n_items = (sq + kWgBQ - 1) / kWgBQ * b * h;
+  if (n_items > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  int rc = tensor_map(&tq, q, b, sq, h, d, kWgBQ);
+  if (rc == 0) rc = tensor_map(&tk, k, b, skv, kv, d, C::kBK);
+  if (rc == 0) rc = tensor_map(&tv, v, b, skv, kv, d, C::kBK);
+  if (rc != 0) return rc;
+  const unsigned grid = static_cast<unsigned>(n_items < n_sms ? n_items : n_sms);
+  flash_attention_kernel_wgmma<DP><<<grid, kWgThreads, C::kSmem, stream>>>(
+      tq, tk, tv, o, sq, skv, static_cast<int>(h), static_cast<int>(kv), static_cast<int>(d),
+      static_cast<int>(causal), window, q_offset, scale * kLog2e, static_cast<int>(n_items));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // q: (b, sq, h, d), k, v: (b, skv, kv, d), o: (b, sq, h, d), all contiguous
 // and 16-byte aligned; h % kv == 0, d % 8 == 0, 8 <= d <= 256, skv >= 1;
 // window < 0 means no window; scale = d ** -0.5 as an fp32 value.
@@ -328,6 +978,13 @@ extern "C" int repro_flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfl
                                           int64_t kv, int64_t d, int64_t causal,
                                           int64_t window, int64_t q_offset, float scale,
                                           cudaStream_t stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
-                               scale, stream);
+  if (b == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
+  if (d <= 64)
+    return launch_wgmma<64>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
+                            scale, stream);
+  if (d <= 128)
+    return launch_wgmma<128>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
+                             scale, stream);
+  return launch_wgmma<256>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
+                           scale, stream);
 }

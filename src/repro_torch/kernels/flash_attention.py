@@ -4,8 +4,15 @@ The twin of ``repro.kernels.flash_attention``: q (B,Sq,H,D), k and v
 (B,Skv,KV,D) in fp32 or bf16 -> (B,Sq,H,D) in q's dtype, causal and/or a
 sliding window, GQA (query head h reads KV head h // (H/KV)), ``q_offset``
 the absolute position of q[:, 0].  Unlike the TPU dispatch, any Sq and Skv
-run (ragged tails masked) and any D % 8 == 0 up to 256.  CUDA tensors only;
-``ops`` routes CPU tensors to ``ref``.
+run (ragged tails masked) and any D % 8 == 0 up to 256.
+
+The dtype picks the kernel.  bf16 runs both products on Hopper's tensor
+cores (wgmma, bf16 operands, fp32 sums, P rounded to bf16 before P . V),
+128 query rows a work item, one persistent CTA an SM walking the items
+heaviest first, K and V tiles arriving by TMA into a 2-stage ring;
+fp32 runs the CUDA-core kernel, in fp32 throughout (TF32 would miss
+fp32's 2e-5 tolerance).  CUDA tensors only; ``ops`` routes CPU tensors
+to ``ref``.
 """
 from __future__ import annotations
 
@@ -19,7 +26,9 @@ _ENTRY = {
 }
 NO_WINDOW = -1          # ``window=None`` as the kernel reads it
 MAX_HEAD_DIM = 256
-MAX_SQ = 65_535 * 64    # the grid's y extent times the 64-row query tile
+# fp32: the grid's y extent (65,535) times the 64-row query tile; bf16: TMA's
+# int32 row coordinate (one persistent CTA an SM walks the 128-row tiles)
+MAX_SQ = {torch.float32: 65_535 * 64, torch.bfloat16: 2**31 - 1}
 
 
 def check_heads(h: int, kv: int, d: int) -> None:
@@ -43,8 +52,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
     check_heads(h, kv, d)
-    if skv < 1 or sq > MAX_SQ:
-        raise ValueError(f"flash_attention takes 1 <= Skv and Sq <= {MAX_SQ}; got "
+    if skv < 1 or sq > MAX_SQ[q.dtype]:
+        raise ValueError(f"flash_attention takes 1 <= Skv and Sq <= {MAX_SQ[q.dtype]}; got "
                          f"Skv={skv}, Sq={sq}")
     if (window is not None and window < 0) or q_offset < 0:
         raise ValueError(f"window {window} and q_offset {q_offset} must be >= 0")

@@ -95,6 +95,52 @@ def test_attention_ragged_matches_jax_oracle(b, sq, skv, h, kv, d, window, q_off
     _close(out, exp, TOL[dtype])
 
 
+def _tensor_core_roundings(q, k, v, *, causal, window, q_offset, bk):
+    """The bf16 flash kernel's arithmetic in plain torch: bf16 q and k
+    multiplied with fp32 sums, the fp32 scores scaled after the product (in
+    log2 units, for exp2) and masked before the max; over key tiles of
+    ``bk`` an online softmax whose probabilities are rounded to bf16 for
+    P . V while their fp32 values feed the row sums; out = acc / max(l,
+    1e-30) rounded to bf16."""
+    b, sq, h, d = q.shape
+    skv, groups = k.shape[1], h // k.shape[2]
+    qf = q.float().transpose(1, 2)                                      # (B,H,Sq,D)
+    kf = k.float().repeat_interleave(groups, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(groups, dim=2).transpose(1, 2)
+    scale = torch.tensor(d ** -0.5 * 1.4426950408889634, dtype=torch.float32)
+    qpos = torch.arange(sq)[:, None] + q_offset
+    m = torch.full((b, h, sq, 1), -1e30)
+    l, acc = torch.zeros(b, h, sq, 1), torch.zeros(b, h, sq, d)
+    for k0 in range(0, skv, bk):
+        s = (qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)) * scale
+        kpos = torch.arange(k0, min(k0 + bk, skv))[None, :]
+        mask = torch.ones(sq, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tensor_core_roundings_within_bf16_tolerance_of_jax(d):
+    """The card's bf16 route rounds P to bf16 before P . V, where JAX's
+    kernel multiplies fp32 operands: emulated here on the CPU, that
+    rounding stays within the bf16 tolerance of JAX's oracle, over several
+    key tiles (128 keys; 32 at D 256), a ragged Skv and a q_offset."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(d, [(2, 200, 4, d), (2, 333, 2, d), (2, 333, 2, d)],
+                                         "bfloat16")
+    out = _tensor_core_roundings(tq, tk, tv, causal=True, window=None, q_offset=133,
+                                 bk=32 if d == 256 else 128)
+    _close(out, jref.attention(jq, jk, jv, causal=True, q_offset=133), TOL["bfloat16"])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,kv,d", [(2, 256, 8, 4, 64), (1, 128, 4, 1, 128),
                                         (2, 100, 4, 2, 40)])

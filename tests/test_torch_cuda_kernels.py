@@ -12,9 +12,11 @@ products ``w_c * val`` as its plain version and divides by the same weight
 sum: where the rows share no index it is bitwise, and on TopKCodec's wire
 two launches give the same bits.  The attention kernels are held at
 ``tests/test_kernels.py``'s tolerances, 2e-5 (fp32) and 2e-2 (bf16): their
-sums run in another order than the plain versions', and the plain decode
+sums run in another order than the plain versions', the plain decode
 rounds q * scale and the probabilities to the cache dtype where the
-kernel, like the Pallas body, keeps fp32.  The selective scan rounds each
+kernel, like the Pallas body, keeps fp32, and bf16 flash runs its products
+on the tensor cores with P rounded to bf16 (``tests/test_torch_attention.py``
+holds that rounding against JAX's oracle on the CPU).  The selective scan rounds each
 product and sum of its state update as the plain version's PyTorch ops do
 and calls the same ``expf``; only the output's sum over N runs in another
 order: ``rtol=atol=1e-5`` for fp32 y and the state, and one bf16 ulp
@@ -247,25 +249,38 @@ def _attn_inputs(cuda, seed, shapes, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,skv,h,kv,d,dtype,window,q_offset", [
-    (8, 1024, 1024, 16, 8, 128, torch.bfloat16, None, 0),   # qwen3-0.6b's prefill
-    (2, 256, 256, 4, 2, 32, torch.float32, None, 0),
-    (2, 256, 256, 4, 2, 64, torch.float32, None, 0),
-    (2, 256, 256, 4, 2, 128, torch.float32, None, 0),
-    (2, 256, 256, 4, 2, 256, torch.float32, None, 0),
-    (2, 512, 512, 8, 2, 64, torch.bfloat16, 128, 0),        # window
-    (2, 128, 384, 8, 4, 128, torch.float32, None, 256),     # q_offset
-    (2, 1000, 1000, 16, 8, 128, torch.bfloat16, None, 0),   # ragged
-    (2, 17, 145, 16, 8, 128, torch.float32, 64, 128),       # ragged chunk, window
-    (1, 8, 8, 2, 1, 40, torch.float32, 3, 20),              # rows with no valid key
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,dtype,window,q_offset,causal", [
+    (8, 1024, 1024, 16, 8, 128, torch.bfloat16, None, 0, True),   # qwen3-0.6b's prefill
+    (2, 256, 256, 4, 2, 32, torch.float32, None, 0, True),
+    (2, 256, 256, 4, 2, 64, torch.float32, None, 0, True),
+    (2, 256, 256, 4, 2, 128, torch.float32, None, 0, True),
+    (2, 256, 256, 4, 2, 256, torch.float32, None, 0, True),
+    (2, 512, 512, 8, 2, 64, torch.bfloat16, 128, 0, True),        # window
+    (2, 128, 384, 8, 4, 128, torch.float32, None, 256, True),     # q_offset
+    (2, 1000, 1000, 16, 8, 128, torch.bfloat16, None, 0, True),   # ragged
+    (2, 17, 145, 16, 8, 128, torch.float32, 64, 128, True),       # ragged chunk, window
+    (1, 8, 8, 2, 1, 40, torch.float32, 3, 20, True),              # rows with no valid key
+    # the bf16 (wgmma) route: D_pad 64, 128, 256; key tiles of 128 (32 at D_pad 256)
+    (2, 256, 256, 4, 2, 32, torch.bfloat16, None, 0, True),
+    (2, 256, 256, 4, 2, 64, torch.bfloat16, None, 0, True),
+    (2, 256, 256, 4, 2, 256, torch.bfloat16, None, 0, True),
+    (1, 65, 130, 4, 4, 64, torch.bfloat16, None, 0, False),       # not causal
+    (2, 128, 384, 8, 4, 128, torch.bfloat16, None, 256, True),    # q_offset
+    (1, 8, 8, 2, 1, 40, torch.bfloat16, 3, 20, True),             # rows with no valid key
+    (2, 200, 333, 8, 2, 128, torch.bfloat16, None, 133, True),    # Skv % 128 != 0
+    (1, 100, 77, 4, 1, 256, torch.bfloat16, None, 0, False),      # Skv % 32 != 0, D 256
+    # the first 128-row item walks every key tile (3 at D 128, 10 at D 256): its
+    # rows from 115 on have no valid key, the rows before it do
+    (2, 256, 300, 4, 2, 128, torch.bfloat16, 16, 200, True),
+    (2, 256, 300, 4, 2, 256, torch.bfloat16, 16, 200, True),
 ])
-def test_cuda_flash_attention(cuda, b, sq, skv, h, kv, d, dtype, window, q_offset):
+def test_cuda_flash_attention(cuda, b, sq, skv, h, kv, d, dtype, window, q_offset, causal):
     q, k, v = _attn_inputs(cuda, sq + d, [(b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)],
                            dtype)
     before = ops.launch_counts()["flash_attention"]
-    out = ops.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     assert ops.launch_counts()["flash_attention"] == before + 1
-    exp = ref.attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    exp = ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
     tol = ATTN_TOL[dtype]
     assert out.dtype == dtype and out.shape == q.shape
