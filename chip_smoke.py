@@ -12,7 +12,10 @@ Phases (any failure exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, at C=64, at a ragged N, with all-zero weights,
    (topk_scatter_reduce) on disjoint, repeated, unsorted, out-of-range and
-   empty payloads and twice on one payload, and (collective_pack /
+   empty payloads and twice on one payload, bitwise against the composition
+   it replaced in both forms (normalize True and False), within 2C - 1 ulps
+   with non-integer weights, as one device kernel a call in the profiler,
+   and (collective_pack /
    collective_unpack) at every head-model leaf size on half-way points,
    NaN and a sum of 4 ranks' codes, and time kernel (through its
    ops wrapper, and as a bare launch), plain version and the library call
@@ -48,8 +51,11 @@ Phases (any failure exits non-zero):
    decode_attention held against their plain versions in phase 2 (the
    serving shapes in bf16, fp32 and bf16 at D = 32-256, a window, a
    q_offset, ragged Sq and Skv, not causal, rows with no valid key,
-   linear / random / ring-arc / all-invalid decode masks) and timed beside
-   scaled_dot_product_attention, flash also at the Jamba slice's 64 heads;
+   linear / random / ring-arc / all-invalid decode masks, decode at the
+   Jamba slice's 64 heads, at position 0 (most splits empty), at S = 1 and
+   16,384, in one split and in more splits than tiles, each twice bitwise)
+   and timed beside scaled_dot_product_attention, both also at the Jamba
+   slice's 64 heads;
    the flash library's SASS must hold HGMMA (cuobjdump) and ptxas must
    report no spill in its wgmma kernels;
    then qwen3-0.6b at full width from init(seed) on the card through
@@ -497,14 +503,18 @@ def attention_kernel_checks(dev, launch) -> dict:
     wgmma route) at D = 32, 64, 128, 256; a window, a q_offset, ragged Sq =
     1000 and 17, Skv not a multiple of the key tile, not causal, rows with
     no valid key, a bf16 item that walks every key tile with rows with and
-    without a valid key (D = 128 and 256); decode with the linear mask, a random mask, ring arcs
-    (whole tiles invalid before, between and after the valid slots), an
-    all-invalid row, fp32, D = 256 and G = 4.  The serving shapes and the
-    Jamba slice's flash shape (64 query heads) are timed: through the ops
-    wrapper, as a bare launch, the plain version and
+    without a valid key (D = 128 and 256); decode with the linear mask, a
+    random mask, ring arcs (whole tiles invalid before, between and after
+    the valid slots), at the Jamba slice's 64 heads, at position 0 (every
+    split but one empty), at S = 1 and 16,384, in one split (rounds of 64
+    tiles), an all-invalid row (also in more splits than tiles), fp32, D =
+    256 and G = 4, every decode case twice and bitwise.  The serving shapes
+    and the Jamba slice's flash and decode shapes (64 query heads) are
+    timed: through the ops wrapper, as a bare launch, the plain version and
     scaled_dot_product_attention (never on the port's path), and so is the
-    fp32 route at the serving shape.  Then the flash library's SASS and
-    ptxas report (``flash_build_checks``)."""
+    fp32 flash route at the serving shape; decode also at 4 CTAs an SM.
+    Then the flash library's SASS and ptxas report
+    (``flash_build_checks``)."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev)
@@ -628,23 +638,53 @@ def attention_kernel_checks(dev, launch) -> dict:
         del q, k, v, o, out, exp, qt, kt, vt
     rows["flash_build"] = flash_build_checks()
 
+    from repro_torch.kernels import decode_attention as dk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def decode_launch(q, kc, vc, valid):
+        """The bare decode launch (split kernel and combine) at the
+        wrapper's default split count."""
+        b, h, d = q.shape
+        sl, kv = kc.shape[1], kc.shape[2]
+        d_pad = 64 if d <= 64 else 128 if d <= 128 else 256
+        tiles = -(-sl // dk.tile_slots(d_pad, q.element_size()))
+        splits = dk.default_splits(b, kv, tiles, sms)
+        o = torch.empty_like(q)
+        ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32, device=dev)
+        entry = "repro_decode_attention_bf16" if q.dtype == bf16 else "repro_decode_attention_f32"
+        fn = launch("decode_attention", entry, "decode_attention", q.data_ptr(), kc.data_ptr(),
+                    vc.data_ptr(), valid.data_ptr(), o.data_ptr(), ws.data_ptr(), b, sl, h, kv,
+                    d, splits, ws.numel(), float(d ** -0.5))
+        return fn, splits
+
     s = SERVE_CONTEXT
-    decode_cases = [  # label, B, S, H, KV, D, dtype, mask
-        ("main", SERVE_B, s, 16, 8, 128, bf16, "linear"),
-        ("random mask", SERVE_B, s, 16, 8, 128, bf16, "random"),
-        ("ring arcs", SERVE_B, s, 16, 8, 128, bf16, "arcs"),
-        ("fp32 D=64, G=4, ring arcs, ragged S", 3, 1000, 8, 2, 64, f32, "arcs"),
-        ("fp32", SERVE_B, s, 16, 8, 128, f32, "random"),
-        ("fp32 D=256", 2, 300, 8, 4, 256, f32, "random"),
-        ("fp32 D=64, G=4, ragged S", 2, 1000, 8, 2, 64, f32, "linear"),
-        ("an all-invalid row", 2, 256, 4, 2, 128, f32, "none"),
+    decode_cases = [  # label, B, S, H, KV, D, dtype, mask, splits (None: the wrapper's)
+        ("main", SERVE_B, s, 16, 8, 128, bf16, "linear", None),
+        ("Jamba head shape", SERVE_B, s, 64, 8, 128, bf16, "linear", None),
+        ("random mask", SERVE_B, s, 16, 8, 128, bf16, "random", None),
+        ("ring arcs", SERVE_B, s, 16, 8, 128, bf16, "arcs", None),
+        ("linear mask at position 0: most splits empty", SERVE_B, s, 16, 8, 128, bf16, "first",
+         None),
+        ("S=1", SERVE_B, 1, 16, 8, 128, bf16, "linear", None),
+        ("S=16384", SERVE_B, 16384, 16, 8, 128, bf16, "linear", None),
+        ("S=16384 in one split: 3 rounds of 64 tiles", SERVE_B, 16384, 16, 8, 128, bf16,
+         "linear", 1),
+        ("fp32 D=64, G=4, ring arcs, ragged S", 3, 1000, 8, 2, 64, f32, "arcs", None),
+        ("fp32", SERVE_B, s, 16, 8, 128, f32, "random", None),
+        ("fp32 D=256", 2, 300, 8, 4, 256, f32, "random", None),
+        ("fp32 D=64, G=4, ragged S", 2, 1000, 8, 2, 64, f32, "linear", None),
+        ("an all-invalid row", 2, 256, 4, 2, 128, f32, "none", None),
+        ("an all-invalid row, more splits than tiles", 2, 256, 4, 2, 128, f32, "none", 16),
     ]
-    for label, b, sl, h, kv, d, dtype, mask in decode_cases:
+    for label, b, sl, h, kv, d, dtype, mask, splits in decode_cases:
         q, kc, vc = randn(b, h, d, dtype=dtype), randn(b, sl, kv, d, dtype=dtype), \
             randn(b, sl, kv, d, dtype=dtype)
         pos = SERVE_PROMPT + SERVE_TOKENS // 2 if sl == s else sl // 2
         if mask == "linear":
             valid = (torch.arange(sl, device=dev) <= pos)[None].expand(b, sl).contiguous()
+        elif mask == "first":
+            valid = (torch.arange(sl, device=dev) == 0)[None].expand(b, sl).contiguous()
         elif mask == "random":
             valid = torch.rand(b, sl, generator=gen, device=dev) > 0.25
             valid[:, 0] = True
@@ -655,36 +695,50 @@ def attention_kernel_checks(dev, launch) -> dict:
         else:
             valid = torch.rand(b, sl, generator=gen, device=dev) > 0.25
             valid[0] = False
-        out = ops.decode_attention(q, kc, vc, kv_valid=valid)
+        if splits is None:
+            out = ops.decode_attention(q, kc, vc, kv_valid=valid)
+            again = ops.decode_attention(q, kc, vc, kv_valid=valid)
+        else:
+            out = dk.decode_attention(q, kc, vc, kv_valid=valid, splits=splits)
+            again = dk.decode_attention(q, kc, vc, kv_valid=valid, splits=splits)
         exp = ref.decode_attention(q, kc, vc, kv_valid=valid)
         err = agree(f"decode_attention [{label}: q {tuple(q.shape)}, cache {tuple(kc.shape)}, "
-                    f"{dtype}, {mask} mask]", out, exp, dtype)
-        if label != "main":
+                    f"{dtype}, {mask} mask, splits {splits or 'default'}]", out, exp, dtype)
+        check(f"decode_attention two launches bitwise equal [{label}]", torch.equal(out, again))
+        if label not in ("main", "Jamba head shape"):
             continue
         qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
         mask4 = valid[:, None, None, :]
-        o = torch.empty_like(q)
         # the K and V of the valid slots only: the output does not depend on the rest
         slots = decode_slots(valid)
         need = nbytes(q, valid, out) + 2 * slots * kv * d * kc.element_size()
         b_ms, b_by = bound(need, 4 * h * d * slots, bf16_peak)
-        rows["decode_attention"] = dict(
+        bare, n_splits = decode_launch(q, kc, vc, valid)
+        # beside the wrapper's one wave at 2 CTAs an SM: the grid sized for
+        # 4 CTAs an SM (B*KV*splits >= 4 * SMs), which runs in two waves
+        splits4 = -(-4 * sms // (b * kv))
+        timing = dict(
             source="src/repro_torch/kernels/csrc/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention.py:83",
             max_abs_err=err,
             ms=time_ms(lambda: ops.decode_attention(q, kc, vc, kv_valid=valid)),
-            launch_ms=time_ms(launch(
-                "decode_attention", "repro_decode_attention_bf16", "decode_attention",
-                q.data_ptr(), kc.data_ptr(), vc.data_ptr(), valid.data_ptr(), o.data_ptr(),
-                b, sl, h, kv, d, float(d ** -0.5))),
+            launch_ms=time_ms(bare),
             plain_ms=time_ms(lambda: ref.decode_attention(q, kc, vc, kv_valid=valid)),
             library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask4, enable_gqa=True)),
-            bound_ms=b_ms, bound_by=b_by, flops=4 * h * d * slots,
+            bound_ms=b_ms, bound_by=b_by, flops=4 * h * d * slots, splits=n_splits,
+            splits_4_ctas_per_sm=splits4,
+            ms_4_ctas_per_sm=time_ms(lambda: dk.decode_attention(q, kc, vc, kv_valid=valid,
+                                                                 splits=splits4)),
             shape=f"q ({b}, {h}, {d}), caches ({b}, {sl}, {kv}, {d}) bf16, linear mask, "
-                  f"{slots // b} of {sl} slots valid",
+                  f"{slots // b} of {sl} slots valid, {n_splits} splits",
             bytes=need,
         )
+        if label == "main":
+            rows["decode_attention"] = timing
+        else:
+            REPORT["timings"].append({"name": "decode_attention", "case": label, **timing})
+        del qt, kt, vt, mask4
     return rows
 
 
@@ -789,11 +843,52 @@ def topk_payload(gen, c: int, k: int, n: int, dev, *, disjoint=False):
     return idx, val, w
 
 
+def topk_composition(idx, val, w, n: int, *, normalize=True):
+    """The weighted mean of a canonical TopK wire as the kernel orders it,
+    in plain torch: each client's products fl(w_c * val) added into a zero
+    (N,) accumulator in client order (a row's indices are distinct, so no
+    two of its adds meet), divided by safe_weight_sum(w) computed around it
+    and, with ``normalize=False``, multiplied back by it: the composition
+    the wrapper ran before the weight sum and the product moved inside the
+    launch."""
+    from repro_torch.utils.pytree import safe_weight_sum
+
+    acc = torch.zeros(n, dtype=torch.float32, device=idx.device)
+    for c in range(idx.shape[0]):
+        i = idx[c].long()
+        acc[i] = acc[i] + w[c] * val[c]
+    wsum = safe_weight_sum(w)
+    mean = acc / wsum
+    return mean if normalize else mean * wsum
+
+
+def device_kernels(fn) -> list[str]:
+    """The names of the device activities (kernels, memsets, copies) that
+    one call of ``fn`` runs, from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| in units of b's last place (fp32)."""
+    ulp = torch.nextafter(b.abs(), torch.full_like(b, math.inf)) - b.abs()
+    return float(((a - b).abs() / ulp).max())
+
+
 def topk_kernel_checks(dev, tol, launch) -> dict:
     """topk_scatter_reduce against its plain version: C=4 (the mixed fleet's
-    TopK group) and C=64 at full width, then the edge payloads."""
+    TopK group) and C=64 at full width, bitwise against the composition it
+    replaced (integer weights) in both forms, within 2C - 1 ulps of it with
+    non-integer weights, one device kernel per call in both forms; then the
+    edge payloads."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.scatter_reduce import TILE
+    from repro_torch.kernels.scatter_reduce import TILE, workspace_ints
     from repro_torch.utils.pytree import safe_weight_sum
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -806,40 +901,72 @@ def topk_kernel_checks(dev, tol, launch) -> dict:
               torch.allclose(out, exp, **tol), max_abs_err=err)
         check(f"topk_scatter_reduce two launches bitwise equal [{label}]",
               torch.equal(out, ops.topk_scatter_reduce(idx, val, w, N_PARAMS)))
+        summed = ops.topk_scatter_reduce(idx, val, w, N_PARAMS, normalize=False)
+        check(f"topk_scatter_reduce bitwise the composition it replaced, integer weights, "
+              f"normalize True and False [{label}]",
+              torch.equal(out, topk_composition(idx, val, w, N_PARAMS))
+              and torch.equal(summed, topk_composition(idx, val, w, N_PARAMS, normalize=False))
+              and torch.equal(summed, out * safe_weight_sum(w)))
+        for normalize in (True, False):
+            names = device_kernels(lambda: ops.topk_scatter_reduce(idx, val, w, N_PARAMS,
+                                                                   normalize=normalize))
+            check(f"topk_scatter_reduce is one device kernel a call [{label}, normalize="
+                  f"{normalize}]",
+                  len(names) == 1 and "topk_scatter_reduce_kernel" in names[0], kernels=names)
         di, dv, dw = topk_payload(gen, c, TOPK_K, N_PARAMS, dev, disjoint=True)
         check(f"topk_scatter_reduce bitwise on disjoint rows [{label}]",
               torch.equal(ops.topk_scatter_reduce(di, dv, dw, N_PARAMS),
                           ref.topk_scatter_reduce(di, dv, dw, N_PARAMS)))
+        # weights that are not integers: the two weight sums may round apart
+        fw = torch.rand(c, generator=gen, device=dev) * 300 + 0.1
+        ulps = ulps_apart(ops.topk_scatter_reduce(di, dv, fw, N_PARAMS),
+                          ref.topk_scatter_reduce(di, dv, fw, N_PARAMS))
+        check(f"topk_scatter_reduce within 2C - 1 = {2 * c - 1} ulps of the plain version, "
+              f"non-integer weights, disjoint rows [{label}]", ulps <= 2 * c - 1, ulps=ulps)
         wf = w.contiguous()
         wsum = safe_weight_sum(wf)
-        tiles = -(-N_PARAMS // TILE)
-        ws = torch.empty(c * (tiles + 2), dtype=torch.int32, device=dev)
+        ws = torch.empty(workspace_ints(c, TOPK_K, N_PARAMS), dtype=torch.int32, device=dev)
         outo = torch.empty_like(out)
         valid = (idx >= 0) & (idx < N_PARAMS)
         sidx = torch.where(valid, idx, 0).reshape(-1).long()
         contrib = (torch.where(valid, val, 0.0) * wf[:, None]).reshape(-1)
         b_ms, b_by = bound(nbytes(idx, val, w, out), 2 * idx.numel())
-        timing = dict(
-            source="src/repro_torch/kernels/csrc/topk_scatter_reduce.cu",
-            replaces="src/repro/kernels/scatter_reduce.py:108",
-            max_abs_err=err,
-            ms=time_ms(lambda: ops.topk_scatter_reduce(idx, val, w, N_PARAMS)),
-            launch_ms=time_ms(launch("topk_scatter_reduce", "repro_topk_scatter_reduce",
-                                     "topk_scatter_reduce", idx.data_ptr(), val.data_ptr(),
-                                     wf.data_ptr(), wsum.data_ptr(), outo.data_ptr(), ws.data_ptr(),
-                                     c, TOPK_K, N_PARAMS, ws.numel())),
-            plain_ms=time_ms(lambda: ref.topk_scatter_reduce(idx, val, w, N_PARAMS)),
-            # the yardstick: one index_add_ on the same sanitized, weighted,
-            # flattened inputs, plus the normalization
-            library_ms=time_ms(lambda: torch.zeros(N_PARAMS, device=dev).index_add_(
-                0, sidx, contrib) / wsum),
-            bound_ms=b_ms, bound_by=b_by,
-            shape=f"idx/val ({c}, {TOPK_K}), N={N_PARAMS}", bytes=nbytes(idx, val, w, out),
-        )
-        if label == "main":
-            row = timing
-        else:
-            REPORT["timings"].append({"name": "topk_scatter_reduce", "case": label, **timing})
+        plain = {True: lambda: ref.topk_scatter_reduce(idx, val, w, N_PARAMS),
+                 # the CPU route's composition, on the card
+                 False: lambda: ops._denormalize(ref.topk_scatter_reduce(idx, val, w, N_PARAMS),
+                                                 w)}
+        # the yardstick: one index_add_ on the same sanitized, weighted,
+        # flattened inputs into a zero fill (the weighted sum), plus the
+        # normalization for the mean
+        library = {True: lambda: torch.zeros(N_PARAMS, device=dev).index_add_(
+                       0, sidx, contrib) / wsum,
+                   False: lambda: torch.zeros(N_PARAMS, device=dev).index_add_(
+                       0, sidx, contrib)}
+        for normalize in (True, False):
+            timing = dict(
+                source="src/repro_torch/kernels/csrc/topk_scatter_reduce.cu",
+                replaces="src/repro/kernels/scatter_reduce.py:108",
+                max_abs_err=err,
+                ms=time_ms(lambda: ops.topk_scatter_reduce(idx, val, w, N_PARAMS,
+                                                           normalize=normalize)),
+                launch_ms=time_ms(launch("topk_scatter_reduce", "repro_topk_scatter_reduce",
+                                         "topk_scatter_reduce", idx.data_ptr(), val.data_ptr(),
+                                         wf.data_ptr(), outo.data_ptr(), ws.data_ptr(), c,
+                                         TOPK_K, N_PARAMS, ws.numel(), int(normalize))),
+                plain_ms=time_ms(plain[normalize]),
+                library_ms=time_ms(library[normalize]),
+                bound_ms=b_ms, bound_by=b_by,
+                # the (N,) fp32 write alone, as one fill (the kernel's floor here)
+                zero_fill_ms=time_ms(lambda: outo.zero_()),
+                shape=f"idx/val ({c}, {TOPK_K}), N={N_PARAMS}"
+                      + ("" if normalize else ", normalize=False"),
+                bytes=nbytes(idx, val, w, out),
+            )
+            if label == "main" and normalize:
+                row = timing
+            else:
+                case = label if normalize else f"{label}, normalize=False"
+                REPORT["timings"].append({"name": "topk_scatter_reduce", "case": case, **timing})
 
     # canonical wires down the kernel's long paths: more entries of a row in
     # one tile than a CTA has threads, and more rows than one group of 256
@@ -851,8 +978,10 @@ def topk_kernel_checks(dev, tol, launch) -> dict:
         val = torch.randn(c, k, generator=gen, device=dev) * 1e-2
         w = torch.randint(10, 500, (c,), generator=gen, device=dev).to(torch.float32)
         out, exp = ops.topk_scatter_reduce(idx, val, w, n), ref.topk_scatter_reduce(idx, val, w, n)
-        check(f"topk_scatter_reduce within rtol=atol=1e-6 and two launches bitwise [{label}]",
-              torch.allclose(out, exp, **tol) and torch.equal(out, ops.topk_scatter_reduce(idx, val, w, n)),
+        check(f"topk_scatter_reduce within rtol=atol=1e-6, two launches bitwise, and bitwise "
+              f"the composition it replaced [{label}]",
+              torch.allclose(out, exp, **tol) and torch.equal(out, ops.topk_scatter_reduce(idx, val, w, n))
+              and torch.equal(out, topk_composition(idx, val, w, n)),
               max_abs_err=float((out - exp).abs().max()))
 
     # foreign wires: unsorted rows with repeats, out-of-range indices
@@ -1089,8 +1218,14 @@ def reduced_parity_phase(fleet=PROFILE_FLEET) -> None:
 
 
 PORT_KERNELS = ("quantize_int8_kernel", "dequant_reduce_kernel", "fedavg_reduce_kernel",
-                "topk_index_rows", "topk_scatter_tiles", "collective_pack_kernel",
+                "topk_scatter_reduce_kernel", "collective_pack_kernel",
                 "collective_unpack_kernel")
+# the serving paths' kernels by wrapper, as the profiler names them
+SERVING_KERNELS = {
+    "flash_attention": ("flash_attention_kernel",),
+    "decode_attention": ("decode_attention_split_kernel", "decode_attention_combine_kernel"),
+    "selective_scan": ("selective_scan_kernel",),
+}
 
 
 def device_time(prof) -> tuple[float, dict]:
@@ -1796,8 +1931,9 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
                 prof.stop()
                 host_s = decode_s
             busy_us, by_kernel = device_time(prof)
-            port_us = {k: sum(us for name, us in by_kernel.items() if f"{k}_kernel" in name)
-                       for k in ("flash_attention", "decode_attention", "selective_scan")}
+            port_us = {k: sum(us for name, us in by_kernel.items()
+                              if any(p in name for p in names))
+                       for k, names in SERVING_KERNELS.items()}
             top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
             prof.export_chrome_trace(str(out_dir / f"{tag}_{phase}_trace.json"))
             out[f"{phase}_profile"] = {
@@ -1922,6 +2058,18 @@ def hybrid_serving_phase(card: str, out_dir: Path) -> dict:
                          rel_l2_bound=JAMBA_LOGITS_REL_L2, cpu_prompt=32)
 
 
+def aside(r: dict) -> str:
+    """A timing's yardsticks beside the kernel's own: the TopK reduce's
+    output fill, decode attention at 4 CTAs an SM."""
+    out = ""
+    if "zero_fill_ms" in r:
+        out += f", the (N,) fp32 fill alone {r['zero_fill_ms'] * 1e3:.2f} us"
+    if "ms_4_ctas_per_sm" in r:
+        out += (f", at {r['splits_4_ctas_per_sm']} splits (4 CTAs an SM) "
+                f"{r['ms_4_ctas_per_sm'] * 1e3:.2f} us")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=Path("smoke_out"),
@@ -1994,14 +2142,14 @@ def main() -> int:
         print(f"{name}: {r['shape']}: kernel {r['ms'] * 1e3:.2f} us (bare launch "
               f"{r['launch_ms'] * 1e3:.2f} us), plain "
               f"{r['plain_ms'] * 1e3:.2f} us{lib}, bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bytes'] / 1e6:.2f} MB), launches {launches} ({card})",
+              f"({r['bytes'] / 1e6:.2f} MB), launches {launches}{aside(r)} ({card})",
               flush=True)
     for t in REPORT["timings"]:
         lib = "" if t["library_ms"] is None else f", library {t['library_ms'] * 1e3:.2f} us"
         print(f"{t['name']} [{t['case']}]: {t['shape']}: kernel {t['ms'] * 1e3:.2f} us (bare "
               f"launch {t['launch_ms'] * 1e3:.2f} us), plain "
-              f"{t['plain_ms'] * 1e3:.2f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us ({card})",
-              flush=True)
+              f"{t['plain_ms'] * 1e3:.2f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us"
+              f"{aside(t)} ({card})", flush=True)
 
     REPORT.update(card=card, kernels=kernels, main_path=loop, mixed_fleet=mixed, rows=rows)
     (args.out / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1, default=str))

@@ -49,7 +49,7 @@ SIGNATURES = {
         "repro_dequant_reduce": (_P, _P, _P, _P, _I64, _I64, _P),
     },
     "topk_scatter_reduce": {
-        "repro_topk_scatter_reduce": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+        "repro_topk_scatter_reduce": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
     },
     "collective_quant": {
         "repro_collective_pack": (_P, _P, _P, _I64, _P),
@@ -60,8 +60,8 @@ SIGNATURES = {
         "repro_flash_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 9, _F, _P),
     },
     "decode_attention": {
-        "repro_decode_attention_f32": (_P, _P, _P, _P, _P, *(_I64,) * 5, _F, _P),
-        "repro_decode_attention_bf16": (_P, _P, _P, _P, _P, *(_I64,) * 5, _F, _P),
+        "repro_decode_attention_f32": (*(_P,) * 6, *(_I64,) * 7, _F, _P),
+        "repro_decode_attention_bf16": (*(_P,) * 6, *(_I64,) * 7, _F, _P),
     },
     "selective_scan": {
         "repro_selective_scan_f32": (*(_P,) * 9, *(_I64,) * 4, _P),

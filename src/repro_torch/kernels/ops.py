@@ -85,10 +85,10 @@ def topk_scatter_reduce(idx, val, weights, n_params: int, *, normalize=True):
     """Sparse TopK aggregation: (C,k) idx/val + (C,) weights -> (N,) fp32
     mean (or weighted sum with ``normalize=False``), O(C*k), never a dense
     (C, N).  On the card ``idx`` must be int32 (TopKCodec's wire)."""
-    if _on_card(idx, val, weights):
-        out = _topk_kernel(idx, val.to(torch.float32).contiguous(), weights, n_params)
-    else:
-        out = ref.topk_scatter_reduce(idx, val, weights, n_params)
+    if _on_card(idx, val, weights):  # one launch: the weight sum and normalize inside
+        return _topk_kernel(idx, val.to(torch.float32).contiguous(), weights, n_params,
+                            normalize=normalize)
+    out = ref.topk_scatter_reduce(idx, val, weights, n_params)
     return out if normalize else _denormalize(out, weights)
 
 

@@ -174,6 +174,76 @@ def test_decode_attention_all_invalid_row_is_uniform_mean():
     torch.testing.assert_close(out[0, 0], tv[0, :, 0].mean(0), rtol=2e-5, atol=2e-5)
 
 
+def _split_decode(q, k, v, valid, *, bk, splits):
+    """The card's split decode in plain torch, fp32: cache tiles of ``bk``
+    slots; a batch row's tiles holding a valid slot (all its tiles if none
+    does) shared among ``splits`` by rank, split i taking ranks i * n //
+    splits .. (i + 1) * n // splits - 1; in each split an online softmax
+    over its tiles from m = -1e30, l = 0, acc = 0 (an empty split keeps
+    them) with slots past S at -inf and invalid slots at -1e30; then the
+    splits combined in index order, w_i = exp(m_i - max m), out = sum w_i
+    acc_i / max(sum w_i l_i, 1e-30)."""
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qs = (q.float() * torch.tensor(d ** -0.5)).reshape(b, kv, g, d)
+    tiles = -(-s // bk)
+    out = torch.empty(b, kv, g, d)
+    for bi in range(b):
+        take = [t for t in range(tiles) if valid[bi, t * bk:(t + 1) * bk].any()]
+        take = take or list(range(tiles))
+        for j in range(kv):
+            parts = []
+            for sp in range(splits):
+                m, l, acc = torch.full((g,), -1e30), torch.zeros(g), torch.zeros(g, d)
+                for t in take[sp * len(take) // splits:(sp + 1) * len(take) // splits]:
+                    slots = torch.arange(t * bk, (t + 1) * bk)
+                    inside = slots < s
+                    kt = torch.where(inside[:, None], k[bi, slots.clamp(max=s - 1), j].float(), 0.0)
+                    vt = torch.where(inside[:, None], v[bi, slots.clamp(max=s - 1), j].float(), 0.0)
+                    sc = torch.where(valid[bi, slots.clamp(max=s - 1)], qs[bi, j] @ kt.T,
+                                     torch.tensor(-1e30))
+                    sc = torch.where(inside, sc, torch.tensor(-torch.inf))
+                    m_new = torch.maximum(m, sc.amax(1))
+                    p, alpha = torch.exp(sc - m_new[:, None]), torch.exp(m - m_new)
+                    l = l * alpha + p.sum(1)
+                    acc = acc * alpha[:, None] + p @ vt
+                    m = m_new
+                parts.append((m, l, acc))
+            mx = torch.stack([m for m, _, _ in parts]).amax(0)
+            lsum, asum = torch.zeros(g), torch.zeros(g, d)
+            for m, l, acc in parts:
+                w = torch.exp(m - mx)
+                lsum = lsum + w * l
+                asum = asum + w[:, None] * acc
+            out[bi, j] = asum / lsum.clamp_min(1e-30)[:, None]
+    return out.reshape(b, h, d)
+
+
+@pytest.mark.parametrize("case,b,s,h,kv,d,bk,splits", [
+    ("splits with no valid slot", 2, 512, 4, 2, 64, 64, 6),
+    ("an all-invalid row", 2, 256, 4, 2, 32, 64, 3),
+    ("ragged S", 3, 333, 4, 2, 40, 64, 4),
+    ("G = 8", 2, 300, 16, 2, 64, 32, 5),
+])
+def test_split_decode_arithmetic_matches_jax_oracle(case, b, s, h, kv, d, bk, splits):
+    """The split-and-combine arithmetic of the card's decode kernel (plain
+    torch, fp32) against JAX's decode oracle at 1e-5: row 0 is a linear
+    cache at position 0, so every split but the first has no valid slot
+    (or, in the all-invalid case, no valid slot at all), row 1 a ring arc
+    with whole tiles invalid before and after it, any further row random."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(s + h, [(b, h, d), (b, s, kv, d), (b, s, kv, d)],
+                                         "float32")
+    rng = np.random.default_rng(s)
+    valid = rng.random((b, s)) > 0.5
+    valid[0] = np.arange(s) == 0
+    valid[1] = (np.arange(s) >= s // 3) & (np.arange(s) < s // 3 + bk + 7)
+    if case == "an all-invalid row":
+        valid[0] = False
+    out = _split_decode(tq, tk, tv, torch.from_numpy(valid), bk=bk, splits=splits)
+    _close(out, jref.decode_attention(jq, jk, jv, kv_valid=jnp.asarray(valid)), 1e-5)
+
+
 def test_cpu_route_launches_no_kernel():
     before = ops.launch_counts()
     _, (tq, tk, tv) = _inputs(1, [(1, 16, 2, 32), (1, 16, 1, 32), (1, 16, 1, 32)], "float32")
@@ -212,3 +282,32 @@ def test_kernel_wrappers_raise_off_the_card_and_on_bad_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         decode_kernel.decode_attention(q[:, 0], k, k,
                                        kv_valid=torch.ones(1, 16, dtype=torch.bool)[:, ::2])
+
+
+@pytest.mark.parametrize("splits", [0, 65_536, 2.0, True, "4"])
+def test_decode_kernel_wrapper_raises_on_bad_splits(splits):
+    q, k = torch.zeros(1, 4, 32), torch.zeros(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="splits"):
+        decode_kernel.decode_attention(q, k, k, kv_valid=torch.ones(1, 8, dtype=torch.bool),
+                                       splits=splits)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3, 65_535])
+def test_decode_kernel_wrapper_raises_off_the_card_with_any_splits(splits):
+    q, k = torch.zeros(1, 4, 32), torch.zeros(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_kernel.decode_attention(q, k, k, kv_valid=torch.ones(1, 8, dtype=torch.bool),
+                                       splits=splits)
+
+
+def test_decode_split_sizing():
+    """Tiles as the .cu source sizes them (64 slots, fewer where a K tile
+    passes 16 KB) and the default split count: one wave of 2 CTAs an SM on
+    a 132-SM card, at least one split, at most one a tile."""
+    assert [decode_kernel.tile_slots(dp, 2) for dp in (64, 128, 256)] == [64, 64, 32]
+    assert [decode_kernel.tile_slots(dp, 4) for dp in (64, 128, 256)] == [64, 32, 16]
+    splits = decode_kernel.default_splits(8, 8, 2048 // 64, 132)
+    assert splits == 4 and 8 * 8 * splits <= 2 * 132 < 8 * 8 * (splits + 1)
+    assert decode_kernel.default_splits(1, 1, 1, 132) == 1          # S = 1: one tile
+    assert decode_kernel.default_splits(64, 16, 256, 132) == 1      # B*KV alone fills the card
+    assert decode_kernel.default_splits(1, 1, 10**6, 132) == 264

@@ -8,8 +8,11 @@ reduces differ from the plain versions only in summation order (cuBLAS's
 against one fp32 accumulator per column): ``rtol=atol=1e-6`` for fp32;
 for bf16 outputs the two fp32 sums may straddle a rounding edge, so one
 bf16 ulp (``rtol=2**-7``).  The TopK scatter reduce adds the same fp32
-products ``w_c * val`` as its plain version and divides by the same weight
-sum: where the rows share no index it is bitwise, and on TopKCodec's wire
+products ``w_c * val`` as its plain version and divides by a weight sum it
+forms itself in a fixed order: with integer weights that sum is exact, so
+the result is bitwise the client-order composition it replaced and, where
+the rows share no index, the plain version; with other weights the two
+sums may round apart, within 2C - 1 ulps of the mean.  On TopKCodec's wire
 two launches give the same bits.  The attention kernels are held at
 ``tests/test_kernels.py``'s tolerances, 2e-5 (fp32) and 2e-2 (bf16): their
 sums run in another order than the plain versions', the plain decode
@@ -27,7 +30,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as decode_kernel
 from repro_torch.kernels import ops, ref
+from repro_torch.utils.pytree import safe_weight_sum
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -189,6 +194,68 @@ def test_cuda_topk_scatter_reduce_dense_tiles_and_many_rows(cuda):
         assert torch.equal(out, ops.topk_scatter_reduce(idx, val, w, n))
 
 
+def _client_order_mean(idx, val, w, n, normalize=True):
+    """A canonical wire's mean as the kernel orders it, in plain torch:
+    each client's products added in client order into a zero (N,), divided
+    by safe_weight_sum(w) (and multiplied back): the composition the
+    wrapper ran before the weight sum and the product moved inside."""
+    acc = torch.zeros(n, dtype=torch.float32, device=idx.device)
+    for c in range(idx.shape[0]):
+        i = idx[c].long()
+        acc[i] = acc[i] + w[c] * val[c]
+    wsum = safe_weight_sum(w)
+    return acc / wsum if normalize else acc / wsum * wsum
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,n", [(4, 19_743, 1_974_303), (64, 19_743, 1_974_303), (3, 50, 8193)])
+def test_cuda_topk_scatter_reduce_is_the_composition_it_replaced(cuda, c, k, n):
+    """Integer weights on a canonical wire: bitwise the kernel-plus-
+    composition it replaced, with normalize True and False, and the sum
+    form is the mean times safe_weight_sum(w)."""
+    rng = np.random.default_rng(c + k + 1)
+    idx, val, w = (t.to(cuda) for t in _topk_payload(rng, c, k, n))
+    mean = ops.topk_scatter_reduce(idx, val, w, n)
+    summed = ops.topk_scatter_reduce(idx, val, w, n, normalize=False)
+    assert torch.equal(mean, _client_order_mean(idx, val, w, n))
+    assert torch.equal(summed, _client_order_mean(idx, val, w, n, normalize=False))
+    assert torch.equal(summed, mean * safe_weight_sum(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 64])
+def test_cuda_topk_scatter_reduce_non_integer_weights_within_ulps(cuda, c):
+    """Weights that are not integers: the kernel's fixed-order weight sum
+    and PyTorch's may round apart, so the mean is within 2C - 1 ulps of the
+    plain version on disjoint rows (where the scatter itself is exact)."""
+    rng = np.random.default_rng(c)
+    n = 1_974_303
+    idx, val, _ = (t.to(cuda) for t in _topk_payload(rng, c, 19_743, n, disjoint=True))
+    w = _t((rng.random(c) * 300 + 0.1).astype(np.float32)).to(cuda)
+    out, exp = ops.topk_scatter_reduce(idx, val, w, n), ref.topk_scatter_reduce(idx, val, w, n)
+    ulp = torch.nextafter(exp.abs(), torch.full_like(exp, float("inf"))) - exp.abs()
+    assert float(((out - exp).abs() / ulp).max()) <= 2 * c - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+def test_cuda_topk_scatter_reduce_is_one_device_kernel(cuda, normalize):
+    """One ops call, one device activity: no memset, no index pass, no
+    weight-sum or denormalization kernels around it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(17)
+    idx, val, w = (t.to(cuda) for t in _topk_payload(rng, 4, 19_743, 1_974_303))
+    ops.topk_scatter_reduce(idx, val, w, 1_974_303, normalize=normalize)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.topk_scatter_reduce(idx, val, w, 1_974_303, normalize=normalize)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "topk_scatter_reduce_kernel" in names[0], names
+
+
 # ---------------- collective_pack / collective_unpack ----------------
 def _shared_scales(xs):
     """Scales as the MAX all-reduce agrees them: the block absmax over
@@ -290,6 +357,10 @@ def test_cuda_flash_attention(cuda, b, sq, skv, h, kv, d, dtype, window, q_offse
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,d,dtype,mask", [
     (8, 2048, 16, 8, 128, torch.bfloat16, "linear"),         # qwen3-0.6b's decode
+    (8, 2048, 64, 8, 128, torch.bfloat16, "linear"),         # the Jamba slice's (G = 8)
+    (8, 2048, 16, 8, 128, torch.bfloat16, "first"),          # position 0: most splits empty
+    (8, 1, 16, 8, 128, torch.bfloat16, "linear"),            # S = 1
+    (8, 16384, 16, 8, 128, torch.bfloat16, "linear"),
     (8, 2048, 16, 8, 128, torch.bfloat16, "random"),
     (8, 2048, 16, 8, 128, torch.bfloat16, "arcs"),           # whole tiles invalid
     (8, 2048, 16, 8, 128, torch.float32, "random"),
@@ -305,6 +376,8 @@ def test_cuda_decode_attention(cuda, b, s, h, kv, d, dtype, mask):
     valid[:, 0] = True
     if mask == "linear":
         valid[:] = np.arange(s) <= s // 2
+    elif mask == "first":
+        valid[:] = np.arange(s) == 0
     elif mask == "arcs":  # row i: a ring's window of s // 3 slots ending at slot i * s // b
         valid[:] = (np.arange(b)[:, None] * (s // b) - np.arange(s)[None]) % s < s // 3
     elif mask == "none":
@@ -318,6 +391,39 @@ def test_cuda_decode_attention(cuda, b, s, h, kv, d, dtype, mask):
     tol = ATTN_TOL[dtype]
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+    # the splits are combined in index order: the same bits on every launch
+    assert torch.equal(out, ops.decode_attention(q, kc, vc, kv_valid=valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,d,dtype,mask,splits", [
+    (8, 16384, 16, 8, 128, torch.bfloat16, "linear", 1),  # 129 valid tiles: rounds of 64
+    (2, 1000, 8, 2, 64, torch.float32, "linear", 3),
+    (2, 256, 4, 2, 128, torch.float32, "none", 16),       # more splits than tiles
+    (3, 1000, 8, 2, 64, torch.float32, "arcs", 40),
+])
+def test_cuda_decode_attention_any_split_count(cuda, b, s, h, kv, d, dtype, mask, splits):
+    """Any split count gives the plain version's result within tolerance,
+    the same bits twice: one split walking more tiles than its list holds,
+    splits with no tile at all (in a row with a valid slot and in one
+    without)."""
+    q, kc, vc = _attn_inputs(cuda, s + splits, [(b, h, d), (b, s, kv, d), (b, s, kv, d)], dtype)
+    rng = np.random.default_rng(s + 1)
+    valid = rng.random((b, s)) > 0.25
+    if mask == "linear":
+        valid[:] = np.arange(s) <= s // 2 + 100
+    elif mask == "arcs":
+        valid[:] = (np.arange(b)[:, None] * (s // b) - np.arange(s)[None]) % s < s // 3
+    else:
+        valid[0] = False
+    valid = _t(valid).to(cuda)
+    out = decode_kernel.decode_attention(q, kc, vc, kv_valid=valid, splits=splits)
+    exp = ref.decode_attention(q, kc, vc, kv_valid=valid)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, decode_kernel.decode_attention(q, kc, vc, kv_valid=valid,
+                                                           splits=splits))
 
 
 SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}

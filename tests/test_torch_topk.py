@@ -37,6 +37,7 @@ from repro_torch.core import protocol as tp
 from repro_torch.data.federated import dirichlet_partition
 from repro_torch.data.synthetic import make_features
 from repro_torch.kernels import ops
+from repro_torch.kernels import scatter_reduce as scatter_kernel
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.utils.pytree import tree_leaves
 
@@ -156,6 +157,109 @@ def test_scatter_reduce_tail_indices(n):
     np.testing.assert_allclose(out, exp_ref, **TOL)
     np.testing.assert_allclose(out, exp_pallas, **TOL)
     assert out[-1] == pytest.approx(float(exp_ref[-1]), abs=1e-6)
+
+
+def _one_launch_model(idx, val, w, n, *, tile, unit, normalize=True):
+    """The card kernel's two phases in numpy, fp32, with its tile and unit
+    sizes as arguments.  Phase 1: per unit of ``unit`` entries of a row, a
+    flag (an entry out of [0, n) or not above its predecessor) and, for a
+    row's entries, start[c][t] = j for every tile boundary t * tile in
+    (idx[c][j-1], idx[c][j]], the tail after its last entry = k; each write
+    counted.  Phase 2: per tile, each row's terms in client order, a
+    canonical row's from its start range, a foreign row's (any unit flagged)
+    from a whole scan with out-of-range entries as index 0 value 0; divided
+    by the weight sum (0 -> 1), and with ``normalize=False`` multiplied
+    back.  Returns (out, flags, start, writes)."""
+    c_rows, k = idx.shape
+    tiles, units = -(-n // tile), -(-k // unit)
+    flags = np.zeros((c_rows, units), np.int32)
+    start = np.full((c_rows, tiles + 1), -7, np.int64)   # never read if not written
+    writes = np.zeros((c_rows, tiles + 1), np.int64)
+    for c in range(c_rows):
+        for j in range(k):
+            cur, prev = int(idx[c, j]), int(idx[c, j - 1]) if j else -1
+            if cur < 0 or cur >= n or prev >= cur:
+                flags[c, j // unit] = 1
+            elif prev >= -1:
+                ts = list(range(0 if prev < 0 else prev // tile + 1, cur // tile + 1))
+                if j == k - 1:
+                    ts += list(range(cur // tile + 1, tiles + 1))
+                for t in ts:
+                    start[c, t] = k if t > cur // tile else j
+                    writes[c, t] += 1
+    wsum = np.float32(w.astype(np.float32).sum())
+    wsum = np.float32(1.0) if wsum == 0 else wsum
+    out = np.zeros(n, np.float32)
+    for t in range(tiles):
+        lo, hi = t * tile, min(t * tile + tile, n)
+        acc = np.zeros(hi - lo, np.float32)
+        for c in range(c_rows):
+            if flags[c].any():
+                for j in range(k):
+                    i, v = int(idx[c, j]), val[c, j]
+                    if not 0 <= i < n:
+                        i, v = 0, np.float32(0)
+                    if lo <= i < hi:
+                        acc[i - lo] += np.float32(w[c]) * v
+            else:
+                js = np.arange(start[c, t], start[c, t + 1])
+                acc[idx[c, js] - lo] += np.float32(w[c]) * val[c, js]
+        mean = acc / wsum
+        out[lo:hi] = mean if normalize else mean * wsum
+    return out, flags, start, writes
+
+
+@pytest.mark.parametrize("kind", ["distinct", "sparse tiles", "dup", "out of range"])
+def test_one_launch_scatter_arithmetic(kind):
+    """The kernel's phase-1 index on a canonical wire writes every tile
+    start of every row exactly once (nothing is read that the launch did
+    not write); a foreign row is
+    flagged; phase 2 then gives the plain version's result, bitwise where
+    the rows share no index, in both forms."""
+    n, tile, unit = 1000, 64, 16
+    if kind == "sparse tiles":  # whole tiles between a row's entries, none in the first or last
+        idx, val, w = _payload(3, 6, n, seed=8)
+        idx = np.sort(idx % 700 + 100, axis=1).astype(np.int32)
+        idx = np.stack([np.unique(r)[:4] for r in idx]).astype(np.int32)
+        val, w = val[:, :4], w
+    else:
+        idx, val, w = _payload(4, 40, n, seed=9, dup=kind == "dup", disjoint=kind != "dup")
+        idx = np.sort(idx, axis=1).astype(np.int32)
+        if kind == "out of range":
+            idx[2, 5], idx[3, -1] = -3, n
+    out, flags, start, writes = _one_launch_model(idx, val, w, n, tile=tile, unit=unit)
+    canonical = ~flags.any(axis=1)
+    assert (writes[canonical] == 1).all()
+    if kind in ("distinct", "sparse tiles"):
+        assert canonical.all()
+    else:
+        assert not canonical.all()
+    exp = ops.topk_scatter_reduce(*(torch.from_numpy(a) for a in (idx, val, w)), n).numpy()
+    np.testing.assert_allclose(out, exp, **TOL)
+    if kind != "dup":
+        np.testing.assert_array_equal(out, exp)
+    summed, *_ = _one_launch_model(idx, val, w, n, tile=tile, unit=unit, normalize=False)
+    np.testing.assert_array_equal(summed, out * np.float32(w.sum(dtype=np.float32)))
+
+
+def test_scatter_workspace_covers_flags_and_starts():
+    """One flag per UNIT entries of each row and tiles + 1 starts of each."""
+    assert scatter_kernel.workspace_ints(4, 19_743, 1_974_303) == 4 * (20 + 242 + 1)
+    assert scatter_kernel.workspace_ints(1, 1, 1) == 3
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_scatter_kernel_wrapper_raises_off_the_card(normalize):
+    idx, val, w = (torch.from_numpy(a) for a in _payload(2, 8, 100, seed=1))
+    with pytest.raises(ValueError, match="CUDA"):
+        scatter_kernel.topk_scatter_reduce(idx, val, w, 100, normalize=normalize)
+
+
+@pytest.mark.parametrize("normalize", [1, 0, None, "False"])
+def test_scatter_kernel_wrapper_takes_only_a_bool_normalize(normalize):
+    idx, val, w = (torch.from_numpy(a) for a in _payload(2, 8, 100, seed=1))
+    with pytest.raises(TypeError, match="normalize"):
+        scatter_kernel.topk_scatter_reduce(idx, val, w, 100, normalize=normalize)
 
 
 # ---------------- TopKCodec ----------------
