@@ -11,6 +11,9 @@ Phases (any failure exits non-zero):
    parallel) and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, at C=64, at a ragged N, with all-zero weights,
+   (fedavg_reduce, in fp32 and bf16) bitwise against the composition it
+   replaced in both forms with integer weights and as one device kernel a
+   call in the profiler, timed beside a device copy moving the same bytes,
    (topk_scatter_reduce) on disjoint, repeated, unsorted, out-of-range and
    empty payloads and twice on one payload, bitwise against the composition
    it replaced in both forms (normalize True and False), within 2C - 1 ulps
@@ -69,8 +72,11 @@ Phases (any failure exits non-zero):
    a bound set a priori;
 9. the hybrid serving path: selective_scan held against its plain version
    in phase 2 (the serving shape in bf16; S = 1 and 1000, Di = 300, N = 5,
-   8, 16 and 64, with and without an initial state, fp32 and bf16 x) and
-   timed beside its bound (bytes, fp32 operations and exponentials); then
+   8, 16 and 64, with and without an initial state, fp32 and bf16 x, long
+   memory: the model's dt and A over 1024 steps), whether its state is
+   bitwise the plain version's, ptxas' spills (none) and its inner loop's
+   SASS instructions a state element a step, and timed beside its bound
+   (bytes, fp32 operations and exponentials); then
    one 8-layer period of jamba-1.5-large-398b at full width without its
    experts (8,999,034,880 params) from init(seed) on the card through
    launch.serve.generate at phase 8's shape, with exactly 7 selective_scan
@@ -204,6 +210,8 @@ def kernel_phase(rng) -> dict:
     def normalized(w):
         return (w / safe_weight_sum(w)).contiguous()
 
+    one_kernel_a_call_check(dev)
+
     # --- quantize_int8 / dequantize_int8: bitwise ---
     for label, n_blocks in (("main", N_PARAMS // BLOCK + 1), ("ragged", 9)):
         x = delta_like(rng, (n_blocks * BLOCK,))
@@ -285,51 +293,104 @@ def kernel_phase(rng) -> dict:
         else:
             REPORT["timings"].append({"name": "dequant_reduce", "case": label, **row})
 
-    # --- fedavg_reduce: C=2 fp32 (the fleet's Null group), C=64, bf16, ragged, zero ---
-    for label, c, n, dtype in (
-        ("main", 2, N_PARAMS, torch.float32), ("C=64", 64, N_PARAMS, torch.float32),
-        ("bf16", 2, N_PARAMS, torch.bfloat16), ("ragged", 3, 1001, torch.float32),
-    ):
-        u = delta_like(rng, (c, n)).to(dtype)
-        w = torch.from_numpy((rng.random(c) * 500 + 10).astype(np.float32)).to(dev)
-        out, exp = ops.fedavg_reduce(u, w), ref.fedavg_reduce(u, w)
-        # bf16: the two fp32 sums may straddle a bf16 rounding edge -> one ulp
-        t = tol if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-8)
-        err = float((out.float() - exp.float()).abs().max())
-        check(f"fedavg_reduce within {t} [{label}: C={c}, N={n}, {dtype}]",
-              out.dtype == dtype and torch.allclose(out.float(), exp.float(), **t),
-              max_abs_err=err)
-        zero = ops.fedavg_reduce(u, torch.zeros_like(w))
-        check(f"fedavg_reduce zero weights -> zeros [{label}]",
-              not zero.any() and not zero.isnan().any())
-        if label == "ragged":
-            continue
-        wn, outo = normalized(w), torch.empty_like(out)
-        wn_lib = wn.to(dtype)
-        entry = "repro_fedavg_reduce_f32" if dtype == torch.float32 else "repro_fedavg_reduce_bf16"
-        b_ms, b_by = bound(nbytes(u, w, out), 2 * u.numel())
-        row = dict(
-            source="src/repro_torch/kernels/csrc/fedavg_reduce.cu",
-            replaces="src/repro/kernels/fedavg_reduce.py:56",
-            max_abs_err=err,
-            ms=time_ms(lambda: ops.fedavg_reduce(u, w)),
-            launch_ms=time_ms(launch("fedavg_reduce", entry, "fedavg_reduce",
-                                     u.data_ptr(), wn.data_ptr(), outo.data_ptr(), c, n)),
-            plain_ms=time_ms(lambda: ref.fedavg_reduce(u, w)),
-            # the yardstick: one library call (cuBLAS gemv) on the same inputs
-            library_ms=time_ms(lambda: wn_lib @ u),
-            bound_ms=b_ms, bound_by=b_by,
-            shape=f"u ({c}, {n}) {dtype}", bytes=nbytes(u, w, out),
-        )
-        if label == "main":
-            rows["fedavg_reduce"] = row
-        else:
-            REPORT["timings"].append({"name": "fedavg_reduce", "case": label, **row})
+    rows["fedavg_reduce"] = fedavg_kernel_checks(dev, tol, launch)
     rows["topk_scatter_reduce"] = topk_kernel_checks(dev, tol, launch)
     rows.update(collective_kernel_checks(dev, launch))
     rows.update(attention_kernel_checks(dev, launch))
     rows["selective_scan"] = scan_kernel_checks(dev, launch)
     return rows
+
+
+def fedavg_kernel_checks(dev, tol, launch) -> dict:
+    """fedavg_reduce against its plain version: C=2 (the smoke fleet's Null
+    group) and C=64 at full width in fp32 and bf16, and a ragged N, within
+    rtol=atol=1e-6 (one bf16 ulp) with non-integer weights; with integer
+    weights bitwise the composition it replaced in both forms (the mean,
+    and normalize=False against the old kernel's mean then
+    ``ops._denormalize``); all-zero weights give zeros in both forms (one
+    device kernel a call: ``one_kernel_a_call_check``).  Timed at C=2,
+    C=64 and bf16: the
+    ops wrapper in both forms, the bare launch, the plain version, the
+    cuBLAS gemv ``wn @ u`` and a device copy moving the same bytes (half
+    read, half written: the floor of this timing)."""
+    from repro_torch.kernels import ops, ref
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    # the kernel's arithmetic in plain torch: for integer weights, the
+    # composition it replaced (weights normalized by safe_weight_sum around
+    # the old kernel's fmaf chain, then ops._denormalize)
+    from torch_kernel_models import fedavg_one_launch
+
+    rng = np.random.default_rng(19)
+    f32, bf16 = torch.float32, torch.bfloat16
+    row = None
+    for label, c, n, dtype in (
+        ("main", 2, N_PARAMS, f32), ("C=64", 64, N_PARAMS, f32), ("bf16", 2, N_PARAMS, bf16),
+        ("C=64, bf16", 64, N_PARAMS, bf16), ("ragged", 3, 1001, f32),
+        ("ragged, bf16", 3, 1001, bf16),
+    ):
+        u = delta_like(rng, (c, n)).to(dtype)
+        w = torch.from_numpy((rng.random(c) * 500 + 10).astype(np.float32)).to(dev)
+        out, exp = ops.fedavg_reduce(u, w), ref.fedavg_reduce(u, w)
+        # bf16: the two fp32 sums may straddle a bf16 rounding edge -> one ulp
+        t = tol if dtype == f32 else dict(rtol=2**-7, atol=1e-8)
+        err = float((out.float() - exp.float()).abs().max())
+        check(f"fedavg_reduce within {t} [{label}: C={c}, N={n}, {dtype}]",
+              out.dtype == dtype and torch.allclose(out.float(), exp.float(), **t),
+              max_abs_err=err)
+        for normalize in (True, False):
+            zero = ops.fedavg_reduce(u, torch.zeros_like(w), normalize=normalize)
+            check(f"fedavg_reduce zero weights -> zeros [{label}, normalize={normalize}]",
+                  not zero.any() and not zero.isnan().any())
+        wi = torch.from_numpy(rng.integers(10, 500, c).astype(np.float32)).to(dev)
+        mean = ops.fedavg_reduce(u, wi)
+        summed = ops.fedavg_reduce(u, wi, normalize=False)
+        old_mean = fedavg_one_launch(u, wi)
+        check(f"fedavg_reduce bitwise the composition it replaced, integer weights, normalize "
+              f"True and False [{label}]",
+              torch.equal(mean, old_mean)
+              and torch.equal(summed, ops._denormalize(old_mean, wi))
+              and torch.equal(summed, fedavg_one_launch(u, wi, normalize=False))
+              and torch.equal(summed, ops._denormalize(mean, wi)),
+              mean_differing=int((mean != old_mean).sum()),
+              summed_differing=int((summed != ops._denormalize(old_mean, wi)).sum()))
+        if label.startswith("ragged") or label == "C=64, bf16":
+            continue
+        wf, outo = w.contiguous(), torch.empty_like(out)
+        wn_lib = (w / w.sum()).to(dtype)
+        entry = "repro_fedavg_reduce_f32" if dtype == f32 else "repro_fedavg_reduce_bf16"
+        moved = nbytes(u, w, out)
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        b_ms, b_by = bound(moved, 2 * u.numel())
+        plain = {True: lambda: ref.fedavg_reduce(u, w),
+                 # the CPU route's composition, on the card
+                 False: lambda: ops._denormalize(ref.fedavg_reduce(u, w), w)}
+        for normalize in (True, False):
+            timing = dict(
+                source="src/repro_torch/kernels/csrc/fedavg_reduce.cu",
+                replaces="src/repro/kernels/fedavg_reduce.py:56",
+                max_abs_err=err,
+                ms=time_ms(lambda: ops.fedavg_reduce(u, w, normalize=normalize)),
+                launch_ms=time_ms(launch("fedavg_reduce", entry, "fedavg_reduce",
+                                         u.data_ptr(), wf.data_ptr(), outo.data_ptr(), c, n,
+                                         int(normalize))),
+                plain_ms=time_ms(plain[normalize]),
+                # the yardstick: one library call (cuBLAS gemv) on the same inputs
+                library_ms=time_ms(lambda: wn_lib @ u),
+                bound_ms=b_ms, bound_by=b_by,
+                # a device copy moving the same bytes (the floor of this timing)
+                copy_ms=time_ms(lambda: dst.copy_(src)),
+                shape=f"u ({c}, {n}) {dtype}" + ("" if normalize else ", normalize=False"),
+                bytes=moved,
+            )
+            if label == "main" and normalize:
+                row = timing
+            else:
+                case = label if normalize else f"{label}, normalize=False"
+                REPORT["timings"].append({"name": "fedavg_reduce", "case": case, **timing})
+        del src, dst
+    return row
 
 
 # the head model's leaves padded to 256 (base.w, head.b1, head.b2, head.w1,
@@ -764,39 +825,123 @@ def scan_bound(b: int, s: int, di: int, n: int, moved: int) -> dict:
                 exponentials=exps, sm_clock_hz=clock, bytes=moved)
 
 
+def scan_build_checks() -> dict:
+    """The built scan library: ptxas' registers and spills for each
+    selective_scan kernel (no spill in any), and, from its SASS
+    (cuobjdump), the instructions of the bf16 N_MAX = 16 kernel's inner
+    loop -- of the innermost loops that hold a MUFU.EX2, the unrolled one
+    with the most -- per state element a step (one ex2 each), by opcode."""
+    import os
+    import re
+    import shutil
+
+    from repro_torch.kernels import _cuda
+
+    ptxas, name = {}, None
+    for line in _cuda.build_log("selective_scan").splitlines():
+        entry = re.search(r"Compiling entry function '\S*?selective_scan_kernelI(f|13__nv_bfloat16)"
+                          r"Li(\d+)E", line)
+        if entry:
+            name = f"selective_scan_kernel<{'float' if entry[1] == 'f' else 'bf16'}, {entry[2]}>"
+            ptxas[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line)):
+            ptxas[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            ptxas[name]["registers"] = int(m[1])
+    for name, info in ptxas.items():
+        print(f"ptxas {name}: {info}", flush=True)
+    check("ptxas reports every selective_scan kernel, and no spill in any",
+          len(ptxas) == 8
+          and all(v.get("spill_stores") == 0 == v.get("spill_loads") for v in ptxas.values()),
+          kernels=ptxas)
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check("cuobjdump is there to read the scan library's SASS", os.path.exists(tool), path=tool)
+    sass = subprocess.run([tool, "-sass", str(_cuda.library_path("selective_scan"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if re.match(r"\S*selective_scan_kernelI13__nv_bfloat16Li16E", f))
+    code = [(int(a, 16), ins.strip()) for a, ins in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = []  # (first, last address) of each back edge's loop that holds an ex2
+    for addr, ins in code:
+        m = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)", ins)
+        if m and int(m[1], 16) <= addr and any(
+                "MUFU.EX2" in i for a, i in code if int(m[1], 16) <= a <= addr):
+            loops.append((int(m[1], 16), addr))
+    # the innermost loops (none inside them), and of those the unrolled body:
+    # the one with the most ex2s, not the remainder steps after it
+    inner = [(lo, hi) for lo, hi in loops
+             if not any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops)]
+    bodies = [[i for a, i in code if lo <= a <= hi] for lo, hi in inner]
+    span = max(bodies, key=lambda body: sum("MUFU.EX2" in i for i in body))
+    ex2 = sum("MUFU.EX2" in i for i in span)
+    ops_ = {}
+    for ins in span:
+        op = ins.split()[1] if ins.startswith("@") else ins.split()[0]
+        ops_[op.split(".")[0]] = ops_.get(op.split(".")[0], 0) + 1
+    per_state = len(span) / ex2
+    print(f"selective_scan_kernel<bf16, 16> inner loop: {len(span)} SASS instructions for {ex2} "
+          f"state steps (MUFU.EX2): {per_state:.2f} a state element a step; {ops_}", flush=True)
+    check("the scan's inner loop found in the SASS", ex2 >= 16, ex2=ex2, instructions=len(span))
+    return {"ptxas": ptxas, "loop_instructions": len(span), "loop_ex2": ex2,
+            "instructions_per_state_step": per_state, "loop_opcodes": ops_}
+
+
+def scan_inputs(gen, b, s, di, n, dtype, init, *, long_memory=False, dev="cuda"):
+    """x ~ 0.5 N in ``dtype``; dt = softplus(N) and A = -exp(0.3 N) (the
+    reference tests' draws), or with ``long_memory`` as the model makes
+    them (models/layers/mamba.py:39-49): dt log-uniform in [1e-3, 1e-1]
+    and A = -exp(log(1..N)) in every channel, so exp(dt A) stays near 1 and
+    the state carries hundreds of steps; B, C, D ~ N; a N initial state."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = randn(b, s, di, scale=0.5).to(dtype)
+    if long_memory:
+        u = torch.rand((b, s, di), generator=gen, device=dev)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        a = -torch.exp(torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev)))
+        a = a.expand(di, n).contiguous()
+    else:
+        dt = torch.nn.functional.softplus(randn(b, s, di))
+        a = -torch.exp(randn(di, n, scale=0.3))
+    bm, cm, d = randn(b, s, n), randn(b, s, n), randn(di)
+    return x, dt, a, bm, cm, d, (randn(b, di, n) if init else None)
+
+
 def scan_kernel_checks(dev, launch) -> dict:
     """selective_scan against its plain version (``kernels/ref.py``) on the
-    card, y within 1e-5 (fp32) / one bf16 ulp, the state within 1e-5: the
-    serving shape in bf16, S = 1 and S = 1000, Di = 300 (not a multiple of
-    the kernel's 128 channels a block), N = 5, 8, 16, 64, with and without
-    an initial state, fp32 and bf16 x.  The serving shape is timed through
-    the ops wrapper, as a bare launch and the plain version; no single
-    PyTorch call computes the scan."""
+    card, y within 1e-5 (fp32) / one bf16 ulp, the state within 1e-5 (and
+    whether it is bitwise): the serving shape in bf16, S = 1 and S = 1000,
+    Di = 300 (not a multiple of the kernel's 128 channels a block, nor of
+    its 8-column rows), N = 5, 8, 16, 64, with and without an initial
+    state, fp32 and bf16 x, and long memory (the model's dt and A, S =
+    1024) in both.  The serving shape is timed through the ops wrapper, as
+    a bare launch and the plain version; no single PyTorch call computes
+    the scan.  Then the library's registers, spills and inner loop
+    (``scan_build_checks``)."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # label, B, S, Di, N, x dtype, initial state
-        ("main", SERVE_B, SERVE_PROMPT, 16384, 16, bf16, False),
-        ("S=1, Di=300, init", 2, 1, 300, 16, f32, True),
-        ("S=1000, Di=300, N=8, init", 2, 1000, 300, 8, bf16, True),
-        ("S=1000, Di=300", 2, 1000, 300, 16, f32, False),
-        ("N=64, init", 1, 1000, 256, 64, f32, True),
-        ("N=64, bf16", 2, 77, 300, 64, bf16, False),
-        ("N=5", 2, 33, 128, 5, bf16, False),
+    cases = [  # label, B, S, Di, N, x dtype, initial state, long memory
+        ("main", SERVE_B, SERVE_PROMPT, 16384, 16, bf16, False, False),
+        ("S=1, Di=300, init", 2, 1, 300, 16, f32, True, False),
+        ("S=1000, Di=300, N=8, init", 2, 1000, 300, 8, bf16, True, False),
+        ("S=1000, Di=300", 2, 1000, 300, 16, f32, False, False),
+        ("N=64, init", 1, 1000, 256, 64, f32, True, False),
+        ("N=64, bf16", 2, 77, 300, 64, bf16, False, False),
+        ("N=5", 2, 33, 128, 5, bf16, False, False),
+        ("long memory, Di=300", 2, 1024, 300, 16, bf16, False, True),
+        ("long memory, Di=300, fp32", 2, 1024, 300, 16, f32, False, True),
     ]
     row = None
-    for label, b, sl, di, n, dtype, init in cases:
-        x = randn(b, sl, di, scale=0.5).to(dtype)
-        dt = torch.nn.functional.softplus(randn(b, sl, di))
-        a = -torch.exp(randn(di, n, scale=0.3))
-        bm, cm, d = randn(b, sl, n), randn(b, sl, n), randn(di)
-        h0 = randn(b, di, n) if init else None
+    for label, b, sl, di, n, dtype, init, long_memory in cases:
+        x, dt, a, bm, cm, d, h0 = scan_inputs(gen, b, sl, di, n, dtype, init,
+                                              long_memory=long_memory, dev=dev)
         y, h = ops.selective_scan(x, dt, a, bm, cm, d, init_state=h0)
         y_exp, h_exp = ref.selective_scan(x, dt, a, bm, cm, d, init_state=h0)
         tol = SCAN_TOL[dtype]
@@ -820,13 +965,21 @@ def scan_kernel_checks(dev, launch) -> dict:
             launch_ms=time_ms(launch(
                 "selective_scan", "repro_selective_scan_bf16", "selective_scan",
                 x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                d.data_ptr(), None, yo.data_ptr(), ho.data_ptr(), b, sl, di, n)),
+                d.data_ptr(), None, yo.data_ptr(), ho.data_ptr(), b, sl, di, n, di)),
             plain_ms=time_ms(lambda: ref.selective_scan(x, dt, a, bm, cm, d), iters=5),
             library_ms=None,
             shape=f"x ({b}, {sl}, {di}) bf16, N {n}, no initial state",
             **scan_bound(b, sl, di, n, nbytes(x, dt, a, bm, cm, d, y, h)),
         )
         del yo, ho
+    row["build"] = scan_build_checks()
+    # the inner loop's instructions at one warp instruction a clock on each
+    # of an SM's 4 schedulers: the floor the plain roundings set
+    row["issue_floor_ms"] = (row["build"]["instructions_per_state_step"] * row["exponentials"]
+                             / 32 / (4 * H100_SMS * row["sm_clock_hz"]) * 1e3)
+    print(f"selective_scan issue floor at the serving shape: {row['issue_floor_ms'] * 1e3:.2f} us "
+          f"(kernel {row['launch_ms'] * 1e3:.2f} us bare, MUFU bound {row['bound_ms'] * 1e3:.2f} "
+          f"us)", flush=True)
     return row
 
 
@@ -862,17 +1015,49 @@ def topk_composition(idx, val, w, n: int, *, normalize=True):
     return mean if normalize else mean * wsum
 
 
-def device_kernels(fn) -> list[str]:
-    """The names of the device activities (kernels, memsets, copies) that
-    one call of ``fn`` runs, from the profiler."""
+def one_kernel_a_call_check(dev) -> None:
+    """The one-launch reduces are one device kernel an ops call in both
+    forms: fedavg_reduce at C=2 and C=64 in fp32 and at C=2 in bf16,
+    topk_scatter_reduce at C=4 and C=64, normalize True and False, each
+    call run and synchronized in turn inside ONE profiler session, the
+    first of the process; the device activities it saw, in time order, must
+    be exactly one kernel of the called reduce per call.  (Short profiler
+    sessions after the first few of a process can stop recording device
+    activity, so the calls share one.)"""
+    from functools import partial
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    calls = []  # (label, kernel name, call)
+    for c, dtype in ((2, torch.float32), (64, torch.float32), (2, torch.bfloat16)):
+        u = (torch.randn(c, N_PARAMS, generator=gen, device=dev) * 1e-3).to(dtype)
+        w = torch.randint(10, 500, (c,), generator=gen, device=dev).to(torch.float32)
+        calls += [(f"fedavg_reduce C={c} {dtype} normalize={nz}", "fedavg_reduce_kernel",
+                   partial(ops.fedavg_reduce, u, w, normalize=nz)) for nz in (True, False)]
+    for c in (4, 64):
+        idx, val, w = topk_payload(gen, c, TOPK_K, N_PARAMS, dev)
+        calls += [(f"topk_scatter_reduce C={c} normalize={nz}", "topk_scatter_reduce_kernel",
+                   partial(ops.topk_scatter_reduce, idx, val, w, N_PARAMS, normalize=nz))
+                  for nz in (True, False)]
+    for _, _, call in calls:
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        for _, _, call in calls:
+            call()
+            torch.cuda.synchronize()
+    seen = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    names = [e.name.split("::")[-1].split("(")[0] for e in seen]
+    check("fedavg_reduce and topk_scatter_reduce are one device kernel an ops call, "
+          "normalize True and False [" + "; ".join(label for label, _, _ in calls) + "]",
+          len(seen) == len(calls)
+          and all(kernel in e.name for (_, kernel, _), e in zip(calls, seen)),
+          kernels=names)
 
 
 def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -885,8 +1070,8 @@ def topk_kernel_checks(dev, tol, launch) -> dict:
     """topk_scatter_reduce against its plain version: C=4 (the mixed fleet's
     TopK group) and C=64 at full width, bitwise against the composition it
     replaced (integer weights) in both forms, within 2C - 1 ulps of it with
-    non-integer weights, one device kernel per call in both forms; then the
-    edge payloads."""
+    non-integer weights (one device kernel per call in both forms:
+    ``one_kernel_a_call_check``); then the edge payloads."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.scatter_reduce import TILE, workspace_ints
     from repro_torch.utils.pytree import safe_weight_sum
@@ -907,12 +1092,6 @@ def topk_kernel_checks(dev, tol, launch) -> dict:
               torch.equal(out, topk_composition(idx, val, w, N_PARAMS))
               and torch.equal(summed, topk_composition(idx, val, w, N_PARAMS, normalize=False))
               and torch.equal(summed, out * safe_weight_sum(w)))
-        for normalize in (True, False):
-            names = device_kernels(lambda: ops.topk_scatter_reduce(idx, val, w, N_PARAMS,
-                                                                   normalize=normalize))
-            check(f"topk_scatter_reduce is one device kernel a call [{label}, normalize="
-                  f"{normalize}]",
-                  len(names) == 1 and "topk_scatter_reduce_kernel" in names[0], kernels=names)
         di, dv, dw = topk_payload(gen, c, TOPK_K, N_PARAMS, dev, disjoint=True)
         check(f"topk_scatter_reduce bitwise on disjoint rows [{label}]",
               torch.equal(ops.topk_scatter_reduce(di, dv, dw, N_PARAMS),
@@ -2060,10 +2239,13 @@ def hybrid_serving_phase(card: str, out_dir: Path) -> dict:
 
 def aside(r: dict) -> str:
     """A timing's yardsticks beside the kernel's own: the TopK reduce's
-    output fill, decode attention at 4 CTAs an SM."""
+    output fill, the FedAvg reduce's copy floor, decode attention at 4 CTAs
+    an SM."""
     out = ""
     if "zero_fill_ms" in r:
         out += f", the (N,) fp32 fill alone {r['zero_fill_ms'] * 1e3:.2f} us"
+    if "copy_ms" in r:
+        out += f", a device copy moving the same bytes {r['copy_ms'] * 1e3:.2f} us"
     if "ms_4_ctas_per_sm" in r:
         out += (f", at {r['splits_4_ctas_per_sm']} splits (4 CTAs an SM) "
                 f"{r['ms_4_ctas_per_sm'] * 1e3:.2f} us")

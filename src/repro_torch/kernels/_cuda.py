@@ -38,8 +38,8 @@ _P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # cudaError_t of its launch as an int
 SIGNATURES = {
     "fedavg_reduce": {
-        "repro_fedavg_reduce_f32": (_P, _P, _P, _I64, _I64, _P),
-        "repro_fedavg_reduce_bf16": (_P, _P, _P, _I64, _I64, _P),
+        "repro_fedavg_reduce_f32": (_P, _P, _P, _I64, _I64, _I64, _P),
+        "repro_fedavg_reduce_bf16": (_P, _P, _P, _I64, _I64, _I64, _P),
     },
     "quantize": {
         "repro_quantize_int8": (_P, _P, _P, _I64, _P),
@@ -64,8 +64,8 @@ SIGNATURES = {
         "repro_decode_attention_bf16": (*(_P,) * 6, *(_I64,) * 7, _F, _P),
     },
     "selective_scan": {
-        "repro_selective_scan_f32": (*(_P,) * 9, *(_I64,) * 4, _P),
-        "repro_selective_scan_bf16": (*(_P,) * 9, *(_I64,) * 4, _P),
+        "repro_selective_scan_f32": (*(_P,) * 9, *(_I64,) * 5, _P),
+        "repro_selective_scan_bf16": (*(_P,) * 9, *(_I64,) * 5, _P),
     },
 }
 

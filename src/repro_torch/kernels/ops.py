@@ -64,10 +64,9 @@ def _denormalize(out: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 def fedavg_reduce(updates, weights, *, normalize=True):
     """(C, N) x (C,) -> (N,) weighted mean (or weighted sum with
     ``normalize=False``), in the updates' dtype."""
-    if _on_card(updates, weights):
-        out = _fedavg_reduce_kernel(updates, weights)
-    else:
-        out = ref.fedavg_reduce(updates, weights)
+    if _on_card(updates, weights):  # one launch: the weight sum and normalize inside
+        return _fedavg_reduce_kernel(updates, weights, normalize=normalize)
+    out = ref.fedavg_reduce(updates, weights)
     return out if normalize else _denormalize(out, weights)
 
 

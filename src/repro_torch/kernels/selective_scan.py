@@ -10,6 +10,7 @@ to 64.  CUDA tensors only; ``ops`` routes CPU tensors to ``ref``.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ._cuda import launch
 
@@ -18,6 +19,8 @@ _ENTRY = {
     torch.bfloat16: "repro_selective_scan_bf16",
 }
 MAX_N = 64  # the states a thread keeps in registers (the Pallas kernel's VMEM_ASSUMES["n"])
+N_BUCKETS = (8, 16, 32, MAX_N)  # the kernel's N_MAX builds; B and C rows are padded to one
+ROW_ALIGN = 8  # x and dt rows are padded to a multiple of this many elements
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -46,13 +49,20 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch
                          f"and B <= 65535; got B={b}, S={s}, Di={di}, N={n}")
     if dev.type != "cuda":
         raise ValueError(f"selective_scan's kernel takes CUDA tensors, got {dev}")
-    x = x.contiguous()
     f32 = {name: t.to(torch.float32).contiguous() for name, (t, _) in want.items()}
     h0 = f32.get("init_state")
-    y = torch.empty_like(x)
+    y = torch.empty((b, s, di), dtype=x.dtype, device=dev)
     h_out = torch.empty((b, di, n), dtype=torch.float32, device=dev)
+    # the kernel streams rows 16 bytes at a time: x and dt padded to ld, a
+    # multiple of 8 columns, B and C to the state bucket N_MAX with zeros,
+    # and every streamed tensor starting 16-byte aligned
+    ld = -(-di // ROW_ALIGN) * ROW_ALIGN
+    n_max = next(m for m in N_BUCKETS if n <= m)
+    xk, dtk = (F.pad(t, (0, ld - di)) if ld != di else t.contiguous() for t in (x, f32["dt"]))
+    bk, ck = (F.pad(t, (0, n_max - n)) if n_max != n else t for t in (f32["Bm"], f32["Cm"]))
+    xk, dtk, bk, ck = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xk, dtk, bk, ck))
     launch("selective_scan", _ENTRY[x.dtype], "selective_scan", dev,
-           x.data_ptr(), f32["dt"].data_ptr(), f32["A"].data_ptr(), f32["Bm"].data_ptr(),
-           f32["Cm"].data_ptr(), f32["D"].data_ptr(), None if h0 is None else h0.data_ptr(),
-           y.data_ptr(), h_out.data_ptr(), b, s, di, n)
+           xk.data_ptr(), dtk.data_ptr(), f32["A"].data_ptr(), bk.data_ptr(), ck.data_ptr(),
+           f32["D"].data_ptr(), None if h0 is None else h0.data_ptr(),
+           y.data_ptr(), h_out.data_ptr(), b, s, di, n, ld)
     return y, h_out

@@ -7,8 +7,12 @@ Elsewhere every test skips.  Quantize/dequantize must match bitwise; the
 reduces differ from the plain versions only in summation order (cuBLAS's
 against one fp32 accumulator per column): ``rtol=atol=1e-6`` for fp32;
 for bf16 outputs the two fp32 sums may straddle a rounding edge, so one
-bf16 ulp (``rtol=2**-7``).  The TopK scatter reduce adds the same fp32
-products ``w_c * val`` as its plain version and divides by a weight sum it
+bf16 ulp (``rtol=2**-7``).  The FedAvg reduce forms its weight sum in
+client order inside the launch: with integer weights it is bitwise the
+composition it replaced in both forms (``tests/torch_kernel_models.py``'s
+fmaf chain, then ``ops._denormalize``).  The TopK scatter reduce adds the
+same fp32 products ``w_c * val`` as its plain version and divides by a
+weight sum it
 forms itself in a fixed order: with integer weights that sum is exact, so
 the result is bitwise the client-order composition it replaced and, where
 the rows share no index, the plain version; with other weights the two
@@ -33,6 +37,7 @@ import torch
 from repro_torch.kernels import decode_attention as decode_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.utils.pytree import safe_weight_sum
+from torch_kernel_models import fedavg_one_launch
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -86,6 +91,29 @@ def test_cuda_fedavg_reduce(cuda, c, n, dtype):
     tol = TOL if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-8)
     torch.testing.assert_close(out.float(), exp.float(), **tol)
     assert not ops.fedavg_reduce(u, torch.zeros_like(w)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n", [(2, 1_974_303), (64, 1_974_303), (3, 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fedavg_reduce_is_the_composition_it_replaced(cuda, c, n, dtype):
+    """Integer weights: bitwise the kernel-plus-composition it replaced in
+    both forms -- the weights normalized by safe_weight_sum around the
+    kernel, one fmaf chain (``tests/torch_kernel_models.py``), and for
+    normalize=False that mean then ``ops._denormalize`` -- and all-zero
+    weights give zeros in both forms."""
+    rng = np.random.default_rng(c + 2)
+    u = _t(_delta(rng, (c, n))).to(cuda, dtype)
+    w = _t(rng.integers(10, 500, c).astype(np.float32)).to(cuda)
+    mean = ops.fedavg_reduce(u, w)
+    summed = ops.fedavg_reduce(u, w, normalize=False)
+    old_mean = fedavg_one_launch(u, w)
+    assert torch.equal(mean, old_mean)
+    assert torch.equal(summed, ops._denormalize(old_mean, w))
+    assert torch.equal(summed, ops._denormalize(mean, w))
+    for normalize in (True, False):
+        zero = ops.fedavg_reduce(u, torch.zeros_like(w), normalize=normalize)
+        assert not zero.any() and not zero.isnan().any()
 
 
 @pytest.mark.cuda
@@ -238,22 +266,37 @@ def test_cuda_topk_scatter_reduce_non_integer_weights_within_ulps(cuda, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("normalize", [True, False])
-def test_cuda_topk_scatter_reduce_is_one_device_kernel(cuda, normalize):
-    """One ops call, one device activity: no memset, no index pass, no
-    weight-sum or denormalization kernels around it."""
+def test_cuda_reduces_are_one_device_kernel_a_call(cuda):
+    """One ops call, one device activity, for both one-launch reduces in
+    both forms: no memset, index pass, weight-sum, division or
+    denormalization kernels around them.  The calls share ONE profiler
+    session, the only one of this file: short sessions after the first few
+    of a process can stop recording device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(17)
+    calls = []  # (kernel name, call)
+    for dtype in (torch.float32, torch.bfloat16):
+        u = _t(_delta(rng, (2, 1_974_303))).to(cuda, dtype)
+        w = _t(rng.integers(10, 500, 2).astype(np.float32)).to(cuda)
+        calls += [("fedavg_reduce_kernel", lambda u=u, w=w, nz=nz: ops.fedavg_reduce(
+            u, w, normalize=nz)) for nz in (True, False)]
     idx, val, w = (t.to(cuda) for t in _topk_payload(rng, 4, 19_743, 1_974_303))
-    ops.topk_scatter_reduce(idx, val, w, 1_974_303, normalize=normalize)
+    calls += [("topk_scatter_reduce_kernel", lambda nz=nz: ops.topk_scatter_reduce(
+        idx, val, w, 1_974_303, normalize=nz)) for nz in (True, False)]
+    for _, call in calls:
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ops.topk_scatter_reduce(idx, val, w, 1_974_303, normalize=normalize)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(names) == 1 and "topk_scatter_reduce_kernel" in names[0], names
+        for _, call in calls:
+            call()
+            torch.cuda.synchronize()
+    seen = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    names = [e.name for e in seen]
+    assert len(seen) == len(calls), names
+    assert all(kernel in name for (kernel, _), name in zip(calls, names)), names
 
 
 # ---------------- collective_pack / collective_unpack ----------------
@@ -429,33 +472,44 @@ def test_cuda_decode_attention_any_split_count(cuda, b, s, h, kv, d, dtype, mask
 SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 
 
-def _scan_inputs(cuda, seed, b, s, di, n, dtype, init):
+def _scan_inputs(cuda, seed, b, s, di, n, dtype, init, long_memory=False):
     """The reference test's distributions, drawn on the card: x ~ 0.5 N,
-    dt = softplus(N), A = -exp(0.3 N), B, C, D ~ N, a N state."""
+    dt = softplus(N), A = -exp(0.3 N), B, C, D ~ N, a N state; with
+    ``long_memory`` dt and A as the model makes them
+    (``models/layers/mamba.py:39-49``): dt log-uniform in [1e-3, 1e-1], A =
+    -(1..N) in every channel, so the state carries hundreds of steps."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=cuda) * scale
 
     x = randn(b, s, di, scale=0.5).to(dtype)
-    dt = torch.nn.functional.softplus(randn(b, s, di))
-    a = -torch.exp(randn(di, n, scale=0.3))
+    if long_memory:
+        u = torch.rand((b, s, di), generator=gen, device=cuda)
+        dt = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+        a = -torch.exp(torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=cuda)))
+        a = a.expand(di, n).contiguous()
+    else:
+        dt = torch.nn.functional.softplus(randn(b, s, di))
+        a = -torch.exp(randn(di, n, scale=0.3))
     h0 = randn(b, di, n) if init else None
     return (x, dt, a, randn(b, s, n), randn(b, s, n), randn(di)), h0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,di,n,dtype,init", [
-    (8, 1024, 16384, 16, torch.bfloat16, False),  # the Jamba slice's prefill
-    (2, 1, 300, 16, torch.float32, True),          # one step, Di not a block multiple
-    (2, 1000, 300, 8, torch.bfloat16, True),       # ragged S and Di
-    (2, 1000, 300, 16, torch.float32, False),
-    (1, 1000, 256, 64, torch.float32, True),       # the largest N
-    (3, 77, 512, 16, torch.float32, True),
-    (2, 33, 128, 5, torch.bfloat16, False),        # N below its register bucket
+@pytest.mark.parametrize("b,s,di,n,dtype,init,long_memory", [
+    (8, 1024, 16384, 16, torch.bfloat16, False, False),  # the Jamba slice's prefill
+    (2, 1, 300, 16, torch.float32, True, False),          # one step, Di not a block multiple
+    (2, 1000, 300, 8, torch.bfloat16, True, False),       # ragged S and Di
+    (2, 1000, 300, 16, torch.float32, False, False),
+    (1, 1000, 256, 64, torch.float32, True, False),       # the largest N
+    (3, 77, 512, 16, torch.float32, True, False),
+    (2, 33, 128, 5, torch.bfloat16, False, False),        # N below its register bucket
+    (2, 1024, 300, 16, torch.bfloat16, False, True),      # long memory: the model's dt and A
+    (2, 1024, 300, 16, torch.float32, False, True),
 ])
-def test_cuda_selective_scan(cuda, b, s, di, n, dtype, init):
-    args, h0 = _scan_inputs(cuda, s + di + n, b, s, di, n, dtype, init)
+def test_cuda_selective_scan(cuda, b, s, di, n, dtype, init, long_memory):
+    args, h0 = _scan_inputs(cuda, s + di + n, b, s, di, n, dtype, init, long_memory)
     before = ops.launch_counts()["selective_scan"]
     y, h = ops.selective_scan(*args, init_state=h0)
     assert ops.launch_counts()["selective_scan"] == before + 1

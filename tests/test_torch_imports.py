@@ -1,10 +1,11 @@
-"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and
-``flash_ablation.py`` import neither ``jax`` nor the JAX package ``repro``,
-so the port runs where JAX is not installed.  An AST scan checks every
-import statement; a fresh interpreter imports every kernel module, the
-mesh launcher, the transformer, the mamba mixer and the serving driver,
-runs one CPU fit and a few reduced CPU decode steps of the dense and the
-hybrid stack, and checks that JAX never loaded."""
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py``, the
+ablation scripts and the card tests' helpers import neither ``jax`` nor
+the JAX package ``repro``, so the port runs where JAX is not installed.
+An AST scan checks every import statement; a fresh interpreter imports
+every kernel module, the mesh launcher, the transformer, the mamba mixer
+and the serving driver, runs one CPU fit and a few reduced CPU decode
+steps of the dense and the hybrid stack, and checks that JAX never
+loaded."""
 import ast
 import os
 import subprocess
@@ -17,8 +18,9 @@ ROOT = Path(__file__).resolve().parents[1]
 # the mesh tests' rank module runs inside spawned ranks, which start
 # without JAX too
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "flash_ablation.py",
-    ROOT / "tests" / "torch_mesh_ranks.py",
+    ROOT / "chip_smoke.py", ROOT / "flash_ablation.py", ROOT / "decode_ablation.py",
+    ROOT / "scan_ablation.py", ROOT / "tests" / "torch_mesh_ranks.py",
+    ROOT / "tests" / "torch_kernel_models.py",
 ]
 
 

@@ -10,6 +10,13 @@ scales are the oracle's to within one ulp (tests/test_kernels.py holds
 them to rtol=1e-6) and its codes bitwise.  The reduces differ only in summation order
 (the Pallas reduces normalize the weights first, the oracles divide after):
 ``rtol=atol=1e-6``.
+
+The CUDA FedAvg reduce's own arithmetic (the weight sum and, for
+``normalize=False``, the product inside the launch) is modelled in plain
+torch in ``tests/torch_kernel_models.py`` and held bitwise against JAX's
+``ops.fedavg_reduce`` in interpret mode for integer weights, where XLA's
+CPU dot is the same fmaf chain (C <= 17), and within ``rtol=atol=1e-6``
+where the bits may part (non-integer weights, C = 64).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +28,9 @@ from repro.kernels.dequant_reduce import dequant_reduce as pallas_dequant_reduce
 from repro.kernels.fedavg_reduce import fedavg_reduce as pallas_fedavg_reduce
 from repro.kernels.quantize import dequantize_int8 as pallas_dequantize
 from repro.kernels.quantize import quantize_int8 as pallas_quantize
+from repro.kernels import ops as jops
 from repro_torch.kernels import ops
+from torch_kernel_models import fedavg_one_launch
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -102,6 +111,60 @@ def test_fedavg_reduce_bf16_keeps_dtype():
     np.testing.assert_allclose(
         _np(out.float()), np.asarray(exp.astype(jnp.float32)), rtol=2**-7, atol=1e-8
     )
+
+
+def _fedavg_pair(seed, c, n, dtype, weights):
+    """Updates rounded to ``dtype`` once, for JAX and the port, and
+    ``weights`` ("integer" example counts, "real" values, or "zero")."""
+    rng = np.random.default_rng(seed)
+    u = jnp.asarray(_delta(rng, (c, n)), jnp.dtype(dtype))
+    w = {"integer": rng.integers(10, 500, c).astype(np.float32),
+         "real": ((rng.random(c) + 0.1) * 40).astype(np.float32),
+         "zero": np.zeros(c, np.float32)}[weights]
+    ut = _t(np.asarray(u.astype(jnp.float32))).to(getattr(torch, dtype))
+    return u, jnp.asarray(w), ut, _t(w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [2, 3, 6, 17])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_fedavg_one_launch_model_bitwise_vs_jax(c, dtype, normalize):
+    """The CUDA kernel's arithmetic (``tests/torch_kernel_models.py``: the
+    client-order weight sum, wn = w / ws, one fmaf chain, and for
+    ``normalize=False`` the mean and ws each rounded to the dtype before
+    their product) is bitwise JAX's Pallas reduce in interpret mode plus
+    its ``_denormalize``, for integer weights: their sum is exact in any
+    order, and XLA's CPU dot of C <= 17 terms is the same fmaf chain."""
+    u, w, ut, wt = _fedavg_pair(c, c, 5001, dtype, "integer")
+    exp = jops.fedavg_reduce(u, w, normalize=normalize, interpret=True)
+    out = fedavg_one_launch(ut, wt, normalize=normalize)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (5001,)
+    np.testing.assert_array_equal(_np(out.float()), np.asarray(exp.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("c,weights", [(3, "real"), (64, "integer")])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_fedavg_one_launch_model_close_to_jax(c, weights, normalize):
+    """Where the bits may part: weights that are not integers (the two
+    weight sums round in other orders) and C = 64 (XLA's CPU dot blocks
+    the sum): within the reduces' 1e-6, times sum(w) for the sum form."""
+    u, w, ut, wt = _fedavg_pair(c + 1, c, 4099, "float32", weights)
+    exp = np.asarray(jops.fedavg_reduce(u, w, normalize=normalize, interpret=True))
+    out = _np(fedavg_one_launch(ut, wt, normalize=normalize))
+    scale = 1.0 if normalize else float(np.asarray(w).sum())
+    np.testing.assert_allclose(out, exp, rtol=TOL["rtol"], atol=TOL["atol"] * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fedavg_one_launch_model_zero_weights(dtype):
+    """All-zero weights: the zero guard makes ws 1, so both forms give
+    zeros, as JAX's do."""
+    u, w, ut, wt = _fedavg_pair(7, 3, 1000, dtype, "zero")
+    for normalize in (True, False):
+        out = fedavg_one_launch(ut, wt, normalize=normalize)
+        exp = jops.fedavg_reduce(u, w, normalize=normalize, interpret=True)
+        assert not out.any() and not out.isnan().any()
+        np.testing.assert_array_equal(_np(out.float()), np.asarray(exp.astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("c,n,bn", [(4, 8192, 4096), (6, 768, 512)])

@@ -1,0 +1,32 @@
+"""``scan_ablation.py`` builds its variants of the selective scan kernel
+by replacing lines of ``kernels/csrc/selective_scan.cu``.  Each replaced
+text must stand in the source exactly once, so an edit of the kernel that
+moves one fails here, on the CPU, and not on the next card run."""
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("scan_ablation", ROOT / "scan_ablation.py")
+scan_ablation = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(scan_ablation)
+SOURCE = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "selective_scan.cu").read_text()
+
+
+@pytest.mark.parametrize("name", list(scan_ablation.ABLATIONS))
+def test_every_replaced_text_stands_once_in_the_kernel(name):
+    edits = scan_ablation.ABLATIONS[name]
+    text = SOURCE
+    for old, new in edits:  # in turn, as the script applies them
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    assert scan_ablation.edited(SOURCE, name, edits) == text != SOURCE
+
+
+def test_the_whole_kernel_keeps_the_plain_roundings():
+    """The source the ablations edit computes the state with rounded
+    products and sums and the accurate expf; only the last variant leaves
+    that contract."""
+    assert scan_ablation._EXP in SOURCE and scan_ablation._UPDATE in SOURCE
+    assert "__expf(" not in SOURCE and "ex2.approx" not in SOURCE

@@ -34,6 +34,7 @@ from repro.kernels import ref as jref
 from repro.kernels.selective_scan import selective_scan as jscan_pallas
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import selective_scan as scan_kernel
+from torch_kernel_models import scan_kernel_order
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -151,6 +152,42 @@ def test_init_state_continuation(dtype):
     _, h1 = _port_scan(first)
     y2, h2 = _port_scan({**rest, "init_state": h1})
     assert torch.equal(y_full[:, m:], y2) and torch.equal(h_full, h2)
+
+
+def _long_memory(seed, b, s, di, n, dtype):
+    """dt and A as the model makes them (``models/layers/mamba.py:39-49``):
+    dt log-uniform in [1e-3, 1e-1], A = -(1..N) in every channel."""
+    j, t = _inputs(seed, b, s, di, n, dtype)
+    rng = np.random.default_rng(seed + 1)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), size=(b, s, di))).astype(np.float32)
+    a = -np.exp(np.log(np.arange(1, n + 1, dtype=np.float32)))[None].repeat(di, 0)
+    for k, v in (("dt", dt), ("A", a)):
+        j[k], t[k] = jnp.asarray(v), torch.from_numpy(np.ascontiguousarray(v))
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,di,n,init,long_memory", [
+    (2, 40, 24, 16, False, False),
+    (1, 33, 16, 5, True, False),    # N padded to the kernel's bucket of 8
+    (1, 20, 8, 64, True, False),
+    (1, 256, 12, 16, False, True),  # the model's dt and A: the state carries far
+])
+def test_kernel_order_matches_jax_oracle(b, s, di, n, init, long_memory, dtype):
+    """The CUDA kernel's order of y's sum over the states (four partial
+    sums, then a tree; ``tests/torch_kernel_models.py``) against JAX's
+    oracle at this file's tolerances, and its state, rounded as the plain
+    version rounds it, bitwise the plain version's."""
+    if long_memory:
+        j, t = _long_memory(s + di, b, s, di, n, dtype)
+    else:
+        j, t = _inputs(s + di + n, b, s, di, n, dtype, init=init)
+    jy, jh = jref.selective_scan(*_args(j), init_state=j.get("init_state"))
+    y, h = scan_kernel_order(*_args(t), init_state=t.get("init_state"))
+    _close(y, jy, Y_TOL[dtype])
+    _close(h, jh, STATE_TOL)
+    _, h_plain = _port_scan(t)
+    assert torch.equal(h, h_plain)
 
 
 def test_cpu_route_never_counts_a_launch():
