@@ -11,6 +11,14 @@ Phases (any failure exits non-zero):
    parallel) and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, at C=64, at a ragged N, with all-zero weights,
+   (quantize_int8 / dequantize_int8) bitwise at Np, 9 blocks, 61,705
+   blocks and the round engine's 8 x Np, quantize at the unpadded N = 1,
+   255, 257 and 1,974,303 and through Int8Codec().encode against the
+   plain version of x padded with zeros, a NaN and an inf in a ragged
+   tail block, ptxas' registers and spills (none), each timed beside a
+   device copy moving the same bytes at Np and 8 x Np, the encode beside
+   F.pad then the kernel, and the encode and dequantize_int8 as one
+   device kernel a call in the profiler,
    (fedavg_reduce, in fp32 and bf16) bitwise against the composition it
    replaced in both forms with integer weights and as one device kernel a
    call in the profiler, timed beside a device copy moving the same bytes,
@@ -20,7 +28,8 @@ Phases (any failure exits non-zero):
    with non-integer weights, as one device kernel a call in the profiler,
    and (collective_pack /
    collective_unpack) at every head-model leaf size on half-way points,
-   NaN and a sum of 4 ranks' codes, and time kernel (through its
+   NaN and a sum of 4 ranks' codes, timed at every leaf size,
+   and time kernel (through its
    ops wrapper, and as a bare launch), plain version and the library call
    where there is one;
 3. drive the paper's Flower loop at the full width of
@@ -212,55 +221,10 @@ def kernel_phase(rng) -> dict:
 
     one_kernel_a_call_check(dev)
 
-    # --- quantize_int8 / dequantize_int8: bitwise ---
-    for label, n_blocks in (("main", N_PARAMS // BLOCK + 1), ("ragged", 9)):
-        x = delta_like(rng, (n_blocks * BLOCK,))
-        q, s = ops.quantize_int8(x)
-        qr, sr = ref.quantize_int8(x)
-        q_err = max(float((q.int() - qr.int()).abs().max()), float((s - sr).abs().max()))
-        check(f"quantize_int8 bitwise [{label}, Np={x.numel()}]",
-              torch.equal(q, qr) and torch.equal(s, sr),
-              codes_differing=int((q != qr).sum()), max_abs_err=q_err)
-        xd = ops.dequantize_int8(q, s)
-        xr = ref.dequantize_int8(qr, sr)
-        dq_err = float((xd - xr).abs().max())
-        check(f"dequantize_int8 bitwise [{label}, Np={x.numel()}]", torch.equal(xd, xr),
-              max_abs_err=dq_err)
-        if label != "main":
-            continue
-        lib = torch.mul(q.view(-1, BLOCK), s[:, None]).reshape(-1)
-        check(f"dequantize_int8's library call (q.view(-1, 256) * s[:, None]) bitwise "
-              f"[Np={x.numel()}]", torch.equal(lib, xr))
-        qo, so, xo = torch.empty_like(q), torch.empty_like(s), torch.empty_like(xd)
-        b_ms, b_by = bound(nbytes(x, q, s), 6 * x.numel())
-        rows["quantize_int8"] = dict(
-            source="src/repro_torch/kernels/csrc/quantize.cu",
-            replaces="src/repro/kernels/quantize.py:41",
-            max_abs_err=q_err,
-            ms=time_ms(lambda: ops.quantize_int8(x)),
-            launch_ms=time_ms(launch("quantize", "repro_quantize_int8", "quantize_int8",
-                                     x.data_ptr(), qo.data_ptr(), so.data_ptr(), n_blocks)),
-            plain_ms=time_ms(lambda: ref.quantize_int8(x)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            shape=f"x ({x.numel()},) fp32", bytes=nbytes(x, q, s),
-        )
-        b_ms, b_by = bound(nbytes(q, s, xd), xd.numel())
-        rows["dequantize_int8"] = dict(
-            source="src/repro_torch/kernels/csrc/quantize.cu",
-            replaces="src/repro/kernels/quantize.py:69",
-            max_abs_err=dq_err,
-            ms=time_ms(lambda: ops.dequantize_int8(q, s)),
-            launch_ms=time_ms(launch("quantize", "repro_dequantize_int8", "dequantize_int8",
-                                     q.data_ptr(), s.data_ptr(), xo.data_ptr(), n_blocks)),
-            plain_ms=time_ms(lambda: ref.dequantize_int8(q, s)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: torch.mul(q.view(-1, BLOCK), s[:, None])),
-            shape=f"q ({q.numel()},) int8", bytes=nbytes(q, s, xd),
-        )
+    rows.update(codec_kernel_checks(rng, dev, launch))
 
     # --- dequant_reduce: C=6 (the fleet's Int8 group), C=64, ragged, zero weights ---
-    np_main = (N_PARAMS // BLOCK + 1) * BLOCK
-    for label, c, npad in (("main", 6, np_main), ("C=64", 64, np_main), ("ragged", 3, 3 * BLOCK)):
+    for label, c, npad in (("main", 6, NP_MAIN), ("C=64", 64, NP_MAIN), ("ragged", 3, 3 * BLOCK)):
         x = delta_like(rng, (c, npad))
         qr, sr = ref.quantize_int8(x.reshape(-1))
         q, s = qr.reshape(c, npad), sr.reshape(c, npad // BLOCK)
@@ -298,6 +262,157 @@ def kernel_phase(rng) -> dict:
     rows.update(collective_kernel_checks(dev, launch))
     rows.update(attention_kernel_checks(dev, launch))
     rows["selective_scan"] = scan_kernel_checks(dev, launch)
+    return rows
+
+
+NP_MAIN = (N_PARAMS // BLOCK + 1) * BLOCK   # the codec's padded length, 1,974,528
+ENGINE_C = 8                               # phase 6's clients: encode_batch quantizes (C * Np,)
+
+
+def codec_build_checks() -> dict:
+    """ptxas' registers and spills of the two codec kernels, read from the
+    build log ``_cuda.build`` keeps beside the library; no spill in either."""
+    import re
+
+    from repro_torch.kernels import _cuda
+
+    ptxas, name = {}, None
+    for line in _cuda.build_log("quantize").splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in ("dequantize_int8_kernel", "quantize_int8_kernel")
+                         if k in line), None)
+            if name:
+                ptxas[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line)):
+            ptxas[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            ptxas[name]["registers"] = int(m[1])
+    for name, info in ptxas.items():
+        print(f"ptxas {name}: {info}", flush=True)
+    check("ptxas reports both codec kernels, and no spill in either",
+          len(ptxas) == 2
+          and all(v.get("spill_stores") == 0 == v.get("spill_loads") for v in ptxas.values()),
+          kernels=ptxas)
+    return ptxas
+
+
+def codec_kernel_checks(rng, dev, launch) -> dict:
+    """quantize_int8 / dequantize_int8 against their plain versions,
+    bitwise: at Np and at 9 blocks (the main and ragged cases); quantize at
+    N = 1, 255, 257 and 1,974,303 (the codec's unpadded delta) against the
+    plain version of x padded with zeros, and ``Int8Codec().encode`` at
+    N = 1,974,303 likewise; a NaN and an inf in a ragged tail block (that
+    block's scale NaN, the other blocks' codes and scales bitwise);
+    dequantize at a block count that is no multiple of the grid
+    (61,705 blocks); both at the round engine's C * Np = 8 x 1,974,528.
+    Timed at Np and at C * Np: the ops wrapper, the bare launch, the plain
+    version, dequantize's library call and a device copy moving the same
+    bytes; and the codec's encode at N = 1,974,303 (one launch) beside the
+    pad then the kernel.  ptxas' registers and spills go in the rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.compression import Int8Codec
+    from repro_torch.kernels import ops, ref
+
+    def padded(x):
+        return F.pad(x, (0, (-x.numel()) % BLOCK))
+
+    def codes_agree(label, x, q, s):
+        """-> (max |difference|, the plain version's codes and scales)"""
+        qr, sr = ref.quantize_int8(padded(x))
+        err = max(float((q.int() - qr.int()).abs().max()), float((s - sr).abs().max()))
+        check(f"quantize_int8 bitwise the plain version of x padded with zeros [{label}, "
+              f"N={x.numel()}]", torch.equal(q, qr) and torch.equal(s, sr),
+              codes_differing=int((q != qr).sum()), max_abs_err=err)
+        return err, qr, sr
+
+    ptxas = codec_build_checks()
+    rows = {}
+    for label, n_blocks in (("main", NP_MAIN // BLOCK), ("ragged", 9),
+                            ("round engine, C * Np", ENGINE_C * NP_MAIN // BLOCK),
+                            ("no multiple of the grid", 61_705)):
+        x = delta_like(rng, (n_blocks * BLOCK,))
+        q, s = ops.quantize_int8(x)
+        q_err, qr, sr = codes_agree(label, x, q, s)
+        xd = ops.dequantize_int8(q, s)
+        xr = ref.dequantize_int8(qr, sr)
+        dq_err = float((xd - xr).abs().max())
+        check(f"dequantize_int8 bitwise [{label}, Np={x.numel()}]", torch.equal(xd, xr),
+              max_abs_err=dq_err)
+        if label not in ("main", "round engine, C * Np"):
+            continue
+        lib = torch.mul(q.view(-1, BLOCK), s[:, None]).reshape(-1)
+        check(f"dequantize_int8's library call (q.view(-1, 256) * s[:, None]) bitwise "
+              f"[Np={x.numel()}]", torch.equal(lib, xr))
+        qo, so, xo = torch.empty_like(q), torch.empty_like(s), torch.empty_like(xd)
+        moved = nbytes(x, q, s)  # the same for both directions
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        b_ms, b_by = bound(moved, 6 * x.numel())
+        qrow = dict(
+            source="src/repro_torch/kernels/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:41",
+            max_abs_err=q_err,
+            ms=time_ms(lambda: ops.quantize_int8(x)),
+            launch_ms=time_ms(launch("quantize", "repro_quantize_int8", "quantize_int8",
+                                     x.data_ptr(), qo.data_ptr(), so.data_ptr(), x.numel(),
+                                     n_blocks)),
+            plain_ms=time_ms(lambda: ref.quantize_int8(x)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            # a device copy moving the same bytes (half read, half written)
+            copy_ms=time_ms(lambda: dst.copy_(src)),
+            shape=f"x ({x.numel()},) fp32", bytes=moved, ptxas=ptxas["quantize_int8_kernel"],
+        )
+        b_ms, b_by = bound(moved, xd.numel())
+        drow = dict(
+            source="src/repro_torch/kernels/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:69",
+            max_abs_err=dq_err,
+            ms=time_ms(lambda: ops.dequantize_int8(q, s)),
+            launch_ms=time_ms(launch("quantize", "repro_dequantize_int8", "dequantize_int8",
+                                     q.data_ptr(), s.data_ptr(), xo.data_ptr(), n_blocks)),
+            plain_ms=time_ms(lambda: ref.dequantize_int8(q, s)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.mul(q.view(-1, BLOCK), s[:, None])),
+            copy_ms=time_ms(lambda: dst.copy_(src)),
+            shape=f"q ({q.numel()},) int8", bytes=moved, ptxas=ptxas["dequantize_int8_kernel"],
+        )
+        del src, dst
+        if label == "main":
+            rows["quantize_int8"], rows["dequantize_int8"] = qrow, drow
+        else:
+            REPORT["timings"] += [{"name": "quantize_int8", "case": label, **qrow},
+                                  {"name": "dequantize_int8", "case": label, **drow}]
+
+    # the unpadded lengths the codec hands quantize
+    for n in (1, 255, 257, N_PARAMS):
+        x = delta_like(rng, (n,)) if n > BLOCK else torch.from_numpy(
+            (rng.normal(size=n) * 1e-3).astype(np.float32)).to(dev)
+        q, s = ops.quantize_int8(x)
+        codes_agree("unpadded", x, q, s)
+        check(f"quantize_int8: the pad's codes are 0 [N={n}]", not q[n:].any())
+    delta = delta_like(rng, (N_PARAMS,))
+    enc = Int8Codec().encode(delta)
+    codes_agree("Int8Codec().encode", delta, enc["q"], enc["scale"])
+    rows["quantize_int8"].update(
+        encode_ms=time_ms(lambda: Int8Codec().encode(delta)),
+        # the encode as it was before quantize took any N: F.pad, then the kernel
+        pad_then_kernel_ms=time_ms(lambda: ops.quantize_int8(padded(delta))),
+        encode_shape=f"delta ({N_PARAMS},) fp32",
+    )
+
+    # a NaN and an inf in the tail block of a ragged N: its scale is NaN as
+    # the plain version's (torch.amax); every other block stays bitwise
+    n = 4 * BLOCK + 77
+    x = delta_like(rng, (n,))
+    x[4 * BLOCK + 5], x[4 * BLOCK + 60] = float("nan"), float("inf")
+    q, s = ops.quantize_int8(x)
+    qr, sr = ref.quantize_int8(padded(x))
+    check("quantize_int8: a NaN and an inf in a ragged tail block poison only its scale "
+          f"[N={n}]",
+          bool(torch.isnan(s[4]) and torch.isnan(sr[4]))
+          and torch.equal(s[:4], sr[:4]) and torch.equal(q[:4 * BLOCK], qr[:4 * BLOCK]))
     return rows
 
 
@@ -395,7 +510,11 @@ def fedavg_kernel_checks(dev, tol, launch) -> dict:
 
 # the head model's leaves padded to 256 (base.w, head.b1, head.b2, head.w1,
 # head.w2), then the padded total Np
-COLLECTIVE_SIZES = (1_638_400, 256, 256, 327_680, 8_192, 1_974_528)
+COLLECTIVE_SIZES = (1_638_400, 256, 256, 327_680, 7_936, 1_974_528)
+# every leaf size is timed (CompressedPsum.psum packs each leaf once and
+# unpacks it twice); the kernel table's row is base.w's
+COLLECTIVE_TIMED = {1_638_400: "base.w", 256: "head.b1, head.b2", 327_680: "head.w1",
+                    7_936: "head.w2"}
 
 
 def collective_edge_values(rng, n: int, dev):
@@ -417,12 +536,12 @@ def collective_kernel_checks(dev, launch) -> dict:
     """collective_pack / collective_unpack against their plain versions at
     every head-model leaf size and at Np: bitwise on edge values, on four
     ranks' update-like values against their shared scales, and on the int32
-    sum of the four; the sum exact to one fp32 rounding; timed at the
-    largest leaf."""
+    sum of the four; the sum exact to one fp32 rounding; timed at every
+    leaf size."""
     from repro_torch.kernels import ops, ref
 
     rng = np.random.default_rng(14)
-    rows = {}
+    rows, to_time = {}, dict(COLLECTIVE_TIMED)
     for n in COLLECTIVE_SIZES:
         x, s = collective_edge_values(rng, n, dev)
         q = ops.collective_pack(x, s)
@@ -452,7 +571,8 @@ def collective_kernel_checks(dev, launch) -> dict:
         sum_err = float(((summed - each).abs() / s.repeat_interleave(BLOCK)).max())
         check(f"collective: unpack(sum of packs) = sum of unpacks within fp32 rounding [N={n}]",
               sum_err <= 8 * 4 * 127 * 2.0 ** -24, max_err_in_scales=sum_err)
-        if n != COLLECTIVE_SIZES[0]:
+        leaf = to_time.pop(n, None)  # 256 stands twice: timed once
+        if leaf is None:
             continue
         lib = torch.mul(total.view(-1, BLOCK), s[:, None]).reshape(-1)
         check(f"collective_unpack's library call (q.view(-1, 256) * s[:, None]) bitwise [N={n}]",
@@ -460,7 +580,7 @@ def collective_kernel_checks(dev, launch) -> dict:
         x = xs[0]
         qo, xo = torch.empty_like(q), torch.empty_like(one)
         b_ms, b_by = bound(nbytes(x, s, qs[0]), 3 * n)
-        rows["collective_pack"] = dict(
+        pack = dict(
             source="src/repro_torch/kernels/csrc/collective_quant.cu",
             replaces="src/repro/kernels/collective_quant.py:57",
             max_abs_err=float(pack_err),
@@ -470,10 +590,10 @@ def collective_kernel_checks(dev, launch) -> dict:
                                      qo.data_ptr(), n // BLOCK)),
             plain_ms=time_ms(lambda: ref.collective_pack(x, s)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            shape=f"x ({n},) fp32 (base.w)", bytes=nbytes(x, s, qs[0]),
+            shape=f"x ({n},) fp32 ({leaf})", bytes=nbytes(x, s, qs[0]),
         )
         b_ms, b_by = bound(nbytes(total, s, summed), n)
-        rows["collective_unpack"] = dict(
+        unpack = dict(
             source="src/repro_torch/kernels/csrc/collective_quant.cu",
             replaces="src/repro/kernels/collective_quant.py:85",
             max_abs_err=unpack_err,
@@ -486,8 +606,13 @@ def collective_kernel_checks(dev, launch) -> dict:
             # one PyTorch call computes it: the int32 -> fp32 promotion and
             # one rounded product per element, bitwise the plain version
             library_ms=time_ms(lambda: torch.mul(total.view(-1, BLOCK), s[:, None])),
-            shape=f"q ({n},) int32 (base.w)", bytes=nbytes(total, s, summed),
+            shape=f"q ({n},) int32 ({leaf})", bytes=nbytes(total, s, summed),
         )
+        if n == COLLECTIVE_SIZES[0]:
+            rows["collective_pack"], rows["collective_unpack"] = pack, unpack
+        else:
+            REPORT["timings"] += [{"name": "collective_pack", "case": leaf, **pack},
+                                  {"name": "collective_unpack", "case": leaf, **unpack}]
     return rows
 
 
@@ -1018,17 +1143,20 @@ def topk_composition(idx, val, w, n: int, *, normalize=True):
 def one_kernel_a_call_check(dev) -> None:
     """The one-launch reduces are one device kernel an ops call in both
     forms: fedavg_reduce at C=2 and C=64 in fp32 and at C=2 in bf16,
-    topk_scatter_reduce at C=4 and C=64, normalize True and False, each
-    call run and synchronized in turn inside ONE profiler session, the
-    first of the process; the device activities it saw, in time order, must
-    be exactly one kernel of the called reduce per call.  (Short profiler
-    sessions after the first few of a process can stop recording device
-    activity, so the calls share one.)"""
+    topk_scatter_reduce at C=4 and C=64, normalize True and False; and the
+    Int8 codec's encode of the unpadded (N,) delta (no pad or copy kernel)
+    and ops.dequantize_int8 at Np are one kernel each.  Each call is run
+    and synchronized in turn inside ONE profiler session, the first of the
+    process; the device activities it saw, in time order, must be exactly
+    one kernel of the called function per call.  (Short profiler sessions
+    after the first few of a process can stop recording device activity,
+    so the calls share one.)"""
     from functools import partial
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.compression import Int8Codec
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -1043,6 +1171,12 @@ def one_kernel_a_call_check(dev) -> None:
         calls += [(f"topk_scatter_reduce C={c} normalize={nz}", "topk_scatter_reduce_kernel",
                    partial(ops.topk_scatter_reduce, idx, val, w, N_PARAMS, normalize=nz))
                   for nz in (True, False)]
+    delta = torch.randn(N_PARAMS, generator=gen, device=dev) * 1e-3
+    q, s = ops.quantize_int8(delta)
+    calls += [("Int8Codec().encode N=1,974,303", "quantize_int8_kernel",
+               partial(Int8Codec().encode, delta)),
+              ("dequantize_int8 Np=1,974,528", "dequantize_int8_kernel",
+               partial(ops.dequantize_int8, q, s))]
     for _, _, call in calls:
         call()
     torch.cuda.synchronize()
@@ -1053,10 +1187,12 @@ def one_kernel_a_call_check(dev) -> None:
     seen = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                   key=lambda e: e.time_range.start)
     names = [e.name.split("::")[-1].split("(")[0] for e in seen]
-    check("fedavg_reduce and topk_scatter_reduce are one device kernel an ops call, "
-          "normalize True and False [" + "; ".join(label for label, _, _ in calls) + "]",
+    check("fedavg_reduce and topk_scatter_reduce (normalize True and False), the Int8 "
+          "encode and dequantize_int8 are one device kernel a call ["
+          + "; ".join(label for label, _, _ in calls) + "]",
           len(seen) == len(calls)
-          and all(kernel in e.name for (_, kernel, _), e in zip(calls, seen)),
+          and all(name.split("<")[0].split()[-1] == kernel
+                  for (_, kernel, _), name in zip(calls, names)),
           kernels=names)
 
 
@@ -2239,13 +2375,18 @@ def hybrid_serving_phase(card: str, out_dir: Path) -> dict:
 
 def aside(r: dict) -> str:
     """A timing's yardsticks beside the kernel's own: the TopK reduce's
-    output fill, the FedAvg reduce's copy floor, decode attention at 4 CTAs
-    an SM."""
+    output fill, the copy floor (FedAvg reduce, codec), the codec's encode
+    and ptxas' registers, decode attention at 4 CTAs an SM."""
     out = ""
     if "zero_fill_ms" in r:
         out += f", the (N,) fp32 fill alone {r['zero_fill_ms'] * 1e3:.2f} us"
     if "copy_ms" in r:
         out += f", a device copy moving the same bytes {r['copy_ms'] * 1e3:.2f} us"
+    if "encode_ms" in r:
+        out += (f"; Int8Codec().encode of a {r['encode_shape']} {r['encode_ms'] * 1e3:.2f} us, "
+                f"F.pad then the kernel {r['pad_then_kernel_ms'] * 1e3:.2f} us")
+    if "ptxas" in r:
+        out += f"; ptxas {r['ptxas']}"
     if "ms_4_ctas_per_sm" in r:
         out += (f", at {r['splits_4_ctas_per_sm']} splits (4 CTAs an SM) "
                 f"{r['ms_4_ctas_per_sm'] * 1e3:.2f} us")

@@ -218,10 +218,10 @@ class Int8Codec(UpdateCodec):
         return n_params + 4 * self._n_scales(n_params)
 
     def encode(self, delta_vec: torch.Tensor) -> dict:
-        n = delta_vec.shape[0]
-        padded = F.pad(delta_vec, (0, (-n) % self.block))
-        q, scale = ops.quantize_int8(padded, block=self.block)
-        return {"q": q, "scale": scale, "n": n}
+        # the codes of the delta padded with zeros to a block multiple: on
+        # the card the pad is inside the one quantize launch
+        q, scale = ops.quantize_int8(delta_vec, block=self.block)
+        return {"q": q, "scale": scale, "n": delta_vec.shape[0]}
 
     def decode(self, enc: dict) -> torch.Tensor:
         vec = ops.dequantize_int8(enc["q"], enc["scale"], block=self.block)

@@ -42,7 +42,7 @@ SIGNATURES = {
         "repro_fedavg_reduce_bf16": (_P, _P, _P, _I64, _I64, _I64, _P),
     },
     "quantize": {
-        "repro_quantize_int8": (_P, _P, _P, _I64, _P),
+        "repro_quantize_int8": (_P, _P, _P, _I64, _I64, _P),
         "repro_dequantize_int8": (_P, _P, _P, _I64, _P),
     },
     "dequant_reduce": {

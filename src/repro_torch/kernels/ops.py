@@ -9,6 +9,7 @@ shows that its main path went through the kernels.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.utils.pytree import safe_weight_sum
 
@@ -93,10 +94,14 @@ def topk_scatter_reduce(idx, val, weights, n_params: int, *, normalize=True):
 
 # ---------------- int8 codec ----------------
 def quantize_int8(x, block: int = 256):
+    """(N,) fp32, any N -> (q int8 (Np,), scales fp32 (Np/block,)): the
+    codes of x padded with zeros to Np, a block multiple (on the card the
+    pad is inside the one launch)."""
     if _on_card(x):
         _check_block(block)
         return _quantize_kernel(x)
-    return ref.quantize_int8(x, block=block)
+    pad = (-x.shape[0]) % block
+    return ref.quantize_int8(F.pad(x, (0, pad)) if pad else x, block=block)
 
 
 def dequantize_int8(q, scale, block: int = 256):

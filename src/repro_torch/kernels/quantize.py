@@ -3,7 +3,9 @@
 The twin of ``repro.kernels.quantize``: symmetric per-256-block scaling,
 scale = absmax/127 (0 -> 1), q = clip(round_half_even(x/scale), +-127).
 These wrappers take CUDA tensors only; ``ops`` routes CPU tensors to
-``ref``.  Any N % 256 == 0 is taken (the JAX dispatch's extra
+``ref``.  ``quantize_int8`` takes any N and quantizes x padded with zeros
+to Np = a multiple of 256 inside its one launch (the codec's pad);
+``dequantize_int8`` takes Np % 256 == 0 (the JAX dispatch's extra
 ``N % 1024`` gate, ``repro/kernels/ops.py:185``, is a TPU tiling quirk).
 """
 from __future__ import annotations
@@ -16,15 +18,18 @@ BLOCK = 256
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (N,) fp32 CUDA -> (q int8 (N,), scales fp32 (N/256,))."""
+    """x: (N,) fp32 CUDA, any N -> (q int8 (Np,), scales fp32 (Np/256,)),
+    Np = N rounded up to a multiple of 256: the codes and scales of x
+    padded with zeros (the pad's codes are 0)."""
     check_tensor(x, "x", device=x.device, dtypes=(torch.float32,), ndim=1, align=16)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_int8 takes a CUDA tensor, got one on {x.device}")
     n = x.shape[0]
-    if x.device.type != "cuda" or n % BLOCK:
-        raise ValueError(f"quantize_int8 takes a CUDA (N,) with N % {BLOCK} == 0, got {n}")
-    q = torch.empty(n, dtype=torch.int8, device=x.device)
-    scales = torch.empty(n // BLOCK, dtype=torch.float32, device=x.device)
+    n_blocks = -(-n // BLOCK)
+    q = torch.empty(n_blocks * BLOCK, dtype=torch.int8, device=x.device)
+    scales = torch.empty(n_blocks, dtype=torch.float32, device=x.device)
     launch("quantize", "repro_quantize_int8", "quantize_int8", x.device,
-           x.data_ptr(), q.data_ptr(), scales.data_ptr(), n // BLOCK)
+           x.data_ptr(), q.data_ptr(), scales.data_ptr(), n, n_blocks)
     return q, scales
 
 

@@ -47,7 +47,7 @@ def _wire_equal(a, b):
 
 
 @pytest.mark.parametrize("jcodec,tcodec", CODECS)
-@pytest.mark.parametrize("n", [1000, 1024])
+@pytest.mark.parametrize("n", [1, 255, 257, 1000, 1024])
 def test_encode_decode_and_wire_bytes_match(jcodec, tcodec, n):
     d = _delta(n, n)
     je, te = jcodec.encode(jnp.asarray(d)), tcodec.encode(torch.from_numpy(d))

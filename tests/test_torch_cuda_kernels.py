@@ -147,6 +147,66 @@ def test_cuda_quantize_nan_block_poisons_its_scale(cuda):
     assert torch.isnan(ops.dequantize_int8(q, s).reshape(4, 256)[1]).all()
 
 
+def _pad(x):
+    return torch.nn.functional.pad(x, (0, (-x.numel()) % 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 1000, 1_974_303, 8 * 1_974_528 + 5])
+def test_cuda_quantize_any_n_is_the_padded_plain_version(cuda, n):
+    """Any N: one launch quantizes x as if padded with zeros to a block
+    multiple, bitwise the plain version of the padded x; the pad's codes
+    are 0."""
+    rng = np.random.default_rng(n)
+    x = _t(_delta(rng, (n,))).to(cuda)
+    before = ops.launch_counts()["quantize_int8"]
+    q, s = ops.quantize_int8(x)
+    assert ops.launch_counts()["quantize_int8"] == before + 1
+    qr, sr = ref.quantize_int8(_pad(x))
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert not q[n:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_nan_in_the_tail_block_poisons_only_its_scale(cuda):
+    """A NaN and an inf in the partial last block: its scale is NaN, as the
+    plain version's of the padded x; every other block stays bitwise."""
+    rng = np.random.default_rng(13)
+    n = 4 * 256 + 77
+    x = _t(_delta(rng, (n,))).to(cuda)
+    x[4 * 256 + 5], x[4 * 256 + 60] = float("nan"), float("inf")
+    q, s = ops.quantize_int8(x)
+    qr, sr = ref.quantize_int8(_pad(x))
+    assert torch.isnan(s[4]) and torch.isnan(sr[4])
+    assert torch.equal(s[:4], sr[:4]) and torch.equal(q[: 4 * 256], qr[: 4 * 256])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [1, 2, 9, 7713, 16_897, 61_705, 135_169])
+def test_cuda_dequantize_at_grid_edges(cuda, n_blocks):
+    """Odd block counts (the last warp-step holds one block), fewer than
+    the grid's warps and many strides of it: bitwise the plain version."""
+    rng = np.random.default_rng(n_blocks)
+    qr, sr = ref.quantize_int8(_t(_delta(rng, (n_blocks * 256,), zero_blocks=1)).to(cuda))
+    assert torch.equal(ops.dequantize_int8(qr, sr), ref.dequantize_int8(qr, sr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 257, 1_974_303])
+def test_cuda_int8_encode_matches_its_cpu_route(cuda, n):
+    """Int8Codec's encode and decode on the card (one quantize launch on
+    the unpadded delta) bitwise the same codec on the CPU (F.pad, then the
+    plain version)."""
+    from repro_torch.core.compression import Int8Codec
+
+    rng = np.random.default_rng(n + 1)
+    delta = _t(_delta(rng, (n,)))
+    card, cpu = Int8Codec().encode(delta.to(cuda)), Int8Codec().encode(delta)
+    assert card["n"] == cpu["n"] == n
+    assert torch.equal(card["q"].cpu(), cpu["q"]) and torch.equal(card["scale"].cpu(), cpu["scale"])
+    assert torch.equal(Int8Codec().decode(card).cpu(), Int8Codec().decode(cpu))
+
+
 def _topk_payload(rng, c, k, n, *, disjoint=False):
     """Canonical TopK wires: distinct indices, ascending in every row."""
     if disjoint:

@@ -16,7 +16,11 @@ The CUDA FedAvg reduce's own arithmetic (the weight sum and, for
 torch in ``tests/torch_kernel_models.py`` and held bitwise against JAX's
 ``ops.fedavg_reduce`` in interpret mode for integer weights, where XLA's
 CPU dot is the same fmaf chain (C <= 17), and within ``rtol=atol=1e-6``
-where the bits may part (non-integer weights, C = 64).
+where the bits may part (non-integer weights, C = 64).  The Int8 codec
+kernels' persistent grids are modelled there in numpy (which warp takes
+which block, what each reads) and held bitwise against JAX's oracle on
+the input padded with zeros, the codec's pad that ``quantize_int8`` now
+does inside its launch.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +34,7 @@ from repro.kernels.quantize import dequantize_int8 as pallas_dequantize
 from repro.kernels.quantize import quantize_int8 as pallas_quantize
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops
-from torch_kernel_models import fedavg_one_launch
+from torch_kernel_models import dequantize_launch, fedavg_one_launch, quantize_launch
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -68,6 +72,44 @@ def test_quantize_int8_bitwise(n_blocks):
     np.testing.assert_array_max_ulp(_np(s), np.asarray(sp), maxulp=1)
     assert q.dtype == torch.int8 and s.dtype == torch.float32
     assert _np(q)[256 * 3 + 1 : 256 * 3 + 4].tolist() == [0, 2, -2]
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1000, 4099])
+def test_quantize_int8_ragged_n_matches_jax_pad(n):
+    """Any N: the codes and scales of x padded with zeros to a block
+    multiple, bitwise JAX's oracle on ``jnp.pad(x)``; the pad's codes 0."""
+    rng = np.random.default_rng(n)
+    x = _delta(rng, (n,))
+    q, s = ops.quantize_int8(_t(x))
+    qj, sj = jref.quantize_int8(jnp.pad(jnp.asarray(x), (0, (-n) % 256)))
+    assert q.shape == (-(-n // 256) * 256,) and s.shape == (-(-n // 256),)
+    np.testing.assert_array_equal(_np(q), np.asarray(qj))
+    np.testing.assert_array_equal(_np(s), np.asarray(sj))
+    assert not _np(q)[n:].any()
+
+
+# a 3-CTA grid (24 warps): block counts below, at and above it and past
+# three strides, whole and ragged; dequantize's warp-steps take two blocks
+# each, so 48 blocks fill its grid
+@pytest.mark.parametrize("n", [1, 255, 257, 5 * 256, 24 * 256, 24 * 256 + 1, 48 * 256 - 100,
+                               48 * 256, 48 * 256 + 3, 79 * 256 - 9])
+def test_codec_kernels_work_split_model(n):
+    """``csrc/quantize.cu``'s persistent grids in numpy
+    (``torch_kernel_models``): every block is quantized once, every value
+    below n read once and nothing at or past n, every code, scale and
+    output written or read once; the results are JAX's oracle on the
+    padded input, bit for bit."""
+    rng = np.random.default_rng(n)
+    x = _delta(rng, (n,), zero_blocks=1)
+    q, s, visits, reads = quantize_launch(x, resident_ctas=3)
+    assert (visits == 1).all()
+    assert (reads[:n] == 1).all() and not reads[n:].any()
+    qj, sj = jref.quantize_int8(jnp.pad(jnp.asarray(x), (0, (-n) % 256)))
+    np.testing.assert_array_equal(q, np.asarray(qj))
+    np.testing.assert_array_equal(s, np.asarray(sj))
+    xd, code_reads, scale_reads, writes = dequantize_launch(q, s, resident_ctas=3)
+    assert (code_reads == 1).all() and (scale_reads == 1).all() and (writes == 1).all()
+    np.testing.assert_array_equal(xd, np.asarray(jref.dequantize_int8(qj, sj)))
 
 
 def test_dequantize_int8_bitwise():

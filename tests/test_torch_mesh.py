@@ -176,8 +176,9 @@ def _jax_round(port_run, case, rnd):
 
 def _log_rows(port_run, case, rnd, key, item, sizes):
     """One logged array of every rank, split per model leaf: ``item`` 0 is
-    the value the op got (padded), 1 its block scales repeated onto the
-    value's entries.  ``key`` "coll_log" holds one entry per leaf,
+    the value the op got (``collective_pack``'s padded, the uplink's
+    ``quantize_int8``'s not), 1 its block scales repeated onto the value's
+    entries.  ``key`` "coll_log" holds one entry per leaf,
     "uplink_log" one for the whole flat delta."""
     per_rank = []
     for r in range(C):

@@ -1,10 +1,13 @@
-"""Plain-torch models of the order in which two of the port's CUDA kernels
-round, for the tests to hold against the JAX package on the CPU
-(``test_torch_kernels.py``, ``test_torch_selective_scan.py``) and against
-the kernels themselves on the card (``test_torch_cuda_kernels.py``).
-Imports torch only."""
+"""Plain models of the port's CUDA kernels, for the tests to hold against
+the JAX package on the CPU (``test_torch_kernels.py``,
+``test_torch_selective_scan.py``) and against the kernels themselves on
+the card (``test_torch_cuda_kernels.py``): in torch, the order in which
+the FedAvg reduce and the selective scan round; in numpy, how the Int8
+codec kernels split their work over a persistent grid.  Imports torch and
+numpy only."""
 import math
 
+import numpy as np
 import torch
 
 
@@ -72,3 +75,88 @@ def scan_kernel_order(x, dt, A, Bm, Cm, D, *, init_state=None):
             part = [part[r] + prod[..., 4 * q + r] for r in range(4)]
         y[:, t] = (((part[0] + part[1]) + (part[2] + part[3])) + d * x_t).to(x.dtype)
     return y, h[..., :n].contiguous()
+
+
+# ---------------- csrc/quantize.cu: the persistent grids' work split ----------------
+CODEC_BLOCK, CODEC_WARPS, CODEC_CODES = 256, 8, 16
+
+
+def codec_grid(warp_steps: int, resident_ctas: int) -> int:
+    """``grid_for``: one CTA a CODEC_WARPS warp-steps, at most the CTAs
+    resident at once."""
+    return min(-(-warp_steps // CODEC_WARPS), resident_ctas)
+
+
+def quantize_launch(x: np.ndarray, resident_ctas: int, stages: int = 2):
+    """``quantize_int8_kernel`` on fp32 ``x`` (n,), any n: warp w of the
+    grid's ``stride`` warps takes blocks w, w + stride, ..., the copies of
+    each block issued ``stages - 1`` strides ahead of its quantization
+    (its ring of ``stages`` slots); a lane copies two 16-byte pieces of a
+    block, the piece that straddles n only up to n, and values at or past n
+    read as 0.  Returns (q, scales, block_visits, x_reads): q and scales as
+    the kernel writes them (a code never written stays -128, a scale NaN),
+    the times each block is quantized, and the times each index of x is
+    read (those at or past n in the tail entries, up to the padded
+    length)."""
+    n = x.shape[0]
+    n_blocks = -(-n // CODEC_BLOCK)
+    stride = codec_grid(n_blocks, resident_ctas) * CODEC_WARPS
+    q = np.full(n_blocks * CODEC_BLOCK, -128, np.int8)
+    scales = np.full(n_blocks, np.nan, np.float32)
+    visits = np.zeros(n_blocks, np.int64)
+    reads = np.zeros(n_blocks * CODEC_BLOCK, np.int64)
+
+    def copy(blk):
+        vals = np.zeros(CODEC_BLOCK, np.float32)
+        base = blk * CODEC_BLOCK
+        for lane in range(32):
+            for i in (base + 4 * lane, base + 128 + 4 * lane):
+                idx = np.arange(i, min(i + 4, n))  # 16 bytes, or the bytes before n
+                reads[idx] += 1
+                vals[idx - base] = x[idx]
+        return vals
+
+    for warp in range(stride):
+        mine = range(warp, n_blocks, stride)
+        ring = [copy(b) for b in mine[:stages - 1]]  # the prologue's copies
+        for k, blk in enumerate(mine):
+            if k + stages - 1 < len(mine):
+                ring.append(copy(mine[k + stages - 1]))
+            cur = ring.pop(0)
+            absmax = np.float32(np.abs(cur).max())  # NaN-free inputs here
+            scale = absmax / np.float32(127.0)
+            scale = np.float32(1.0) if scale == 0 else scale
+            codes = np.clip(np.rint(cur / scale), -127, 127)
+            q[blk * CODEC_BLOCK:(blk + 1) * CODEC_BLOCK] = codes.astype(np.int8)
+            scales[blk] = scale
+            visits[blk] += 1
+    return q, scales, visits, reads
+
+
+def dequantize_launch(q: np.ndarray, scales: np.ndarray, resident_ctas: int):
+    """``dequantize_int8_kernel``: a warp-step is two blocks (the last step
+    of an odd block count one); warp w takes steps w, w + stride, ...; lane
+    l reads the 4-code words 32 j + l of the step (j = 0..3; j = 2, 3 only
+    if the second block exists) and writes their 4 values, lanes 0 and 1
+    read the two blocks' scales.  Returns (x, code_reads, scale_reads,
+    writes)."""
+    n_blocks = scales.shape[0]
+    steps = -(-n_blocks // 2)
+    stride = codec_grid(steps, resident_ctas) * CODEC_WARPS
+    x = np.full(q.shape[0], np.nan, np.float32)
+    code_reads = np.zeros(q.shape[0], np.int64)
+    scale_reads = np.zeros(n_blocks, np.int64)
+    writes = np.zeros(q.shape[0], np.int64)
+    for warp in range(stride):
+        for step in range(warp, steps, stride):
+            second = 2 * step + 1 < n_blocks
+            s = [scales[2 * step + lane] for lane in (0, 1) if lane == 0 or second]
+            scale_reads[2 * step:2 * step + len(s)] += 1
+            for lane in range(32):
+                for j in range(4) if second else range(2):
+                    word = step * 128 + 32 * j + lane
+                    span = slice(4 * word, 4 * word + 4)
+                    code_reads[span] += 1
+                    x[span] = q[span].astype(np.float32) * s[j // 2]
+                    writes[span] += 1
+    return x, code_reads, scale_reads, writes
