@@ -22,6 +22,11 @@ Phases (any failure exits non-zero):
    (fedavg_reduce, in fp32 and bf16) bitwise against the composition it
    replaced in both forms with integer weights and as one device kernel a
    call in the profiler, timed beside a device copy moving the same bytes,
+   (dequant_reduce) at C = 6, 64 and a ragged 3 blocks, bitwise against
+   the composition it replaced and its model in both forms with integer
+   weights, as one device kernel a call in the profiler (C = 6 and 64),
+   ptxas' registers (<= 64) and spills (none), timed in both forms beside
+   a device copy moving the same bytes,
    (topk_scatter_reduce) on disjoint, repeated, unsorted, out-of-range and
    empty payloads and twice on one payload, bitwise against the composition
    it replaced in both forms (normalize True and False), within 2C - 1 ulps
@@ -203,8 +208,7 @@ def delta_like(rng, shape, device="cuda"):
 
 # ---------------- phase 2: kernels against their plain versions ----------------
 def kernel_phase(rng) -> dict:
-    from repro_torch.kernels import _cuda, ops, ref
-    from repro_torch.utils.pytree import safe_weight_sum
+    from repro_torch.kernels import _cuda
 
     dev = torch.device("cuda")
     rows = {}
@@ -212,51 +216,15 @@ def kernel_phase(rng) -> dict:
 
     def launch(lib, fn, counter, *args):
         """The bare kernel launch (``launch_ms``).  ``ms`` times the ops
-        wrapper instead -- checks, allocation and, for the reduces, the
-        weight normalization -- which is the work ``plain_ms`` times too."""
+        wrapper instead -- checks, allocation and any work around the
+        launch -- which is the work ``plain_ms`` times too."""
         return lambda: _cuda.launch(lib, fn, counter, dev, *args)
-
-    def normalized(w):
-        return (w / safe_weight_sum(w)).contiguous()
 
     one_kernel_a_call_check(dev)
 
     rows.update(codec_kernel_checks(rng, dev, launch))
 
-    # --- dequant_reduce: C=6 (the fleet's Int8 group), C=64, ragged, zero weights ---
-    for label, c, npad in (("main", 6, NP_MAIN), ("C=64", 64, NP_MAIN), ("ragged", 3, 3 * BLOCK)):
-        x = delta_like(rng, (c, npad))
-        qr, sr = ref.quantize_int8(x.reshape(-1))
-        q, s = qr.reshape(c, npad), sr.reshape(c, npad // BLOCK)
-        w = torch.from_numpy((rng.random(c) * 500 + 10).astype(np.float32)).to(dev)
-        out, exp = ops.dequant_reduce(q, s, w), ref.dequant_reduce(q, s, w)
-        err = float((out - exp).abs().max())
-        check(f"dequant_reduce within rtol=atol=1e-6 [{label}: C={c}, Np={npad}]",
-              torch.allclose(out, exp, **tol), max_abs_err=err)
-        zero = ops.dequant_reduce(q, s, torch.zeros_like(w))
-        check(f"dequant_reduce zero weights -> zeros [{label}]",
-              not zero.any() and not zero.isnan().any())
-        if label == "ragged":
-            continue
-        wn, outo = normalized(w), torch.empty_like(out)
-        b_ms, b_by = bound(nbytes(q, s, w, out), 3 * q.numel())
-        row = dict(
-            source="src/repro_torch/kernels/csrc/dequant_reduce.cu",
-            replaces="src/repro/kernels/dequant_reduce.py:77",
-            max_abs_err=err,
-            ms=time_ms(lambda: ops.dequant_reduce(q, s, w)),
-            launch_ms=time_ms(launch("dequant_reduce", "repro_dequant_reduce", "dequant_reduce",
-                                     q.data_ptr(), s.data_ptr(), wn.data_ptr(), outo.data_ptr(),
-                                     c, npad)),
-            plain_ms=time_ms(lambda: ref.dequant_reduce(q, s, w)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            shape=f"q ({c}, {npad}) int8", bytes=nbytes(q, s, w, out),
-        )
-        if label == "main":
-            rows["dequant_reduce"] = row
-        else:
-            REPORT["timings"].append({"name": "dequant_reduce", "case": label, **row})
-
+    rows["dequant_reduce"] = dequant_reduce_kernel_checks(rng, dev, tol, launch)
     rows["fedavg_reduce"] = fedavg_kernel_checks(dev, tol, launch)
     rows["topk_scatter_reduce"] = topk_kernel_checks(dev, tol, launch)
     rows.update(collective_kernel_checks(dev, launch))
@@ -269,18 +237,19 @@ NP_MAIN = (N_PARAMS // BLOCK + 1) * BLOCK   # the codec's padded length, 1,974,5
 ENGINE_C = 8                               # phase 6's clients: encode_batch quantizes (C * Np,)
 
 
-def codec_build_checks() -> dict:
-    """ptxas' registers and spills of the two codec kernels, read from the
-    build log ``_cuda.build`` keeps beside the library; no spill in either."""
+def ptxas_report(lib: str, name_of) -> dict:
+    """ptxas' registers and spills per kernel of library ``lib``, read from
+    the build log ``_cuda.build`` keeps beside it, and printed.
+    ``name_of`` maps a "Compiling entry function" line to the kernel's
+    label, or to None for a kernel not reported."""
     import re
 
     from repro_torch.kernels import _cuda
 
     ptxas, name = {}, None
-    for line in _cuda.build_log("quantize").splitlines():
+    for line in _cuda.build_log(lib).splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in ("dequantize_int8_kernel", "quantize_int8_kernel")
-                         if k in line), None)
+            name = name_of(line)
             if name:
                 ptxas[name] = {}
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -290,10 +259,20 @@ def codec_build_checks() -> dict:
             ptxas[name]["registers"] = int(m[1])
     for name, info in ptxas.items():
         print(f"ptxas {name}: {info}", flush=True)
+    return ptxas
+
+
+def no_spill(ptxas: dict) -> bool:
+    return all(v.get("spill_stores") == 0 == v.get("spill_loads") for v in ptxas.values())
+
+
+def codec_build_checks() -> dict:
+    """ptxas' registers and spills of the two codec kernels: no spill in
+    either."""
+    ptxas = ptxas_report("quantize", lambda line: next(
+        (k for k in ("dequantize_int8_kernel", "quantize_int8_kernel") if k in line), None))
     check("ptxas reports both codec kernels, and no spill in either",
-          len(ptxas) == 2
-          and all(v.get("spill_stores") == 0 == v.get("spill_loads") for v in ptxas.values()),
-          kernels=ptxas)
+          len(ptxas) == 2 and no_spill(ptxas), kernels=ptxas)
     return ptxas
 
 
@@ -414,6 +393,101 @@ def codec_kernel_checks(rng, dev, launch) -> dict:
           bool(torch.isnan(s[4]) and torch.isnan(sr[4]))
           and torch.equal(s[:4], sr[:4]) and torch.equal(q[:4 * BLOCK], qr[:4 * BLOCK]))
     return rows
+
+
+def reduce_build_checks() -> dict:
+    """ptxas' registers and spills of the Int8 reduce kernel: no spill, and
+    at most 64 registers (its launch bound of 4 CTAs of 256 threads an
+    SM)."""
+    ptxas = ptxas_report("dequant_reduce", lambda line: (
+        "dequant_reduce_kernel" if "dequant_reduce_kernel" in line else None))
+    info = ptxas.get("dequant_reduce_kernel", {})
+    check("ptxas reports dequant_reduce_kernel at <= 64 registers, and no spill",
+          bool(info) and no_spill(ptxas) and 0 < info.get("registers", 0) <= 64, kernel=info)
+    return info
+
+
+def dequant_reduce_kernel_checks(rng, dev, tol, launch) -> dict:
+    """dequant_reduce against its plain version: C=6 (the fleet's Int8
+    group) and C=64 at Np, and a ragged 3 blocks at C=3, within
+    rtol=atol=1e-6 with non-integer weights; with integer weights bitwise
+    the one-launch model and the composition it replaced in both forms
+    (the weights normalized around the old kernel's chain, and
+    normalize=False against that mean then ``ops._denormalize``); all-zero
+    weights give zeros in both forms (one device kernel a call:
+    ``one_kernel_a_call_check``).  Timed at C=6 and C=64: the ops wrapper
+    in both forms, the bare launch, the plain version (the CPU route's
+    composition on the card for normalize=False) and a device copy moving
+    the same bytes (half read, half written).  ptxas' registers and spills
+    go in the row."""
+    from repro_torch.kernels import ops, ref
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_kernel_models import dequant_reduce_composition, dequant_reduce_one_launch
+
+    ptxas = reduce_build_checks()
+    row = None
+    for label, c, npad in (("main", 6, NP_MAIN), ("C=64", 64, NP_MAIN), ("ragged", 3, 3 * BLOCK)):
+        x = delta_like(rng, (c, npad))
+        qr, sr = ref.quantize_int8(x.reshape(-1))
+        q, s = qr.reshape(c, npad), sr.reshape(c, npad // BLOCK)
+        del x, qr, sr
+        w = torch.from_numpy((rng.random(c) * 500 + 10).astype(np.float32)).to(dev)
+        out, exp = ops.dequant_reduce(q, s, w), ref.dequant_reduce(q, s, w)
+        err = float((out - exp).abs().max())
+        check(f"dequant_reduce within rtol=atol=1e-6 [{label}: C={c}, Np={npad}]",
+              torch.allclose(out, exp, **tol), max_abs_err=err)
+        for normalize in (True, False):
+            zero = ops.dequant_reduce(q, s, torch.zeros_like(w), normalize=normalize)
+            check(f"dequant_reduce zero weights -> zeros [{label}, normalize={normalize}]",
+                  not zero.any() and not zero.isnan().any())
+        wi = torch.from_numpy(rng.integers(10, 500, c).astype(np.float32)).to(dev)
+        mean = ops.dequant_reduce(q, s, wi)
+        summed = ops.dequant_reduce(q, s, wi, normalize=False)
+        old_mean = dequant_reduce_composition(q, s, wi)
+        check(f"dequant_reduce bitwise the composition it replaced and its model, integer "
+              f"weights, normalize True and False [{label}]",
+              torch.equal(mean, old_mean)
+              and torch.equal(mean, dequant_reduce_one_launch(q, s, wi))
+              and torch.equal(summed, ops._denormalize(old_mean, wi))
+              and torch.equal(summed, dequant_reduce_composition(q, s, wi, normalize=False))
+              and torch.equal(summed, dequant_reduce_one_launch(q, s, wi, normalize=False)),
+              mean_differing=int((mean != old_mean).sum()),
+              summed_differing=int((summed != ops._denormalize(old_mean, wi)).sum()))
+        if label == "ragged":
+            continue
+        wf, outo = w.contiguous(), torch.empty_like(out)
+        moved = nbytes(q, s, w, out)
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        b_ms, b_by = bound(moved, 3 * q.numel())
+        plain = {True: lambda: ref.dequant_reduce(q, s, w),
+                 # the CPU route's composition, on the card
+                 False: lambda: ops._denormalize(ref.dequant_reduce(q, s, w), w)}
+        for normalize in (True, False):
+            timing = dict(
+                source="src/repro_torch/kernels/csrc/dequant_reduce.cu",
+                replaces="src/repro/kernels/dequant_reduce.py:77",
+                max_abs_err=err,
+                ms=time_ms(lambda: ops.dequant_reduce(q, s, w, normalize=normalize)),
+                launch_ms=time_ms(launch("dequant_reduce", "repro_dequant_reduce",
+                                         "dequant_reduce", q.data_ptr(), s.data_ptr(),
+                                         wf.data_ptr(), outo.data_ptr(), c, npad,
+                                         int(normalize))),
+                plain_ms=time_ms(plain[normalize]),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                # a device copy moving the same bytes (the floor of this timing)
+                copy_ms=time_ms(lambda: dst.copy_(src)),
+                shape=f"q ({c}, {npad}) int8" + ("" if normalize else ", normalize=False"),
+                bytes=moved, ptxas=ptxas,
+            )
+            if label == "main" and normalize:
+                row = timing
+            else:
+                case = label if normalize else f"{label}, normalize=False"
+                REPORT["timings"].append({"name": "dequant_reduce", "case": case, **timing})
+        del src, dst
+    return row
 
 
 def fedavg_kernel_checks(dev, tol, launch) -> dict:
@@ -659,26 +733,19 @@ def flash_build_checks() -> dict:
     n_hgmma = sass.count("HGMMA")
     print(f"flash_attention SASS: {n_hgmma} HGMMA instructions", flush=True)
     check("the flash library's SASS holds HGMMA", n_hgmma > 0, hgmma=n_hgmma)
-    ptxas, name = {}, None
-    for line in _cuda.build_log("flash_attention").splitlines():
+
+    def name_of(line):
         entry = re.search(r"Compiling entry function '\S*?(flash_attention_kernel\w*?)I(\w*?)Li"
                           r"(\d+)E", line)
         if entry:
             kind, dtype, dp = entry.groups()
-            name = f"{kind}<{'float, ' if dtype == 'f' else ''}{dp}>"
-            ptxas[name] = {}
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                                      line)):
-            ptxas[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            ptxas[name]["registers"] = int(m[1])
-    for name, info in ptxas.items():
-        print(f"ptxas {name}: {info}", flush=True)
+            return f"{kind}<{'float, ' if dtype == 'f' else ''}{dp}>"
+        return None
+
+    ptxas = ptxas_report("flash_attention", name_of)
     wgmma = {k: v for k, v in ptxas.items() if "wgmma" in k}
     check("ptxas reports every flash kernel, and no spill in the wgmma ones",
-          len(ptxas) == 6 and len(wgmma) == 3
-          and all(v.get("spill_stores") == 0 == v.get("spill_loads") for v in wgmma.values()),
-          kernels=ptxas)
+          len(ptxas) == 6 and len(wgmma) == 3 and no_spill(wgmma), kernels=ptxas)
     return {"hgmma": n_hgmma, "ptxas": ptxas}
 
 
@@ -962,24 +1029,16 @@ def scan_build_checks() -> dict:
 
     from repro_torch.kernels import _cuda
 
-    ptxas, name = {}, None
-    for line in _cuda.build_log("selective_scan").splitlines():
+    def name_of(line):
         entry = re.search(r"Compiling entry function '\S*?selective_scan_kernelI(f|13__nv_bfloat16)"
                           r"Li(\d+)E", line)
         if entry:
-            name = f"selective_scan_kernel<{'float' if entry[1] == 'f' else 'bf16'}, {entry[2]}>"
-            ptxas[name] = {}
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                                      line)):
-            ptxas[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            ptxas[name]["registers"] = int(m[1])
-    for name, info in ptxas.items():
-        print(f"ptxas {name}: {info}", flush=True)
+            return f"selective_scan_kernel<{'float' if entry[1] == 'f' else 'bf16'}, {entry[2]}>"
+        return None
+
+    ptxas = ptxas_report("selective_scan", name_of)
     check("ptxas reports every selective_scan kernel, and no spill in any",
-          len(ptxas) == 8
-          and all(v.get("spill_stores") == 0 == v.get("spill_loads") for v in ptxas.values()),
-          kernels=ptxas)
+          len(ptxas) == 8 and no_spill(ptxas), kernels=ptxas)
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check("cuobjdump is there to read the scan library's SASS", os.path.exists(tool), path=tool)
@@ -1143,7 +1202,8 @@ def topk_composition(idx, val, w, n: int, *, normalize=True):
 def one_kernel_a_call_check(dev) -> None:
     """The one-launch reduces are one device kernel an ops call in both
     forms: fedavg_reduce at C=2 and C=64 in fp32 and at C=2 in bf16,
-    topk_scatter_reduce at C=4 and C=64, normalize True and False; and the
+    topk_scatter_reduce at C=4 and C=64, dequant_reduce at C=6 and C=64,
+    normalize True and False; and the
     Int8 codec's encode of the unpadded (N,) delta (no pad or copy kernel)
     and ops.dequantize_int8 at Np are one kernel each.  Each call is run
     and synchronized in turn inside ONE profiler session, the first of the
@@ -1171,6 +1231,12 @@ def one_kernel_a_call_check(dev) -> None:
         calls += [(f"topk_scatter_reduce C={c} normalize={nz}", "topk_scatter_reduce_kernel",
                    partial(ops.topk_scatter_reduce, idx, val, w, N_PARAMS, normalize=nz))
                   for nz in (True, False)]
+    for c in (6, 64):
+        q, s = ops.quantize_int8(torch.randn(c * NP_MAIN, generator=gen, device=dev) * 1e-3)
+        q, s = q.reshape(c, NP_MAIN), s.reshape(c, NP_MAIN // BLOCK)
+        w = torch.randint(10, 500, (c,), generator=gen, device=dev).to(torch.float32)
+        calls += [(f"dequant_reduce C={c} normalize={nz}", "dequant_reduce_kernel",
+                   partial(ops.dequant_reduce, q, s, w, normalize=nz)) for nz in (True, False)]
     delta = torch.randn(N_PARAMS, generator=gen, device=dev) * 1e-3
     q, s = ops.quantize_int8(delta)
     calls += [("Int8Codec().encode N=1,974,303", "quantize_int8_kernel",
@@ -1187,8 +1253,8 @@ def one_kernel_a_call_check(dev) -> None:
     seen = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                   key=lambda e: e.time_range.start)
     names = [e.name.split("::")[-1].split("(")[0] for e in seen]
-    check("fedavg_reduce and topk_scatter_reduce (normalize True and False), the Int8 "
-          "encode and dequantize_int8 are one device kernel a call ["
+    check("fedavg_reduce, topk_scatter_reduce and dequant_reduce (normalize True and False), "
+          "the Int8 encode and dequantize_int8 are one device kernel a call ["
           + "; ".join(label for label, _, _ in calls) + "]",
           len(seen) == len(calls)
           and all(name.split("<")[0].split()[-1] == kernel

@@ -46,7 +46,7 @@ SIGNATURES = {
         "repro_dequantize_int8": (_P, _P, _P, _I64, _P),
     },
     "dequant_reduce": {
-        "repro_dequant_reduce": (_P, _P, _P, _P, _I64, _I64, _P),
+        "repro_dequant_reduce": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     },
     "topk_scatter_reduce": {
         "repro_topk_scatter_reduce": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),

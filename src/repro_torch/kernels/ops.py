@@ -72,12 +72,12 @@ def fedavg_reduce(updates, weights, *, normalize=True):
 
 
 def dequant_reduce(q, scales, weights, block: int = 256, *, normalize=True):
-    """Fused server-side decode: int8 payload (C,N) + scales -> (N,) mean."""
-    if _on_card(q, scales, weights):
+    """Fused server-side decode: int8 payload (C,N) + scales -> (N,) mean
+    (or weighted sum with ``normalize=False``)."""
+    if _on_card(q, scales, weights):  # one launch: the weight sum and normalize inside
         _check_block(block)
-        out = _dequant_reduce_kernel(q, scales, weights)
-    else:
-        out = ref.dequant_reduce(q, scales, weights, block=block)
+        return _dequant_reduce_kernel(q, scales, weights, normalize=normalize)
+    out = ref.dequant_reduce(q, scales, weights, block=block)
     return out if normalize else _denormalize(out, weights)
 
 

@@ -10,7 +10,8 @@ for bf16 outputs the two fp32 sums may straddle a rounding edge, so one
 bf16 ulp (``rtol=2**-7``).  The FedAvg reduce forms its weight sum in
 client order inside the launch: with integer weights it is bitwise the
 composition it replaced in both forms (``tests/torch_kernel_models.py``'s
-fmaf chain, then ``ops._denormalize``).  The TopK scatter reduce adds the
+fmaf chain, then ``ops._denormalize``); so is the Int8 reduce
+(``dequant_reduce``, the chain of fl(code * scale)).  The TopK scatter reduce adds the
 same fp32 products ``w_c * val`` as its plain version and divides by a
 weight sum it
 forms itself in a fixed order: with integer weights that sum is exact, so
@@ -37,7 +38,8 @@ import torch
 from repro_torch.kernels import decode_attention as decode_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.utils.pytree import safe_weight_sum
-from torch_kernel_models import fedavg_one_launch
+from torch_kernel_models import (dequant_reduce_composition, dequant_reduce_one_launch,
+                                 fedavg_one_launch)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -128,6 +130,48 @@ def test_cuda_dequant_reduce(cuda, c, n_blocks):
         ops.dequant_reduce(q, s, w), ref.dequant_reduce(q, s, w), **TOL
     )
     assert not ops.dequant_reduce(q, s, torch.zeros_like(w)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n_blocks", [(6, 7713), (64, 7713), (3, 3), (1030, 9), (3, 20_001),
+                                        (70, 20_001)])
+def test_cuda_dequant_reduce_is_the_composition_it_replaced(cuda, c, n_blocks):
+    """Integer weights: bitwise the one-launch model and the composition
+    it replaced (the weights normalized around the old kernel's chain,
+    then ``ops._denormalize``) with normalize True and False: the fleet's
+    C = 6 and C = 64 at Np, a ragged 3 blocks, C past the 1024 weights and
+    the 64 scale rows a warp stages, and 20,001 blocks (1,251 CTAs, more
+    than the card holds at once).  Weights that are not
+    integers stay within 1e-6 of the plain version (times sum(w) for the
+    sum); all-zero weights give zeros, no NaN, in both forms."""
+    rng = np.random.default_rng(c + n_blocks)
+    x = _t(_delta(rng, (c * n_blocks * 256,), zero_blocks=1)).to(cuda)
+    q, s = ref.quantize_int8(x)
+    q, s = q.reshape(c, -1), s.reshape(c, -1)
+    w = _t(rng.integers(10, 500, c).astype(np.float32)).to(cuda)
+    for normalize in (True, False):
+        out = ops.dequant_reduce(q, s, w, normalize=normalize)
+        assert torch.equal(out, dequant_reduce_one_launch(q, s, w, normalize=normalize))
+        assert torch.equal(out, dequant_reduce_composition(q, s, w, normalize=normalize))
+        zero = ops.dequant_reduce(q, s, torch.zeros_like(w), normalize=normalize)
+        assert not zero.any() and not zero.isnan().any()
+    fw = _t(((rng.random(c) + 0.1) * 40).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(ops.dequant_reduce(q, s, fw), ref.dequant_reduce(q, s, fw), **TOL)
+    torch.testing.assert_close(ops.dequant_reduce(q, s, fw, normalize=False),
+                               ref.dequant_reduce(q, s, fw) * fw.sum(),
+                               rtol=TOL["rtol"], atol=TOL["atol"] * float(fw.sum()))
+
+
+@pytest.mark.cuda
+def test_cuda_dequant_reduce_no_clients_no_launch(cuda):
+    """C = 0: zeros of Np, in both forms, and no launch."""
+    q = torch.zeros(0, 512, dtype=torch.int8, device=cuda)
+    s = torch.zeros(0, 2, device=cuda)
+    before = ops.launch_counts()["dequant_reduce"]
+    for normalize in (True, False):
+        out = ops.dequant_reduce(q, s, torch.zeros(0, device=cuda), normalize=normalize)
+        assert out.shape == (512,) and out.dtype == torch.float32 and not out.any()
+    assert ops.launch_counts()["dequant_reduce"] == before
 
 
 @pytest.mark.cuda
@@ -327,9 +371,10 @@ def test_cuda_topk_scatter_reduce_non_integer_weights_within_ulps(cuda, c):
 
 @pytest.mark.cuda
 def test_cuda_reduces_are_one_device_kernel_a_call(cuda):
-    """One ops call, one device activity, for both one-launch reduces in
-    both forms: no memset, index pass, weight-sum, division or
-    denormalization kernels around them.  The calls share ONE profiler
+    """One ops call, one device activity, for the one-launch reduces
+    (fedavg, TopK, and the Int8 reduce at C = 6 and 64) in both forms: no
+    memset, index pass, weight-sum, division or denormalization kernels
+    around them.  The calls share ONE profiler
     session, the only one of this file: short sessions after the first few
     of a process can stop recording device activity."""
     from torch.autograd import DeviceType
@@ -345,6 +390,12 @@ def test_cuda_reduces_are_one_device_kernel_a_call(cuda):
     idx, val, w = (t.to(cuda) for t in _topk_payload(rng, 4, 19_743, 1_974_303))
     calls += [("topk_scatter_reduce_kernel", lambda nz=nz: ops.topk_scatter_reduce(
         idx, val, w, 1_974_303, normalize=nz)) for nz in (True, False)]
+    for c in (6, 64):
+        q, s = ref.quantize_int8(_t(_delta(rng, (c * 1_974_528,))).to(cuda))
+        q, s = q.reshape(c, -1), s.reshape(c, -1)
+        wq = _t(rng.integers(10, 500, c).astype(np.float32)).to(cuda)
+        calls += [("dequant_reduce_kernel", lambda q=q, s=s, wq=wq, nz=nz: ops.dequant_reduce(
+            q, s, wq, normalize=nz)) for nz in (True, False)]
     for _, call in calls:
         call()
     torch.cuda.synchronize()

@@ -20,7 +20,12 @@ where the bits may part (non-integer weights, C = 64).  The Int8 codec
 kernels' persistent grids are modelled there in numpy (which warp takes
 which block, what each reads) and held bitwise against JAX's oracle on
 the input padded with zeros, the codec's pad that ``quantize_int8`` now
-does inside its launch.
+does inside its launch.  The CUDA Int8 reduce's one launch (client-order
+weight sum, the fmaf chain of fl(code * scale), fl(mean * ws) for
+``normalize=False``) is modelled there too: bitwise JAX's interpret-mode
+reduce for C <= 17, within ``rtol=atol=1e-6`` (times sum(w) for the sum
+form) at C = 64 and past the kernel's 1024 shared weights, and bitwise the
+composition it replaced for integer weights.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +39,8 @@ from repro.kernels.quantize import dequantize_int8 as pallas_dequantize
 from repro.kernels.quantize import quantize_int8 as pallas_quantize
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops
-from torch_kernel_models import dequantize_launch, fedavg_one_launch, quantize_launch
+from torch_kernel_models import (dequant_reduce_composition, dequant_reduce_one_launch,
+                                 dequantize_launch, fedavg_one_launch, quantize_launch)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -229,6 +235,82 @@ def test_dequant_reduce_matches_jax(c, n, bn, normalize):
         tol = dict(rtol=TOL["rtol"], atol=TOL["atol"] * float(w.sum()))
     np.testing.assert_allclose(_np(out), exp_ref, **tol)
     np.testing.assert_allclose(_np(out), exp_pallas, **tol)
+
+
+def _int8_wires(seed, c, n, weights):
+    """C clients' Int8 wires of Np = n (JAX's quantize, one zero block) and
+    ``weights`` ("integer" example counts, "real" values, or "zero"), as
+    numpy arrays for both sides."""
+    rng = np.random.default_rng(seed)
+    x = _delta(rng, (c * n,), zero_blocks=1)
+    qj, sj = jref.quantize_int8(jnp.asarray(x))
+    w = {"integer": rng.integers(10, 500, c).astype(np.float32),
+         "real": ((rng.random(c) + 0.1) * 40).astype(np.float32),
+         "zero": np.zeros(c, np.float32)}[weights]
+    return np.asarray(qj).reshape(c, n), np.asarray(sj).reshape(c, n // 256), w
+
+
+def _jax_dequant_reduce(q, s, w, normalize):
+    """JAX's side: the Pallas reduce in interpret mode for the mean, and
+    ``ops.dequant_reduce(..., normalize=False)`` (the Pallas reduce, then
+    its ``_denormalize``) for the sum."""
+    args = (jnp.asarray(q), jnp.asarray(s), jnp.asarray(w))
+    if normalize:
+        return np.asarray(pallas_dequant_reduce(*args, interpret=True))
+    return np.asarray(jops.dequant_reduce(*args, interpret=True, normalize=False))
+
+
+@pytest.mark.parametrize("c,n", [(1, 512), (3, 768), (6, 4096), (17, 2048)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_dequant_reduce_one_launch_model_bitwise_vs_jax(c, n, normalize):
+    """The CUDA Int8 reduce's arithmetic (``dequant_reduce_one_launch``)
+    is bitwise JAX's Pallas reduce in interpret mode (plus its
+    ``_denormalize``) for integer weights at C <= 17: the weight sums are
+    exact in any order, each value is the same fp32 product code * scale,
+    and XLA's CPU dot of so few terms is the same fmaf chain.  C = 1, and
+    a ragged Np of 3 x 256 at C = 3."""
+    q, s, w = _int8_wires(c + n, c, n, "integer")
+    out = dequant_reduce_one_launch(_t(q), _t(s), _t(w), normalize=normalize)
+    assert out.dtype == torch.float32 and out.shape == (n,)
+    np.testing.assert_array_equal(_np(out), _jax_dequant_reduce(q, s, w, normalize))
+
+
+@pytest.mark.parametrize("c,n,weights", [
+    (1, 512, "real"), (3, 768, "real"), (6, 4096, "real"), (64, 2048, "integer"),
+    (64, 1024, "real"), (1030, 256, "integer"), (4, 1024, "zero"),
+])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_dequant_reduce_one_launch_model_and_cpu_route_close_to_jax(c, n, weights, normalize):
+    """The kernel's model and ``ops.dequant_reduce`` on the CPU against
+    JAX's interpret-mode reduce in both forms, within the reduces' 1e-6
+    (times sum(w) for the sum form): weights that are not integers, C = 64
+    (XLA's CPU dot blocks the sum), C = 1030 (past the kernel's 1024
+    normalized weights in shared memory), all-zero weights."""
+    q, s, w = _int8_wires(2 * c + n, c, n, weights)
+    exp = _jax_dequant_reduce(q, s, w, normalize)
+    tol = dict(rtol=TOL["rtol"], atol=TOL["atol"] * (1.0 if normalize else max(float(w.sum()), 1.0)))
+    model = _np(dequant_reduce_one_launch(_t(q), _t(s), _t(w), normalize=normalize))
+    cpu = _np(ops.dequant_reduce(_t(q), _t(s), _t(w), normalize=normalize))
+    np.testing.assert_allclose(model, exp, **tol)
+    np.testing.assert_allclose(cpu, exp, **tol)
+    if weights == "zero":
+        assert not model.any() and not np.isnan(model).any()
+        assert not cpu.any() and not np.isnan(cpu).any()
+
+
+@pytest.mark.parametrize("c,n", [(1, 512), (3, 768), (6, 4096), (64, 2048), (1030, 256)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_dequant_reduce_one_launch_model_is_the_composition_it_replaced(c, n, normalize):
+    """Integer weights: the client-order weight sum inside the launch has
+    the bits of PyTorch's ``safe_weight_sum``, so the model is bitwise the
+    composition it replaced -- the weights normalized around the old
+    kernel's chain, then ``ops._denormalize`` -- in both forms."""
+    q, s, w = _int8_wires(3 * c + n, c, n, "integer")
+    args = (_t(q), _t(s), _t(w))
+    out = dequant_reduce_one_launch(*args, normalize=normalize)
+    assert torch.equal(out, dequant_reduce_composition(*args, normalize=normalize))
+    if not normalize:
+        assert torch.equal(out, ops._denormalize(dequant_reduce_one_launch(*args), args[2]))
 
 
 @pytest.mark.parametrize("normalize", [True, False])

@@ -2,9 +2,10 @@
 the JAX package on the CPU (``test_torch_kernels.py``,
 ``test_torch_selective_scan.py``) and against the kernels themselves on
 the card (``test_torch_cuda_kernels.py``): in torch, the order in which
-the FedAvg reduce and the selective scan round; in numpy, how the Int8
-codec kernels split their work over a persistent grid.  Imports torch and
-numpy only."""
+the FedAvg and Int8 reduces and the selective scan round; in numpy, how
+the Int8 codec kernels split their work over a persistent grid.  Imports
+torch and numpy only (the compositions the one-launch reduces replaced
+import ``repro_torch`` where they are called)."""
 import math
 
 import numpy as np
@@ -46,6 +47,48 @@ def fedavg_one_launch(u: torch.Tensor, w: torch.Tensor, *, normalize: bool = Tru
         acc = fma32(wn[c], u[c].to(torch.float32), acc)
     mean = acc.to(u.dtype)
     return mean if normalize else (mean.float() * ws.to(u.dtype).float()).to(u.dtype)
+
+
+def _dequant_chain(q: torch.Tensor, s: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:
+    """The Int8 reduce's chain over the clients, from 0 in client order:
+    acc = fmaf(wn_c, fl(code * scale), acc), each dequantized value
+    rounded to fp32 on its own first."""
+    c, n = q.shape
+    x = (q.to(torch.float32).reshape(c, n // 256, 256) * s.to(torch.float32)[:, :, None])
+    x = x.reshape(c, n)
+    acc = torch.zeros(n, dtype=torch.float32, device=q.device)
+    for k in range(c):
+        acc = fma32(wn[k], x[k], acc)
+    return acc
+
+
+def dequant_reduce_one_launch(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor, *,
+                              normalize: bool = True) -> torch.Tensor:
+    """``csrc/dequant_reduce.cu``'s arithmetic: the fp32 weight sum in
+    client order (0 -> 1), wn = w / ws (IEEE division), the fmaf chain of
+    fl(code * scale) over the clients from 0; with ``normalize=False``
+    fl(mean * ws)."""
+    wf = w.to(torch.float32)
+    ws = torch.zeros((), dtype=torch.float32, device=w.device)
+    for k in range(wf.shape[0]):
+        ws = ws + wf[k]
+    ws = torch.where(ws == 0, torch.ones_like(ws), ws)
+    mean = _dequant_chain(q, s, wf / ws)
+    return mean if normalize else mean * ws
+
+
+def dequant_reduce_composition(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor, *,
+                               normalize: bool = True) -> torch.Tensor:
+    """What ``ops.dequant_reduce`` ran on the card before its weight sum
+    moved inside the launch: the weights normalized by PyTorch's
+    ``safe_weight_sum`` (its own summation order), the kernel's fmaf chain,
+    and for ``normalize=False`` that mean then ``ops._denormalize``."""
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import safe_weight_sum
+
+    wf = w.to(torch.float32)
+    mean = _dequant_chain(q, s, wf / safe_weight_sum(wf))
+    return mean if normalize else ops._denormalize(mean, w)
 
 
 def scan_kernel_order(x, dt, A, Bm, Cm, D, *, init_state=None):
