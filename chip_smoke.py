@@ -31,10 +31,17 @@ Phases (any failure exits non-zero):
    empty payloads and twice on one payload, bitwise against the composition
    it replaced in both forms (normalize True and False), within 2C - 1 ulps
    with non-integer weights, as one device kernel a call in the profiler,
-   and (collective_pack /
-   collective_unpack) at every head-model leaf size on half-way points,
-   NaN and a sum of 4 ranks' codes, timed at every leaf size,
-   and time kernel (through its
+   (collective_pack / collective_unpack, single vector) at every
+   head-model leaf size and Np on half-way points, NaN and a sum of 4
+   ranks' codes, timed at every leaf size and Np, and (the int8
+   collective's leaf-table trio: collective_absmax, collective_pack over
+   every leaf, collective_unpack) at the head model's five leaves, two of
+   them at unaligned starts, bitwise against its plain versions and
+   against the per-leaf composition it replaced on edge values (half-way
+   points, +-0, +-127 s, NaN, inf and zero blocks), update-like values,
+   a live and a masked rank, ptxas' spills and stack frames (none), each
+   part timed at Np beside its bound and the trio against that
+   composition in turns, and time kernel (through its
    ops wrapper, and as a bare launch), plain version and the library call
    where there is one;
 3. drive the paper's Flower loop at the full width of
@@ -59,7 +66,10 @@ Phases (any failure exits non-zero):
    (NCCL takes one rank per card), a ("pod", 2) x ("data", 2) client mesh,
    one client per rank, 3 rounds each of Int8 x fp32 collective, Int8 x
    int8 collective (rank 0 masked in round 2), Null x int8 and TopK x fp32,
-   with launch counts per rank and round, every round of every case held
+   with launch counts per rank and round (the int8 collective: 1
+   collective_absmax, 1 pack and 1 unpack) and the collective's
+   all-reduces (the int8 one: a MAX and an int32 SUM a tier), the int8
+   rounds' host seconds beside the fp32 ones, every round of every case held
    against the vmap fp32 round step from the same state (within bounds
    set a priori: for the int8 collective half a shared block scale per
    live client and residual), the held-out eval loss, a profiled fourth
@@ -227,7 +237,8 @@ def kernel_phase(rng) -> dict:
     rows["dequant_reduce"] = dequant_reduce_kernel_checks(rng, dev, tol, launch)
     rows["fedavg_reduce"] = fedavg_kernel_checks(dev, tol, launch)
     rows["topk_scatter_reduce"] = topk_kernel_checks(dev, tol, launch)
-    rows.update(collective_kernel_checks(dev, launch))
+    collective_kernel_checks(dev, launch)
+    rows.update(collective_leaf_checks(dev, launch))
     rows.update(attention_kernel_checks(dev, launch))
     rows["selective_scan"] = scan_kernel_checks(dev, launch)
     return rows
@@ -252,9 +263,10 @@ def ptxas_report(lib: str, name_of) -> dict:
             name = name_of(line)
             if name:
                 ptxas[name] = {}
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                                      line)):
-            ptxas[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            ptxas[name].update(stack_frame=int(m[1]), spill_stores=int(m[2]),
+                               spill_loads=int(m[3]))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             ptxas[name]["registers"] = int(m[1])
     for name, info in ptxas.items():
@@ -585,10 +597,10 @@ def fedavg_kernel_checks(dev, tol, launch) -> dict:
 # the head model's leaves padded to 256 (base.w, head.b1, head.b2, head.w1,
 # head.w2), then the padded total Np
 COLLECTIVE_SIZES = (1_638_400, 256, 256, 327_680, 7_936, 1_974_528)
-# every leaf size is timed (CompressedPsum.psum packs each leaf once and
-# unpacks it twice); the kernel table's row is base.w's
+# the single-vector pack and unpack (the TPU kernels' counterparts, the
+# parent's per-leaf path) are timed at every leaf size and at Np
 COLLECTIVE_TIMED = {1_638_400: "base.w", 256: "head.b1, head.b2", 327_680: "head.w1",
-                    7_936: "head.w2"}
+                    7_936: "head.w2", 1_974_528: "Np, single vector"}
 
 
 def collective_edge_values(rng, n: int, dev):
@@ -606,16 +618,16 @@ def collective_edge_values(rng, n: int, dev):
     return torch.from_numpy(x.reshape(-1)).to(dev), torch.from_numpy(s).to(dev)
 
 
-def collective_kernel_checks(dev, launch) -> dict:
-    """collective_pack / collective_unpack against their plain versions at
-    every head-model leaf size and at Np: bitwise on edge values, on four
-    ranks' update-like values against their shared scales, and on the int32
-    sum of the four; the sum exact to one fp32 rounding; timed at every
-    leaf size."""
-    from repro_torch.kernels import ops, ref
+def collective_kernel_checks(dev, launch) -> None:
+    """The single-vector collective_pack / collective_unpack against their
+    plain versions at every head-model leaf size and at Np: bitwise on edge
+    values, on four ranks' update-like values against their shared scales,
+    and on the int32 sum of the four; the sum exact to one fp32 rounding;
+    timed at every leaf size and at Np (REPORT["timings"])."""
+    from repro_torch.kernels import collective_quant, ops, ref
 
     rng = np.random.default_rng(14)
-    rows, to_time = {}, dict(COLLECTIVE_TIMED)
+    to_time = dict(COLLECTIVE_TIMED)
     for n in COLLECTIVE_SIZES:
         x, s = collective_edge_values(rng, n, dev)
         q = ops.collective_pack(x, s)
@@ -653,6 +665,7 @@ def collective_kernel_checks(dev, launch) -> dict:
               torch.equal(lib, ref.collective_unpack(total, s)))
         x = xs[0]
         qo, xo = torch.empty_like(q), torch.empty_like(one)
+        table, _ = collective_quant._table([x], None)  # x its one leaf, no fold
         b_ms, b_by = bound(nbytes(x, s, qs[0]), 3 * n)
         pack = dict(
             source="src/repro_torch/kernels/csrc/collective_quant.cu",
@@ -660,8 +673,8 @@ def collective_kernel_checks(dev, launch) -> dict:
             max_abs_err=float(pack_err),
             ms=time_ms(lambda: ops.collective_pack(x, s)),
             launch_ms=time_ms(launch("collective_quant", "repro_collective_pack",
-                                     "collective_pack", x.data_ptr(), s.data_ptr(),
-                                     qo.data_ptr(), n // BLOCK)),
+                                     "collective_pack", table, 1, None, None, s.data_ptr(), 0,
+                                     qo.data_ptr(), None, None, n // BLOCK)),
             plain_ms=time_ms(lambda: ref.collective_pack(x, s)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             shape=f"x ({n},) fp32 ({leaf})", bytes=nbytes(x, s, qs[0]),
@@ -682,11 +695,195 @@ def collective_kernel_checks(dev, launch) -> dict:
             library_ms=time_ms(lambda: torch.mul(total.view(-1, BLOCK), s[:, None])),
             shape=f"q ({n},) int32 ({leaf})", bytes=nbytes(total, s, summed),
         )
-        if n == COLLECTIVE_SIZES[0]:
-            rows["collective_pack"], rows["collective_unpack"] = pack, unpack
-        else:
-            REPORT["timings"] += [{"name": "collective_pack", "case": leaf, **pack},
-                                  {"name": "collective_unpack", "case": leaf, **unpack}]
+        REPORT["timings"] += [{"name": "collective_pack", "case": leaf, **pack},
+                              {"name": "collective_unpack", "case": leaf, **unpack}]
+
+
+# the head model's leaves in JAX's order, as the mesh round step hands them
+# to CompressedPsum.psum_leaves
+HEAD_LEAVES = (("base.w", 1_638_400), ("head.b1", 256), ("head.b2", 31),
+               ("head.w1", 327_680), ("head.w2", 7_936))
+LEAF_CASES = ("edges", "deltas", "live", "masked")
+
+
+def collective_leaf_inputs(rng, dev, case: str):
+    """The head model's five leaves as the mesh round step gives them to
+    ``psum_leaves``: views of one flat (N,) decode at JAX's leaf offsets
+    (head.w1 and head.w2 start 12 bytes past a 16-byte boundary), the
+    residual rows views of one flat (Np,) buffer at their first blocks
+    (the previous round's), the weight (one fp32) and the live flag.
+    "edges": weight 1/2, zero residuals and d = 2 eff exactly, where each
+    block of eff holds 127 s (its absmax, so the derived scale is s, a
+    power of two), +-0, -127 s and half-way points (k + 1/2) s; base.w's
+    block 3 holds a NaN, block 5 an inf, block 7 zeros (scale 1).
+    "deltas": update-like values and residuals, weight 123, no mask;
+    "live": the same with live True; "masked": live False, weight 0 (the
+    round step folds the mask into it)."""
+    from repro_torch.kernels.collective_quant import first_blocks
+
+    sizes = [n for _, n in HEAD_LEAVES]
+    if case == "edges":
+        parts = []
+        for n in sizes:
+            nb = -(-n // BLOCK)
+            s = 2.0 ** rng.integers(-14, 0, (nb, 1))
+            k = rng.integers(-126, 127, (nb, BLOCK)) + np.where(rng.random((nb, BLOCK)) < 0.5,
+                                                                  0.5, 0.0)
+            k[:, :4] = [127.0, 0.0, -0.0, -127.0]
+            parts.append((k * s).astype(np.float32).reshape(-1)[:n])
+        eff = np.concatenate(parts)
+        eff[3 * BLOCK + 9], eff[5 * BLOCK + 9] = np.nan, np.inf
+        eff[7 * BLOCK:8 * BLOCK] = 0.0
+        flat = torch.from_numpy(2 * eff).to(dev)
+        r_flat = torch.zeros(NP_MAIN, device=dev)
+        wf = torch.full((1,), 0.5, device=dev)
+    else:
+        flat = delta_like(rng, (sum(sizes),), dev)
+        r_flat = delta_like(rng, (NP_MAIN,), dev) * 1e-3
+        wf = torch.full((1,), 0.0 if case == "masked" else 123.0, device=dev)
+    ds = list(torch.split(flat, sizes))
+    rs = [r_flat[BLOCK * b:BLOCK * b + n] for b, n in zip(first_blocks(sizes), sizes)]
+    live = {"live": True, "masked": False}.get(case)
+    return ds, wf, rs, None if live is None else torch.tensor(live, device=dev)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise, a NaN matching any NaN (the card makes its own NaN bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a).view(torch.int32), torch.where(nan, 0.0, b).view(torch.int32))
+
+
+def collective_leaf_checks(dev, launch) -> dict:
+    """The int8 collective's leaf-table trio (collective_absmax,
+    collective_pack over every leaf, collective_unpack at Np) at the head
+    model's five leaves, bitwise (NaN as NaN) against its plain versions
+    and against the per-leaf composition it replaced (the parent's psum
+    code, leaf by leaf) with the plain single-vector versions and with
+    this tree's single-vector kernels, in every case of LEAF_CASES; the
+    build's registers, spills and stack frames; each part timed at Np
+    beside its bound, and the trio against that composition in turns
+    (composition, trio, trio, composition)."""
+    from repro_torch.kernels import collective_quant, ops, ref
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_kernel_models import collective_per_leaf
+
+    ptxas = ptxas_report("collective_quant", lambda line: next(
+        (k for k in ("collective_absmax_kernel", "collective_pack_kernel",
+                     "collective_unpack_kernel") if k in line), None))
+    check("ptxas reports the three collective kernels, no spill and no stack frame in any "
+          "(the leaf table read in place)", len(ptxas) == 3 and no_spill(ptxas) and all(
+              v.get("stack_frame") == 0 for v in ptxas.values()), kernels=ptxas)
+    sizes = [n for _, n in HEAD_LEAVES]
+    starts = collective_quant.first_blocks(sizes)
+    rng = np.random.default_rng(22)
+    for case in LEAF_CASES:
+        ds, wf, rs, lv = collective_leaf_inputs(rng, dev, case)
+        absmax = ops.collective_absmax(ds, wf, rs, lv)
+        q, s, new = ops.collective_pack_leaves(ds, wf, rs, absmax, lv)
+        total = ops.collective_unpack(q, s)
+        plain = ref.collective_pack_leaves(ds, wf, rs, absmax, lv)
+        check(f"collective leaf table [{case}]: absmax, codes, scales, residuals and totals "
+              "bitwise their plain versions",
+              same_bits(absmax, ref.collective_absmax(ds, wf, rs, lv))
+              and torch.equal(q, plain[0]) and same_bits(s, plain[1])
+              and same_bits(new, plain[2]) and same_bits(total, ref.collective_unpack(q, s)),
+              codes_differing=int((q != plain[0]).sum()))
+        for label, pack, unpack in (
+                ("the plain single-vector versions", ref.collective_pack, ref.collective_unpack),
+                ("the single-vector kernels", ops.collective_pack, ops.collective_unpack)):
+            per_leaf = collective_per_leaf(ds, wf, rs, lv, pack, unpack)
+            ok = all(
+                same_bits(absmax[a:b], am) and same_bits(s[a:b], sc)
+                and torch.equal(q[BLOCK * a:BLOCK * b], code)
+                and same_bits(total[BLOCK * a:BLOCK * a + n], tot)
+                and same_bits(new[BLOCK * a:BLOCK * a + n], row)
+                for (am, sc, code, tot, row), a, b, n in zip(per_leaf, starts, starts[1:], sizes))
+            check(f"collective leaf table [{case}]: bitwise the per-leaf composition (each "
+                  f"leaf's psum) with {label}", ok)
+        if case == "edges":
+            check("collective leaf table [edges]: NaN block NaN scale, inf block inf, zero "
+                  "block 1, the others their power of two",
+                  bool(torch.isnan(s[3])) and bool(torch.isinf(s[5])) and float(s[7]) == 1.0,
+                  scales=[float(x) for x in s[:8]])
+        if case == "masked":
+            check("collective leaf table [masked]: zero codes, every residual row carried",
+                  not q.any() and all(torch.equal(new[BLOCK * a:BLOCK * a + n], r)
+                                      for a, n, r in zip(starts, sizes, rs)))
+
+    # timing at the main path's call: update-like leaves, no mask
+    ds, wf, rs, lv = collective_leaf_inputs(rng, dev, "deltas")
+    absmax = ops.collective_absmax(ds, wf, rs, lv)
+    q, s, new = ops.collective_pack_leaves(ds, wf, rs, absmax, lv)
+    total = ops.collective_unpack(q, s)
+    table, n_blocks = collective_quant._table(ds, rs)
+    am_o, q_o, s_o, r_o, t_o = (torch.empty_like(t) for t in (absmax, q, s, new, total))
+    shape = "the head model's 5 leaves (N = 1,974,303, Np = 1,974,528, Nb = 7,713)"
+    rows = {}
+    b_ms, b_by = bound(nbytes(*ds, *rs, wf, absmax), 3 * N_PARAMS)
+    rows["collective_absmax"] = dict(
+        source="src/repro_torch/kernels/csrc/collective_quant.cu",
+        replaces="src/repro/core/compression.py:1285",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: ops.collective_absmax(ds, wf, rs, lv)),
+        launch_ms=time_ms(launch("collective_quant", "repro_collective_absmax",
+                                 "collective_absmax", table, len(ds), wf.data_ptr(), None,
+                                 am_o.data_ptr(), n_blocks)),
+        plain_ms=time_ms(lambda: ref.collective_absmax(ds, wf, rs, lv)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"eff of {shape}", bytes=nbytes(*ds, *rs, wf, absmax),
+    )
+    b_ms, b_by = bound(nbytes(*ds, *rs, wf, absmax, q, s, new), 8 * N_PARAMS)
+    rows["collective_pack"] = dict(
+        source="src/repro_torch/kernels/csrc/collective_quant.cu",
+        replaces="src/repro/kernels/collective_quant.py:57",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: ops.collective_pack_leaves(ds, wf, rs, absmax, lv)),
+        launch_ms=time_ms(launch("collective_quant", "repro_collective_pack", "collective_pack",
+                                 table, len(ds), wf.data_ptr(), None, absmax.data_ptr(), 1,
+                                 q_o.data_ptr(), s_o.data_ptr(), r_o.data_ptr(), n_blocks)),
+        plain_ms=time_ms(lambda: ref.collective_pack_leaves(ds, wf, rs, absmax, lv)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"codes and residuals of {shape}", bytes=nbytes(*ds, *rs, wf, absmax, q, s, new),
+    )
+    b_ms, b_by = bound(nbytes(q, s, total), NP_MAIN)
+    rows["collective_unpack"] = dict(
+        source="src/repro_torch/kernels/csrc/collective_quant.cu",
+        replaces="src/repro/kernels/collective_quant.py:85",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: ops.collective_unpack(q, s)),
+        launch_ms=time_ms(launch("collective_quant", "repro_collective_unpack",
+                                 "collective_unpack", q.data_ptr(), s.data_ptr(), t_o.data_ptr(),
+                                 n_blocks)),
+        plain_ms=time_ms(lambda: ref.collective_unpack(q, s)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.mul(q.view(-1, BLOCK), s[:, None])),
+        shape=f"totals of {shape}", bytes=nbytes(q, s, total),
+    )
+    for name, r in rows.items():
+        r["ptxas"] = ptxas[f"{name}_kernel"]
+
+    def trio():
+        a = ops.collective_absmax(ds, wf, rs, lv)
+        codes, scales, _ = ops.collective_pack_leaves(ds, wf, rs, a, lv)
+        return ops.collective_unpack(codes, scales)
+
+    def composition():
+        return collective_per_leaf(ds, wf, rs, lv, ops.collective_pack, ops.collective_unpack)
+
+    turns = [time_ms(composition), time_ms(trio), time_ms(trio), time_ms(composition)]
+    REPORT["collective_in_turns"] = {"per_leaf_composition_ms": [turns[0], turns[3]],
+                                     "trio_ms": [turns[1], turns[2]]}
+    print(f"collective at the head model's 5 leaves, in turns: the per-leaf composition (the "
+          f"parent's psum code, this tree's single-vector kernels) {turns[0] * 1e3:.2f} / "
+          f"{turns[3] * 1e3:.2f} us, the leaf-table trio {turns[1] * 1e3:.2f} / "
+          f"{turns[2] * 1e3:.2f} us; bound of the trio "
+          f"{sum(r['bound_ms'] for r in rows.values()) * 1e3:.2f} us", flush=True)
     return rows
 
 
@@ -1599,8 +1796,8 @@ def reduced_parity_phase(fleet=PROFILE_FLEET) -> None:
 
 
 PORT_KERNELS = ("quantize_int8_kernel", "dequant_reduce_kernel", "fedavg_reduce_kernel",
-                "topk_scatter_reduce_kernel", "collective_pack_kernel",
-                "collective_unpack_kernel")
+                "topk_scatter_reduce_kernel", "collective_absmax_kernel",
+                "collective_pack_kernel", "collective_unpack_kernel")
 # the serving paths' kernels by wrapper, as the profiler names them
 SERVING_KERNELS = {
     "flash_attention": ("flash_attention_kernel",),
@@ -1779,10 +1976,15 @@ MESH_BUDGETS = [8, 7, 6, 5]
 MESH_CASES = (("fp32", "Int8Codec"), ("int8", "Int8Codec"), ("int8", "NullCodec"),
               ("fp32", "TopKCodec"))
 MESH_MASKED = ("int8", "Int8Codec")   # rank 0 sits out its round 2
-# launches per rank per round: (quantize, dequantize, collective_pack,
-# collective_unpack); every other kernel 0
-MESH_LAUNCHES = {("fp32", "Int8Codec"): (1, 1, 0, 0), ("int8", "Int8Codec"): (1, 1, 5, 10),
-                 ("int8", "NullCodec"): (0, 0, 5, 10), ("fp32", "TopKCodec"): (0, 0, 0, 0)}
+# launches per rank per round: (quantize, dequantize, collective_absmax,
+# collective_pack, collective_unpack); every other kernel 0
+MESH_LAUNCHED = ("quantize_int8", "dequantize_int8", "collective_absmax", "collective_pack",
+                 "collective_unpack")
+MESH_LAUNCHES = {("fp32", "Int8Codec"): (1, 1, 0, 0, 0), ("int8", "Int8Codec"): (1, 1, 1, 1, 1),
+                 ("int8", "NullCodec"): (0, 0, 1, 1, 1), ("fp32", "TopKCodec"): (0, 0, 0, 0, 0)}
+# the int8 collective's all-reduces per rank per round, one each a tier:
+# (MAX over the fp32 absmax, SUM over the int32 codes)
+MESH_COLLECTIVE_CALLS = {"fp32": (0, 0), "int8": (2, 2)}
 TRANSPORT = "gloo, host-staged, 4 ranks on one card"
 
 
@@ -1825,7 +2027,8 @@ def mesh_rank(mesh, cases, n_rounds: int, profiled: bool) -> dict:
     counts set to 0 before each round and read after it, then (with
     ``profiled``) one more round, rank 0's under torch.profiler.  Returns
     host data only: per round the host seconds, launches and metrics,
-    rank 0's new global, this rank's uplink residual row, and for the int8
+    rank 0's new global, this rank's uplink residual row, the all-reduces
+    it made (MAX calls, SUM calls over int32, all calls), and for the int8
     collective rank 0's shared block scales and the largest |residual| /
     (scale / 2) of this rank's new collective residual row; the final
     global's digest and eval loss."""
@@ -1847,15 +2050,22 @@ def mesh_rank(mesh, cases, n_rounds: int, profiled: bool) -> dict:
     batches, weights, budgets, ev = mesh_inputs(model, dev)
     r = mesh.rank
 
-    # read the shared scales each collective_pack is given (one per model
-    # leaf); the launch and its count stay the package's own
-    packed, pack = [], ops.collective_pack
+    # read the shared scales collective_pack_leaves derives (split per model
+    # leaf), and count the all-reduces; the launches, the calls and their
+    # counts stay the package's own
+    packed, pack, calls, all_reduce = [], ops.collective_pack_leaves, [], dist.all_reduce
 
-    def logged_pack(x, scales):
-        packed.append(scales)
-        return pack(x, scales)
+    def logged_pack(ds, wf, rs, absmax, live=None):
+        q, scales, new_r = pack(ds, wf, rs, absmax, live)
+        starts = ops.first_blocks(d.shape[0] for d in ds)
+        packed.extend(scales[a:b] for a, b in zip(starts, starts[1:]))
+        return q, scales, new_r
 
-    ops.collective_pack = logged_pack
+    def counted_all_reduce(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        calls.append((op == dist.ReduceOp.MAX, tensor.dtype))
+        return all_reduce(tensor, op=op, group=group, async_op=async_op)
+
+    ops.collective_pack_leaves, dist.all_reduce = logged_pack, counted_all_reduce
 
     def mine(t):
         return tree_map(lambda x: x[r:r + 1], t)
@@ -1877,7 +2087,7 @@ def mesh_rank(mesh, cases, n_rounds: int, profiled: bool) -> dict:
             state = (state, init_collective_residual(params, 1))
         g = params
         rec = {"host_s": [], "launches": [], "metrics": [], "params": [], "codec_rows": [],
-               "scales": [], "resid_over_half_scale": []}
+               "scales": [], "resid_over_half_scale": [], "all_reduces": []}
         for rnd in range(n_rounds):
             m = mesh_mask((collective, name), rnd)
             mask = None if m is None else torch.tensor(m[r:r + 1], device=dev)
@@ -1885,6 +2095,7 @@ def mesh_rank(mesh, cases, n_rounds: int, profiled: bool) -> dict:
             torch.cuda.synchronize()
             dist.barrier()
             packed.clear()
+            calls.clear()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             g, _, state, met = step(g, (), state, mine(batches), mine(weights), mine(budgets),
@@ -1892,6 +2103,9 @@ def mesh_rank(mesh, cases, n_rounds: int, profiled: bool) -> dict:
             torch.cuda.synchronize()
             rec["host_s"].append(time.perf_counter() - t0)
             rec["launches"].append(ops.launch_counts())
+            rec["all_reduces"].append((sum(is_max for is_max, _ in calls),
+                                       sum(not m and t == torch.int32 for m, t in calls),
+                                       len(calls)))
             rec["metrics"].append({k: float(v) for k, v in met.items()})
             if mask is not None:
                 pairs = list(zip(tree_leaves(state_in), tree_leaves(state), strict=True))
@@ -1996,13 +2210,17 @@ def mesh_phase(card: str) -> dict:
         recs = [rk[case] for rk in ranks]
         label = f"mesh {collective} collective x {name}"
         want = MESH_LAUNCHES[case]
-        got = [[(k["quantize_int8"], k["dequantize_int8"], k["collective_pack"],
-                 k["collective_unpack"]) for k in rec["launches"]] for rec in recs]
+        got = [[tuple(k[o] for o in MESH_LAUNCHED) for k in rec["launches"]] for rec in recs]
         others = all(k[o] == 0 for rec in recs for k in rec["launches"]
                      for o in ("fedavg_reduce", "dequant_reduce", "topk_scatter_reduce"))
-        check(f"{label}: launches per rank per round {want} (quantize, dequantize, "
-              "collective_pack, collective_unpack), no reduce kernel",
+        check(f"{label}: launches per rank per round {want} ({', '.join(MESH_LAUNCHED)}), "
+              "no reduce kernel",
               all(x == want for g in got for x in g) and others, launches=got[0])
+        calls = [[c[:2] for c in rec["all_reduces"]] for rec in recs]
+        check(f"{label}: the collective's all-reduces per rank per round "
+              f"{MESH_COLLECTIVE_CALLS[collective]} (MAX over fp32, SUM over int32; one each "
+              "a tier)", all(c == MESH_COLLECTIVE_CALLS[collective] for g in calls for c in g),
+              all_reduces=recs[0]["all_reduces"])
         check(f"{label}: the new global is the same on every rank",
               len({rec["params_sha"] for rec in recs}) == 1)
         losses = [m["client_loss_mean"] for m in recs[0]["metrics"]]
@@ -2027,8 +2245,16 @@ def mesh_phase(card: str) -> dict:
               f"of round 3; {TRANSPORT} ({card})", flush=True)
         out[f"{collective}/{name}"] = {
             "host_s": [rec["host_s"] for rec in recs], "launches": got[0],
+            "all_reduces": recs[0]["all_reduces"],
             "metrics": recs[0]["metrics"], "eval_loss": recs[0]["eval_loss"], "profile": prof,
         }
+    for name in ("Int8Codec", "NullCodec"):
+        fp32 = out.get(f"fp32/{name}")
+        fp32_s = "" if fp32 is None else (
+            f" against the fp32 collective's {[round(x, 4) for x in fp32['host_s'][0]]}")
+        print(f"mesh {name} uplink: the int8 collective's host s per round (rank 0) "
+              f"{[round(x, 4) for x in out[f'int8/{name}']['host_s'][0]]}{fp32_s}; "
+              f"{TRANSPORT} ({card})", flush=True)
     out["breakdown"] = ranks[0]["breakdown"]
     print(f"mesh round parts (rank 0, median of 5): local update "
           f"{out['breakdown']['local_update_s']:.4f} s, fp32 all-reduce of every leaf over "
@@ -2045,7 +2271,7 @@ def mesh_phase(card: str) -> dict:
           eval_loss_init=l_0, eval_loss_int8=l_i8, eval_loss_fp32=l_fp)
     out["eval_loss"] = {"init": l_0, "fp32": l_fp, "int8": l_i8}
     out["launches"] = {k: sum(c[k] for case in MESH_CASES for c in ranks[0][case]["launches"])
-                       for k in ("collective_pack", "collective_unpack")}
+                       for k in ("collective_absmax", "collective_pack", "collective_unpack")}
     out["nccl"] = nccl_single_rank(model, params, batches, weights, budgets, card)
     print(f"mesh phase: {wall:.1f} s wall for the 4 gloo ranks, spawn included ({card})",
           flush=True)
@@ -2146,9 +2372,13 @@ def nccl_single_rank(model, params, batches, weights, budgets, card) -> dict:
         rec = rank[case]
         vmap_reference(model, params, batches, weights, budgets, case, [rec],
                        f"nccl 1x1 mesh, {case[0]} collective")
-        check(f"nccl 1x1 mesh, {case[0]} collective: launches",
-              rec["launches"][0]["collective_pack"] == (5 if case[0] == "int8" else 0),
-              launches=rec["launches"][0])
+        want = 1 if case[0] == "int8" else 0
+        check(f"nccl 1x1 mesh, {case[0]} collective: {want} collective_absmax, pack and unpack "
+              f"launch, the collective's all-reduces {MESH_COLLECTIVE_CALLS[case[0]]}",
+              all(rec["launches"][0][k] == want for k in
+                  ("collective_absmax", "collective_pack", "collective_unpack"))
+              and rec["all_reduces"][0][:2] == MESH_COLLECTIVE_CALLS[case[0]],
+              launches=rec["launches"][0], all_reduces=rec["all_reduces"][0])
         out[case[0]] = {"host_s": rec["host_s"]}
     print(f"nccl 1x1 mesh: host s per round fp32 {out['fp32']['host_s'][0]:.4f}, int8 "
           f"{out['int8']['host_s'][0]:.4f}; {wall:.1f} s wall with spawn ({card})", flush=True)
@@ -2508,7 +2738,8 @@ def main() -> int:
 
     kernels = []
     for name in ("quantize_int8", "dequantize_int8", "dequant_reduce", "fedavg_reduce",
-                 "topk_scatter_reduce", "collective_pack", "collective_unpack",
+                 "topk_scatter_reduce", "collective_absmax", "collective_pack",
+                 "collective_unpack",
                  "flash_attention", "decode_attention", "selective_scan"):
         r = rows[name]
         # each kernel's launches on the path that runs it: phase 3's loop,
@@ -2516,8 +2747,8 @@ def main() -> int:
         # kernels phase 7's mesh (rank 0, rounds 1-3 of every case), for
         # the attention kernels phase 8's serving run, for the scan phase
         # 9's
-        path = {"topk_scatter_reduce": mixed, "collective_pack": mesh,
-                "collective_unpack": mesh, "flash_attention": serving,
+        path = {"topk_scatter_reduce": mixed, "collective_absmax": mesh,
+                "collective_pack": mesh, "collective_unpack": mesh, "flash_attention": serving,
                 "decode_attention": serving, "selective_scan": hybrid}.get(name, loop)
         launches = path["launches"][name]
         check(f"{name} launched on its path", launches > 0, launches=launches)

@@ -386,32 +386,51 @@ class CompressedPsum:
        tier's group, inner tier first: a 4-byte-a-block sidecar that makes
        the scale a collective decision, so every rank rounds against the
        same grid and the codes sum exactly;
-    3. ``ops.collective_pack``: int8-valued codes in an int32 container
-       (|q| <= 127, so the int32 sum cannot overflow below a 2**31/127
-       ~= 16.9M fan-in);
+    3. pack: int8-valued codes in an int32 container (|q| <= 127, so the
+       int32 sum cannot overflow below a 2**31/127 ~= 16.9M fan-in);
     4. a SUM all-reduce of the codes per tier, inner tier first (the fp32
        path's hop order);
-    5. one ``ops.collective_unpack`` after the last hop.
+    5. one unpack after the last hop.
 
     The residual ``eff - unpack(pack(eff))`` stays on the rank that made
     it, so the quantized sum telescopes across rounds like the uplink
     codecs' error feedback.  ``groups`` are the tiers' process groups
     ordered outer -> inner like the mesh's client axes; an empty sequence
     reduces over nothing (one rank).  The block is the kernels' 256.
+
+    ``psum_leaves`` runs every leaf of the operand tree at once, as the
+    mesh round step calls it: one ``ops.collective_absmax``, one MAX
+    all-reduce a tier over all leaves' absmax, one
+    ``ops.collective_pack_leaves``, one SUM all-reduce a tier over all
+    codes, one ``ops.collective_unpack``.  MAX over fp32 and SUM over int32
+    are elementwise and exact, so that is bitwise the reference's per-leaf
+    ``psum``.
     """
 
     block: ClassVar[int] = ops.BLOCK
 
-    def shared_scales(self, eff: torch.Tensor, groups) -> torch.Tensor:
-        """Per-block scales agreed across the reducing ranks: the MAX of the
-        local block absmax over every tier, / 127 (a division by a tensor:
-        CUDA's ``tensor / python_scalar`` multiplies by the reciprocal),
-        zero -> 1."""
-        absmax = eff.abs().reshape(-1, self.block).amax(dim=1)
+    def psum_leaves(self, ds, wf, residuals, groups, live=None):
+        """Every leaf's compressed hierarchical all-reduce, at once.
+
+        ``ds``: (n_i,) fp32 leaves whose weighted sum is reduced, ``wf``: this
+        rank's weight, one fp32 on their device, folded in as ``d * wf``
+        (None: the leaves are already weighted); ``residuals``: (n_i,) fp32,
+        this rank's error-feedback rows; ``live``: one bool, False for a
+        masked rank, which sends nothing (not even its residual) and keeps
+        its rows (None: the rank takes part).  Returns ``(totals,
+        new_residuals)``, lists of (n_i,) fp32 views of two flat buffers:
+        the sum over ranks of the quantized ``d * wf + residual``, and this
+        rank's next residuals."""
+        absmax = ops.collective_absmax(ds, wf, residuals, live)
         for group in reversed(tuple(groups)):
             dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
-        scale = absmax / torch.full_like(absmax, 127.0)
-        return torch.where(absmax == 0.0, torch.ones_like(scale), scale)
+        q, scales, new_flat = ops.collective_pack_leaves(ds, wf, residuals, absmax, live)
+        for group in reversed(tuple(groups)):
+            dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+        total_flat = ops.collective_unpack(q, scales)
+        starts = [b * self.block for b in ops.first_blocks(d.shape[0] for d in ds)]
+        totals = [total_flat[a:a + d.shape[0]] for a, d in zip(starts, ds)]
+        return totals, [new_flat[a:a + d.shape[0]] for a, d in zip(starts, ds)]
 
     def psum(self, wx: torch.Tensor, residual: torch.Tensor, groups):
         """One operand's compressed hierarchical all-reduce.
@@ -421,18 +440,8 @@ class CompressedPsum:
         caller owns participation).  Returns ``(total, new_residual)``: the
         fp32 sum over ranks of the quantized ``wx + residual``, and this
         rank's next residual."""
-        n = wx.shape[0]
-        pad = (-n) % self.block
-        eff = wx + residual
-        effp = F.pad(eff, (0, pad)) if pad else eff
-        scales = self.shared_scales(effp, groups)
-        q = ops.collective_pack(effp, scales)
-        # what THIS rank's codes contribute; the gap is next round's residual
-        sent = ops.collective_unpack(q, scales)[:n]
-        for group in reversed(tuple(groups)):
-            dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
-        total = ops.collective_unpack(q, scales)[:n]
-        return total, eff - sent
+        (total,), (new_residual,) = self.psum_leaves([wx], None, [residual], groups)
+        return total, new_residual
 
     def collective_bytes(self, n: int) -> int:
         """Bytes ONE rank moves across ONE hop for an n-element operand:

@@ -413,9 +413,12 @@ def _make_mesh_round_step(client_update, codec, strategy, spec, mesh, client_axe
         if live is not None:
             # a dropped client never transmitted: its row carries unchanged,
             # and its delta is zeroed BEFORE the all-reduce (zero weight
-            # alone would let a diverged client's 0 * NaN poison the sum)
+            # alone would let a diverged client's 0 * NaN poison the sum;
+            # the int8 collective's kernels send zeros for it themselves)
             new_row = tree_map(lambda n, o: torch.where(live, n, o), new_row, state_row)
-            dec_delta = tree_map(lambda d: torch.where(live, d, torch.zeros_like(d)), dec_delta)
+            if cpsum is None:
+                dec_delta = tree_map(lambda d: torch.where(live, d, torch.zeros_like(d)),
+                                     dec_delta)
             wf = wf * mask[:1].to(torch.float32)
         wsum = all_reduce_tiers(wf.clone())
         wsum = torch.where(wsum == 0.0, torch.ones_like(wsum), wsum)  # safe_weight_sum
@@ -429,24 +432,21 @@ def _make_mesh_round_step(client_update, codec, strategy, spec, mesh, client_axe
             avg = tree_map(leaf_avg, global_params, dec_delta)
             coll_rows, new_client_state = (), codec_rows
         else:
-            # the int8 collective, leaf by leaf; a dropped rank sends nothing,
-            # not even its carried residual, and keeps its residual row
-            def leaf_sum(d, r):
-                wx = d.to(torch.float32).reshape(-1) * wf
-                r = r.reshape(-1)
-                r_in = r if live is None else torch.where(live, r, torch.zeros_like(r))
-                total, new_r = cpsum.psum(wx, r_in, groups)
-                if live is not None:
-                    new_r = torch.where(live, new_r, r)
-                return total.reshape(d.shape), new_r.reshape(d.shape)
-
+            # the int8 collective over every leaf at once; a dropped rank
+            # sends nothing, not even its carried residual, and keeps its
+            # residual rows
             resid_row = tree_map(lambda x: x[0], coll_resid)
-            pairs = [leaf_sum(d, r) for d, r in
-                     zip(tree_leaves(dec_delta), tree_leaves(resid_row), strict=True)]
-            sums = tree_unflatten(dec_delta, [p[0] for p in pairs])
+            leaves_d, leaves_r = tree_leaves(dec_delta), tree_leaves(resid_row)
+            totals, new_rs = cpsum.psum_leaves(
+                [d.to(torch.float32).reshape(-1) for d in leaves_d], wf,
+                [r.reshape(-1) for r in leaves_r], groups, live,
+            )
+            sums = tree_unflatten(dec_delta, [t.view(d.shape) for t, d in zip(totals, leaves_d)])
             avg = tree_map(lambda g, t: (g.to(torch.float32) + t / wsum).to(g.dtype),
                            global_params, sums)
-            coll_rows = tree_unflatten(resid_row, [p[1][None] for p in pairs])
+            coll_rows = tree_unflatten(
+                resid_row, [r.view(d.shape)[None] for r, d in zip(new_rs, leaves_r)]
+            )
             new_client_state = (codec_rows, coll_rows)
         new_global, new_state = strategy.server_update(avg, global_params, server_state, rnd)
 

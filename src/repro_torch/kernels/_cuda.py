@@ -52,7 +52,8 @@ SIGNATURES = {
         "repro_topk_scatter_reduce": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
     },
     "collective_quant": {
-        "repro_collective_pack": (_P, _P, _P, _I64, _P),
+        "repro_collective_absmax": (_P, _I64, _P, _P, _P, _I64, _P),
+        "repro_collective_pack": (_P, _I64, _P, _P, _P, _I64, _P, _P, _P, _I64, _P),
         "repro_collective_unpack": (_P, _P, _P, _I64, _P),
     },
     "flash_attention": {
@@ -74,7 +75,7 @@ SIGNATURES = {
 LAUNCHES = {
     "fedavg_reduce": 0, "quantize_int8": 0, "dequantize_int8": 0,
     "dequant_reduce": 0, "topk_scatter_reduce": 0,
-    "collective_pack": 0, "collective_unpack": 0,
+    "collective_absmax": 0, "collective_pack": 0, "collective_unpack": 0,
     "flash_attention": 0, "decode_attention": 0, "selective_scan": 0,
 }
 

@@ -14,8 +14,11 @@ import torch.nn.functional as F
 from repro_torch.utils.pytree import safe_weight_sum
 
 from . import _cuda, ref
+from .collective_quant import collective_absmax as _absmax_kernel
 from .collective_quant import collective_pack as _pack_kernel
+from .collective_quant import collective_pack_leaves as _pack_leaves_kernel
 from .collective_quant import collective_unpack as _unpack_kernel
+from .collective_quant import first_blocks
 from .decode_attention import decode_attention as _decode_kernel
 from .dequant_reduce import dequant_reduce as _dequant_reduce_kernel
 from .fedavg_reduce import fedavg_reduce as _fedavg_reduce_kernel
@@ -126,6 +129,34 @@ def collective_unpack(q, scales):
     if _on_card(q, scales):
         return _unpack_kernel(q, scales)
     return ref.collective_unpack(q, scales, block=BLOCK)
+
+
+def _leaf_tensors(ds, wf, rs, live):
+    return [*ds, *rs, *(t for t in (wf, live) if t is not None)]
+
+
+def collective_absmax(ds, wf, rs, live=None):
+    """A rank's operand over every model leaf -> its per-256-block absmax,
+    (Nb,) fp32, the blocks of all leaves in order (``first_blocks``), NaN
+    kept.  Leaf i's eff is ``ds[i] * wf + rs[i]`` (``wf`` None: no
+    multiply), padded with zeros to a block multiple; with ``live``
+    False the rank sends nothing, its eff is 0.  ``wf`` and ``live`` are
+    one-element tensors beside the leaves (the kernel reads them there)."""
+    if _on_card(*_leaf_tensors(ds, wf, rs, live)):
+        return _absmax_kernel(ds, wf, rs, live)
+    return ref.collective_absmax(ds, wf, rs, live, block=BLOCK)
+
+
+def collective_pack_leaves(ds, wf, rs, absmax, live=None):
+    """The leaves as for ``collective_absmax`` and the absmax every rank
+    agreed on (the MAX all-reduce of theirs) -> (codes int32 (Np,), scales
+    (Nb,), new residuals fp32 (Np,)); leaf i's codes and residual fill
+    slots [256 b_i, 256 b_i + n_i) with b_i = ``first_blocks(sizes)[i]``.
+    A masked rank (``live`` False) sends zero codes and carries its
+    residual."""
+    if _on_card(absmax, *_leaf_tensors(ds, wf, rs, live)):
+        return _pack_leaves_kernel(ds, wf, rs, absmax, live)
+    return ref.collective_pack_leaves(ds, wf, rs, absmax, live, block=BLOCK)
 
 
 # ---------------- attention (the transformer's prefill and decode) ----------------

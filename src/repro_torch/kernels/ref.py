@@ -83,6 +83,54 @@ def collective_unpack(q: torch.Tensor, scales: torch.Tensor, block: int = 256) -
     return (qf * scales.to(torch.float32)[:, None]).reshape(-1)
 
 
+def collective_eff(d: torch.Tensor, wf, r: torch.Tensor, live=None,
+                   block: int = 256) -> torch.Tensor:
+    """One leaf of a rank's collective operand: eff = d * wf + r (wf None:
+    no multiply), zero for a masked rank (``live`` False: it sends
+    nothing, not even its residual), padded with zeros to a block
+    multiple.  The reference's order: ``(d * wf) + r``, each one rounding."""
+    eff = d.to(torch.float32)
+    if wf is not None:
+        eff = eff * wf
+    eff = eff + r
+    if live is not None:
+        eff = torch.where(live, eff, torch.zeros_like(eff))
+    pad = (-eff.shape[0]) % block
+    return torch.nn.functional.pad(eff, (0, pad)) if pad else eff
+
+
+def collective_absmax(ds, wf, rs, live=None, block: int = 256) -> torch.Tensor:
+    """Every leaf's padded ``collective_eff`` -> the per-block max |eff| of
+    all leaves in order, (Nb,) fp32; ``torch.amax`` keeps NaN."""
+    return torch.cat([collective_eff(d, wf, r, live, block).abs().reshape(-1, block).amax(dim=1)
+                      for d, r in zip(ds, rs, strict=True)])
+
+
+def collective_pack_leaves(ds, wf, rs, absmax, live=None, block: int = 256):
+    """The leaves' agreed (Nb,) absmax -> (codes int32 (Np,), scales (Nb,),
+    new residuals fp32 (Np,)), leaf by leaf: scale = absmax / 127 (a
+    division by a tensor) with 0 -> 1, ``collective_pack`` of the padded
+    eff, and eff - ``collective_unpack`` of its codes; a masked rank's
+    residual carried as it was.  Leaf i fills its blocks of the flat
+    outputs, the pad slots included."""
+    scales = torch.where(absmax == 0.0, torch.ones_like(absmax),
+                         absmax / torch.full_like(absmax, 127.0))
+    qs, news, b = [], [], 0
+    for d, r in zip(ds, rs, strict=True):
+        effp = collective_eff(d, wf, r, live, block)
+        nb = effp.shape[0] // block
+        s = scales[b:b + nb]
+        q = collective_pack(effp, s, block)
+        new = effp - collective_unpack(q, s, block)
+        if live is not None:
+            carried = torch.nn.functional.pad(r, (0, effp.shape[0] - r.shape[0]))
+            new = torch.where(live, new, carried)
+        qs.append(q)
+        news.append(new)
+        b += nb
+    return torch.cat(qs), scales, torch.cat(news)
+
+
 def dequant_reduce(
     q: torch.Tensor,        # (C, N) int8 wire payload
     scales: torch.Tensor,   # (C, N/block) fp32 block scales

@@ -460,6 +460,92 @@ def test_cuda_collective_pack_edges(cuda):
         ops.collective_pack(x[:200], s[:1])  # N % 256 != 0
 
 
+# the head model's leaves in JAX's order: base.w, head.b1, head.b2, head.w1, head.w2
+HEAD_LEAVES = (1_638_400, 256, 31, 327_680, 7_936)
+
+
+def _same_bits(a, b):
+    """Bitwise, a NaN matching any NaN (the card makes its own NaN bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a).view(torch.int32), torch.where(nan, 0.0, b).view(torch.int32))
+
+
+def _leaf_inputs(cuda, seed, live):
+    """The head model's leaves as views of one flat vector at JAX's leaf
+    offsets (head.w1 and head.w2 start 12 bytes past a 16-byte boundary),
+    residual rows apart, an example-count weight (zero for a masked rank,
+    as the round step folds the mask in) and the live flag.  base.w holds
+    a NaN block, an inf block and an all-zero block (scale 1)."""
+    rng = np.random.default_rng(seed)
+    flat = _t(_delta(rng, (sum(HEAD_LEAVES),))).to(cuda)
+    rs = [(_t(_delta(rng, (n,))) * 1e-3).to(cuda) for n in HEAD_LEAVES]
+    flat[3 * 256 + 10], flat[5 * 256 + 3] = float("nan"), float("inf")
+    flat[7 * 256:8 * 256] = 0.0
+    rs[0][7 * 256:8 * 256] = 0.0
+    ds = list(torch.split(flat, HEAD_LEAVES))
+    assert [d.data_ptr() % 16 for d in ds] == [0, 0, 0, 12, 12]
+    lv = None if live is None else torch.tensor(live, device=cuda)
+    wf = torch.full((1,), 0.0 if live is False else 123.0, device=cuda)
+    return ds, wf, rs, lv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [None, True, False])
+def test_cuda_collective_leaf_table_bitwise(cuda, live):
+    """The three leaf-table launches against their plain versions and
+    against the per-leaf composition they replaced (each leaf's ``psum``,
+    the plain single-vector kernels), bitwise, NaN as NaN: a NaN block
+    keeps its NaN absmax and scale, an inf block gives inf, a zero block
+    scale 1, a masked rank zero codes and its residual carried."""
+    from repro_torch.kernels.collective_quant import first_blocks
+    from torch_kernel_models import collective_per_leaf
+
+    ds, wf, rs, lv = _leaf_inputs(cuda, 22, live)
+    absmax = ops.collective_absmax(ds, wf, rs, lv)
+    assert _same_bits(absmax, ref.collective_absmax(ds, wf, rs, lv))
+    q, s, new = ops.collective_pack_leaves(ds, wf, rs, absmax, lv)
+    want = ref.collective_pack_leaves(ds, wf, rs, absmax, lv)
+    assert torch.equal(q, want[0]) and _same_bits(s, want[1]) and _same_bits(new, want[2])
+    total = ops.collective_unpack(q, s)
+    assert _same_bits(total, ref.collective_unpack(q, s))
+    per_leaf = collective_per_leaf(ds, wf, rs, lv, ref.collective_pack, ref.collective_unpack)
+    starts = first_blocks(HEAD_LEAVES)
+    for (am, sc, code, tot, row), a, b, n in zip(per_leaf, starts, starts[1:], HEAD_LEAVES):
+        assert _same_bits(absmax[a:b], am) and _same_bits(s[a:b], sc)
+        assert torch.equal(q[a * 256:b * 256], code)
+        assert _same_bits(total[a * 256:a * 256 + n], tot)
+        assert _same_bits(new[a * 256:a * 256 + n], row)
+    assert float(s[7]) == 1.0
+    if live is not False:
+        assert bool(torch.isnan(s[3])) and bool(torch.isinf(s[5]))
+    else:
+        assert not q.any() and all(torch.equal(new[a * 256:a * 256 + n], r)
+                                   for a, n, r in zip(starts, HEAD_LEAVES, rs))
+
+
+@pytest.mark.cuda
+def test_cuda_psum_leaves_one_launch_each(cuda):
+    """``CompressedPsum.psum_leaves`` launches each of the three kernels once
+    over all five leaves, and its totals and residuals are views of one flat
+    buffer each, a leaf's slice at its first block."""
+    from repro_torch.core import CompressedPsum
+
+    ds, wf, rs, lv = _leaf_inputs(cuda, 23, True)
+    before = ops.launch_counts()
+    totals, new_rs = CompressedPsum().psum_leaves(ds, wf, rs, (), lv)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "collective_absmax": 1, "collective_pack": 1, "collective_unpack": 1}
+    assert [t.shape[0] for t in totals] == [r.shape[0] for r in new_rs] == list(HEAD_LEAVES)
+    assert len({t.untyped_storage().data_ptr() for t in totals}) == 1
+    assert all(r.data_ptr() % 16 == 0 for r in new_rs)
+
+
 # ---------------- attention (the transformer's prefill and decode) ----------------
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 

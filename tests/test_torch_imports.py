@@ -20,7 +20,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_ablation.py", ROOT / "decode_ablation.py",
     ROOT / "scan_ablation.py", ROOT / "codec_ablation.py", ROOT / "reduce_ablation.py",
-    ROOT / "tests" / "torch_mesh_ranks.py",
+    ROOT / "collective_ablation.py", ROOT / "tests" / "torch_mesh_ranks.py",
     ROOT / "tests" / "torch_kernel_models.py",
 ]
 

@@ -13,9 +13,9 @@ before any indexing: indexing a mesh-sharded array directly raises
 Each round is compared from the same inputs: JAX's round step starts from
 the state the port's round started from (params, codec and collective
 residual rows), so a difference cannot carry into later rounds, and the
-ranks log what they fed ``ops.collective_pack`` (their padded ``eff`` and
-the shared scales) and ``ops.quantize_int8`` (the Int8 uplink's value and
-scales).
+ranks log what they fed ``ops.collective_pack_leaves`` (per leaf their
+padded ``eff`` and its shared scales) and ``ops.quantize_int8`` (the Int8
+uplink's value and scales).
 
 Tolerances:
 - params and residual rows ``rtol=atol=1e-6``, metrics ``rtol=1e-5``,
@@ -176,7 +176,7 @@ def _jax_round(port_run, case, rnd):
 
 def _log_rows(port_run, case, rnd, key, item, sizes):
     """One logged array of every rank, split per model leaf: ``item`` 0 is
-    the value the op got (``collective_pack``'s padded, the uplink's
+    the value the op got (``collective_pack_leaves``' padded, the uplink's
     ``quantize_int8``'s not), 1 its block scales repeated onto the value's
     entries.  ``key`` "coll_log" holds one entry per leaf,
     "uplink_log" one for the whole flat delta."""
@@ -348,6 +348,22 @@ def test_mesh_masked_rank_carries_its_rows(port_run, collective, codec_name):
             assert any(not np.array_equal(a, b) for a, b in
                        zip(live[0][key], live[1][key], strict=True))
     assert all(port_run[r][case]["mask_none_same"] for r in range(C))
+
+
+@pytest.mark.parametrize("collective,codec_name", CASES)
+def test_mesh_collective_all_reduces_once_a_tier(port_run, collective, codec_name):
+    """The int8 collective reduces every leaf at once: per rank and round
+    one MAX all-reduce of the block absmax and one SUM of the int32 codes a
+    tier (2 tiers), where a call a leaf made 10 of each; the fp32
+    collective makes neither (its SUMs are fp32, one a leaf and tier)."""
+    case = (collective, codec_name)
+    n_leaves = len(jax.tree.leaves(_jax_model()[1]))
+    for r in range(C):
+        for rnd in port_run[r][case]["rounds"]:
+            n_max, n_int32, n_all = rnd["all_reduces"]
+            assert (n_max, n_int32) == ((2, 2) if collective == "int8" else (0, 0))
+            if collective == "fp32":
+                assert n_all >= 2 * n_leaves
 
 
 @pytest.mark.parametrize("collective,codec_name", CASES)

@@ -203,3 +203,68 @@ def dequantize_launch(q: np.ndarray, scales: np.ndarray, resident_ctas: int):
                     x[span] = q[span].astype(np.float32) * s[j // 2]
                     writes[span] += 1
     return x, code_reads, scale_reads, writes
+
+
+# ---------------- csrc/collective_quant.cu: the leaf table ----------------
+def collective_leaf_walk(sizes, resident_ctas: int):
+    """``collective_absmax_kernel`` and ``collective_pack_kernel``'s work
+    split over a table of leaves of ``sizes`` values: leaf i owns blocks
+    [first_i, first_i + ceil(n_i / 256)) of the flat layout; warp w of the
+    grid's ``stride`` warps takes blocks w, w + stride, ... and finds each
+    one's leaf by walking the table forward from the last it found; lane l
+    reads values [4l, 4l + 4) and [128 + 4l, ...) of the leaf's block, only
+    those before the leaf's n.  Returns (the leaf found for each block,
+    visits per block, reads per value of each leaf)."""
+    first = [0]
+    for n in sizes:
+        first.append(first[-1] + -(-n // CODEC_BLOCK))
+    n_blocks = first[-1]
+    stride = codec_grid(n_blocks, resident_ctas) * CODEC_WARPS
+    found = np.full(n_blocks, -1, np.int64)
+    visits = np.zeros(n_blocks, np.int64)
+    reads = [np.zeros(n, np.int64) for n in sizes]
+    for warp in range(stride):
+        leaf = 0
+        for blk in range(warp, n_blocks, stride):
+            while first[leaf + 1] <= blk:
+                leaf += 1
+            found[blk] = leaf
+            visits[blk] += 1
+            base = (blk - first[leaf]) * CODEC_BLOCK
+            for lane in range(32):
+                for i in (base + 4 * lane, base + 128 + 4 * lane):
+                    reads[leaf][i:min(i + 4, sizes[leaf])] += 1
+    return found, visits, reads
+
+
+def collective_per_leaf(ds, wf, rs, live, pack, unpack, block: int = 256):
+    """The per-leaf composition that the leaf-table collective kernels
+    replaced: the mesh round step zeroing a masked rank's leaves, then
+    ``CompressedPsum.psum`` once a leaf with no tier to reduce over:
+    wx = d * wf, eff = wx + (r, or 0 for a masked rank), padded, the block
+    absmax (``torch.amax``: NaN kept), scale = absmax / 127 (0 -> 1),
+    ``pack``, ``unpack`` of the codes twice (what the rank sent, and the
+    total after the hops), eff - sent, and a masked rank's residual
+    carried.  Returns per leaf (absmax, scales, codes, total, new
+    residual)."""
+    out = []
+    for d, r in zip(ds, rs, strict=True):
+        n = d.shape[0]
+        if live is not None:
+            d = torch.where(live, d, torch.zeros_like(d))
+        wx = d * wf
+        r_in = r if live is None else torch.where(live, r, torch.zeros_like(r))
+        eff = wx + r_in
+        pad = (-n) % block
+        effp = torch.nn.functional.pad(eff, (0, pad)) if pad else eff
+        absmax = effp.abs().reshape(-1, block).amax(dim=1)
+        s = torch.where(absmax == 0.0, torch.ones_like(absmax),
+                        absmax / torch.full_like(absmax, 127.0))
+        q = pack(effp, s)
+        sent = unpack(q, s)[:n]
+        total = unpack(q, s)[:n]
+        new = eff - sent
+        if live is not None:
+            new = torch.where(live, new, r)
+        out.append((absmax, s, q, total, new))
+    return out

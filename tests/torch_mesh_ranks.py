@@ -16,7 +16,7 @@ import torch.distributed as dist
 
 import repro_torch.core as T
 from repro_torch.configs.base import get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.optim import sgd
 from repro_torch.utils.pytree import tree_flatten_to_vector, tree_leaves
@@ -29,34 +29,56 @@ def _np_rows(state):
 
 
 class OpsLog:
-    """Keeps what the round fed two ``ops`` entry points: per
-    ``collective_pack`` call (one per model leaf) this rank's padded
-    ``eff = wx + residual`` and the shared scales, and per
+    """Keeps what the round fed two ``ops`` entry points, and its
+    all-reduces: per ``collective_pack_leaves`` call (one a round, over
+    every model leaf), per leaf this rank's padded ``eff = wx + residual``
+    (the plain version's ``ref.collective_eff`` of the call's leaf, weight,
+    residual and live flag) and the shared scales of its blocks; per
     ``quantize_int8`` call (the Int8 uplink) the value it quantized and the
-    block scales it chose.  ``install`` wraps them in this rank's process."""
+    block scales it chose; per ``dist.all_reduce`` whether it was a MAX and
+    its dtype.  ``install`` wraps them in this rank's process."""
 
     coll: ClassVar[list] = []
     uplink: ClassVar[list] = []
+    calls: ClassVar[list] = []
 
     @classmethod
     def install(cls):
-        pack, quantize = ops.collective_pack, ops.quantize_int8
+        pack, quantize = ops.collective_pack_leaves, ops.quantize_int8
 
-        def collective_pack(x, scales):
-            cls.coll.append((x.numpy().copy(), scales.numpy().copy()))
-            return pack(x, scales)
+        def collective_pack_leaves(ds, wf, rs, absmax, live=None):
+            q, scales, new_r = pack(ds, wf, rs, absmax, live)
+            starts = ops.first_blocks(d.shape[0] for d in ds)
+            for d, r, a, b in zip(ds, rs, starts, starts[1:]):
+                eff = ref.collective_eff(d, wf, r, live, block=ops.BLOCK)
+                cls.coll.append((eff.numpy().copy(), scales[a:b].numpy().copy()))
+            return q, scales, new_r
 
         def quantize_int8(x, block=256):
             q, scale = quantize(x, block=block)
             cls.uplink.append((x.numpy().copy(), scale.numpy().copy()))
             return q, scale
 
-        ops.collective_pack, ops.quantize_int8 = collective_pack, quantize_int8
+        all_reduce = dist.all_reduce
+
+        def counted_all_reduce(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+            cls.calls.append((op == dist.ReduceOp.MAX, tensor.dtype))
+            return all_reduce(tensor, op=op, group=group, async_op=async_op)
+
+        ops.collective_pack_leaves, ops.quantize_int8 = collective_pack_leaves, quantize_int8
+        dist.all_reduce = counted_all_reduce
 
     @classmethod
     def clear(cls):
         cls.coll.clear()
         cls.uplink.clear()
+        cls.calls.clear()
+
+    @classmethod
+    def all_reduces(cls):
+        """The round's all-reduces: (MAX calls, SUM calls over int32, all)."""
+        return (sum(m for m, _ in cls.calls),
+                sum(not m and t == torch.int32 for m, t in cls.calls), len(cls.calls))
 
 
 def layout(mesh):
@@ -76,8 +98,8 @@ def mesh_rounds(mesh, cases, params_np, batches_np, weights, budgets, masks, ste
     case also runs its first round with ``mask=None`` and reports whether
     that equals the all-ones mask bitwise.  For the int8 collective each
     round also returns, per model leaf, the padded ``eff`` and the shared
-    scales of this rank's ``CompressedPsum.psum``, and for the Int8 uplink
-    the value it quantized and its scales (``OpsLog``)."""
+    scales of this rank's ``CompressedPsum.psum_leaves``, and for the Int8
+    uplink the value it quantized and its scales (``OpsLog``)."""
     OpsLog.install()
     r = mesh.rank
     model = build_model(get_config("mobilenet-head-office31").reduced(), device="cpu")
@@ -102,7 +124,7 @@ def mesh_rounds(mesh, cases, params_np, batches_np, weights, budgets, masks, ste
             ops.reset_launch_counts()
             OpsLog.clear()
             g_new, _, state_new, met = step(g, (), state, batches, w, bud, rnd, mask)
-            launches = ops.launch_counts()
+            launches, all_reduces = ops.launch_counts(), OpsLog.all_reduces()
             coll_log, uplink_log = list(OpsLog.coll), list(OpsLog.uplink)
             if rnd == 0:
                 g_none, _, s_none, _ = step(g, (), state, batches, w, bud, rnd, None)
@@ -118,6 +140,7 @@ def mesh_rounds(mesh, cases, params_np, batches_np, weights, budgets, masks, ste
                 "codec_row": _np_rows(codec_state),
                 "coll_row": _np_rows(coll),
                 "launches": launches,
+                "all_reduces": all_reduces,
                 "coll_log": coll_log,
                 "uplink_log": uplink_log,
             })
