@@ -22,6 +22,9 @@ Phases (any failure exits non-zero):
    (fedavg_reduce, in fp32 and bf16) bitwise against the composition it
    replaced in both forms with integer weights and as one device kernel a
    call in the profiler, timed beside a device copy moving the same bytes,
+   (fedavg_reduce at C = 2 and 64, dequant_reduce at C = 6 and 64) with
+   FedBuff's staleness weights n / (1 + s) ** 0.5 in both forms, within
+   4C units of 2**-24 * sum_c |w_c x_c| of the plain version,
    (dequant_reduce) at C = 6, 64 and a ragged 3 blocks, bitwise against
    the composition it replaced and its model in both forms with integer
    weights, as one device kernel a call in the profiler (C = 6 and 64),
@@ -52,6 +55,21 @@ Phases (any failure exits non-zero):
 3b. the same over the paper's mixed fleet: 4 phones (TopK), 4 Jetsons
    (Int8), 2 datacenter-class clients (Null), then its reduced-width
    card-vs-CPU replay as in phase 4;
+3c. the rest of the strategy family on the mixed fleet at full width, 3
+   rounds each: FedTau (tau = the Jetson TX2 GPU's full round), FedProx
+   (mu = 0.01), FedAdam, FedYogi, FedAvgM and FedBuff (K = 5, under its own
+   policy), with the launch counts read every round against what it
+   dispatched and aggregated, the global and server state on the card,
+   FedTau's budgets and History.steps, FedBuff's stale updates and
+   FedOpt's moments; FedAdam over the four phones alone (TopK) leaving
+   every coordinate no client sent bitwise unchanged; each strategy's
+   reduced-width card run replayed in order through a CPU strategy of the
+   same config (globals and moments within rtol=atol=1e-6); a profiled
+   FedAdam round;
+3d. the paper's tables (repro_torch.benchmarks.paper_tables: table2a,
+   table2b, table3 at their defaults) on the card and on the CPU: labels,
+   simulated minutes and kJ equal, accuracy within 0.02, and the tables'
+   trends;
 4. run the phase-3 loop at reduced width on the card and on the CPU (where
    the plain versions run) from the same seed, replay the card's uploads
    through the CPU aggregation, and compare;
@@ -111,7 +129,8 @@ Phases (any failure exits non-zero):
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
 to DIR/chip_smoke.json and the profiled round's trace to
-DIR/round3_trace.json and DIR/mixed_fleet_round3_trace.json, the serving
+DIR/round3_trace.json, DIR/mixed_fleet_round3_trace.json and
+DIR/fedadam_mixed_fleet_round3_trace.json, the serving
 traces to DIR/serving_{prefill,decode}_trace.json and
 DIR/hybrid_{prefill,decode}_trace.json (DIR defaults to smoke_out).  If
 ``repro_torch`` cannot be imported (the script run away from the
@@ -143,6 +162,7 @@ BF16_FLOP_PER_CLOCK_PER_SM = 4096
 BLOCK = 256
 N_PARAMS = 1_974_303          # mobilenet-head-office31, frozen base included
 REPORT = {"checks": [], "timings": []}
+T_START = time.perf_counter()
 
 
 def card_line() -> str:
@@ -236,6 +256,7 @@ def kernel_phase(rng) -> dict:
 
     rows["dequant_reduce"] = dequant_reduce_kernel_checks(rng, dev, tol, launch)
     rows["fedavg_reduce"] = fedavg_kernel_checks(dev, tol, launch)
+    fedbuff_weight_checks(dev)
     rows["topk_scatter_reduce"] = topk_kernel_checks(dev, tol, launch)
     collective_kernel_checks(dev, launch)
     rows.update(collective_leaf_checks(dev, launch))
@@ -592,6 +613,44 @@ def fedavg_kernel_checks(dev, tol, launch) -> dict:
                 REPORT["timings"].append({"name": "fedavg_reduce", "case": case, **timing})
         del src, dst
     return row
+
+
+def fedbuff_weight_checks(dev) -> None:
+    """The Null and Int8 reduces with FedBuff's staleness weights, n / (1 +
+    s) ** 0.5 for s = 0-4 (``FedBuffStrategy._fit_weights``): the first
+    non-integer weights on Server.run's path, where the weight sum the
+    launch forms in client order and PyTorch's may round apart.  Stated
+    before the first run: both forms within 4C units of 2**-24 * sum_c
+    |w_c x_c| (over sum w for the mean) of the plain version, the
+    first-order rounding budget of two such reduces
+    (``tests/torch_kernel_models.py``'s ``reduce_error_units``).  fedavg at
+    C = 2 and 64 over N, dequant_reduce at C = 6 and 64 over Np."""
+    from repro_torch.kernels import ops, ref
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_kernel_models import fedbuff_weights, reduce_error_units
+
+    rng = np.random.default_rng(23)
+    for name, c in (("fedavg_reduce", 2), ("fedavg_reduce", 64), ("dequant_reduce", 6),
+                    ("dequant_reduce", 64)):
+        w = fedbuff_weights(rng.integers(10, 500, c)).to(dev)
+        if name == "fedavg_reduce":
+            x = delta_like(rng, (c, N_PARAMS))
+            run = lambda normalize: ops.fedavg_reduce(x, w, normalize=normalize)
+            plain = ref.fedavg_reduce(x, w)
+        else:
+            qr, sr = ref.quantize_int8(delta_like(rng, (c, NP_MAIN)).reshape(-1))
+            q, s = qr.reshape(c, NP_MAIN), sr.reshape(c, NP_MAIN // BLOCK)
+            x = ref.dequantize_int8(qr, sr).reshape(c, NP_MAIN)
+            run = lambda normalize: ops.dequant_reduce(q, s, w, normalize=normalize)
+            plain = ref.dequant_reduce(q, s, w)
+        for normalize in (True, False):
+            want = plain if normalize else ops._denormalize(plain, w)
+            units = reduce_error_units(run(normalize), want, x, w, normalize=normalize)
+            check(f"{name} with FedBuff weights within 4C = {4 * c} units of the plain version "
+                  f"[C={c}, normalize={normalize}]", units <= 4 * c, units=units,
+                  weights=w[:5].tolist())
+        del x
 
 
 # the head model's leaves padded to 256 (base.w, head.b1, head.b2, head.w1,
@@ -1598,12 +1657,17 @@ MIXED_FLEET = (["pixel-4", "pixel-3", "pixel-2", "galaxy-tab-s6"]
 
 
 def flower_loop(arch, device, n_rounds: int, on_round=None, stage_s: dict | None = None,
-                agg_log: list | None = None, fleet=PROFILE_FLEET):
+                agg_log: list | None = None, fleet=PROFILE_FLEET, make_strategy=None,
+                dispatched: list | None = None):
     """The paper's Flower loop on the smoke fleet.  ``on_round()`` runs at
     the end of every round; with ``stage_s`` every client ``fit`` /
     ``evaluate`` and the strategy's ``aggregate_fit`` add their host seconds
     (synchronized) to it; with ``agg_log`` every ``aggregate_fit`` appends
-    (rnd, results, global in, global out), the globals copied to the CPU."""
+    (rnd, results, global in, global out, server state out), the globals
+    and the state copied to the CPU; with ``dispatched`` every client
+    ``fit`` appends its client id.  ``make_strategy(cost_model, clients)``
+    builds the strategy (default: FedAvg under BandwidthCodecPolicy); one
+    with a ``make_policy`` (FedBuff) runs under the policy it makes."""
     from repro_torch.core import (
         PROFILES, BandwidthCodecPolicy, FedAvg, Server, TorchClient,
         make_cost_model_for,
@@ -1639,7 +1703,17 @@ def flower_loop(arch, device, n_rounds: int, on_round=None, stage_s: dict | None
                     batch_size=32, trainable_mask=mask, device_profile=p, device=device)
         for s, p in zip(shards, fleet)
     ]
-    strategy = FedAvg(local_epochs=2, local_lr=0.1, codec_policy=BandwidthCodecPolicy())
+    cost_model = make_cost_model_for(params, [PROFILES[p] for p in fleet])
+    strategy = (FedAvg(local_epochs=2, local_lr=0.1, codec_policy=BandwidthCodecPolicy())
+                if make_strategy is None else make_strategy(cost_model, clients))
+    if dispatched is not None:
+        def logged(fn, cid):
+            def call(ins):
+                dispatched.append(cid)
+                return fn(ins)
+            return call
+        for c in clients:
+            c.fit = logged(c.fit, c.client_id)
     if stage_s is not None:
         for c in clients:
             c.fit, c.evaluate = timed(c.fit, "fit"), timed(c.evaluate, "evaluate")
@@ -1649,13 +1723,14 @@ def flower_loop(arch, device, n_rounds: int, on_round=None, stage_s: dict | None
             def call(rnd, results, global_params):
                 out = fn(rnd, results, global_params)
                 agg_log.append((rnd, results, tree_map(lambda t: t.cpu(), global_params),
-                                tree_map(lambda t: t.cpu(), out)))
+                                tree_map(lambda t: t.cpu(), out),
+                                tree_map(lambda t: t.cpu(), strategy._server_state)))
                 return out
             return call
         strategy.aggregate_fit = recorded(strategy.aggregate_fit)
-    cost_model = make_cost_model_for(params, [PROFILES[p] for p in fleet])
     server = Server(
         strategy=strategy, clients=clients, cost_model=cost_model, device=device,
+        policy=getattr(strategy, "make_policy", lambda: None)(),
         logger=RoundHook("server", stream=sys.stderr),
     )
     return params, cost_model, server.run(params, num_rounds=n_rounds)
@@ -1760,7 +1835,7 @@ def reduced_parity_phase(fleet=PROFILE_FLEET) -> None:
 
     replay_err = 0.0
     cpu_strategy = FedAvg(local_epochs=2, local_lr=0.1)
-    for rnd, results, g_in, g_out in card_log:
+    for rnd, results, g_in, g_out, _ in card_log:
         want = tree_flatten_to_vector(cpu_strategy.aggregate_fit(rnd, results, g_in))
         got = tree_flatten_to_vector(g_out)
         replay_err = max(replay_err, float((got - want).abs().max()))
@@ -1769,7 +1844,7 @@ def reduced_parity_phase(fleet=PROFILE_FLEET) -> None:
               max_abs_err=float((got - want).abs().max()))
 
     atol, flipped = 1e-5, 0
-    for (_, card_res, _, _), (_, cpu_res, _, _) in zip(card_log, cpu_log, strict=True):
+    for (_, card_res, *_), (_, cpu_res, *_) in zip(card_log, cpu_log, strict=True):
         wsum = sum(r.num_examples for _, r in card_res)
         for (_, a), (_, b) in zip(card_res, cpu_res, strict=True):
             kind = type(a.parameters.codec)
@@ -1824,7 +1899,8 @@ def device_time(prof) -> tuple[float, dict]:
     return busy_us, by_kernel
 
 
-def profile_phase(card: str, out_dir: Path, fleet=PROFILE_FLEET) -> dict:
+def profile_phase(card: str, out_dir: Path, fleet=PROFILE_FLEET, make_strategy=None,
+                  label: str | None = None) -> dict:
     """Where a steady full-width round's time goes, on a fresh 3-round run
     of the same loop: round 2's host seconds split by FL stage (each stage
     synchronized), round 3 under torch.profiler (device activity only) for
@@ -1850,13 +1926,14 @@ def profile_phase(card: str, out_dir: Path, fleet=PROFILE_FLEET) -> dict:
             prof.stop()
 
     flower_loop("mobilenet-head-office31", "cuda", 3, on_round=on_round, stage_s=stage_s,
-                fleet=fleet)
+                fleet=fleet, make_strategy=make_strategy)
     round2_s, round3_s = marks[1] - marks[0], marks[2] - marks[1]
     split["other"] = round2_s - sum(split.values())
     busy_us, by_kernel = device_time(prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     ours_us = sum(us for name, us in by_kernel.items() if any(k in name for k in PORT_KERNELS))
-    label = "" if fleet is PROFILE_FLEET else "mixed fleet "
+    if label is None:
+        label = "" if fleet is PROFILE_FLEET else "mixed fleet "
     prof.export_chrome_trace(str(out_dir / f"{label.replace(' ', '_')}round3_trace.json"))
     out = {
         "round2_host_s": round2_s, "round2_stage_s": split,
@@ -1871,6 +1948,249 @@ def profile_phase(card: str, out_dir: Path, fleet=PROFILE_FLEET) -> dict:
           f"round 2's {round2_s:.4f} s ({card})", flush=True)
     for name, us in top:
         print(f"  {us:10.1f} us  {name[:100]}", flush=True)
+    return out
+
+
+# ---------------- phase 3c: the strategy family on the mixed fleet ----------------
+FAMILY = ("fedtau", "fedprox", "fedadam", "fedyogi", "fedavgm", "fedbuff")
+# FedBuff's buffer: half the mixed fleet.  At its default K = 2 the two
+# datacenter clients fill every buffer first and no update is ever stale;
+# at K = 5 stale Int8 and TopK updates reach the reduces in rounds 2 and 3
+FEDBUFF_K = 5
+# each reported codec group's reduce, by codec
+GROUP_REDUCE = {"Int8Codec": "dequant_reduce", "NullCodec": "fedavg_reduce",
+                "TopKCodec": "topk_scatter_reduce"}
+
+
+def family_strategy(name: str, log: dict | None = None):
+    """``flower_loop``'s ``make_strategy`` for strategy ``name`` under
+    BandwidthCodecPolicy, at phase 3's local work (2 epochs, lr 0.1):
+    FedTau's tau is the Jetson TX2 GPU's full round (``tau_for_profile``,
+    paper Table 3), FedProx's mu 0.01, FedBuff with K = FEDBUFF_K (staleness
+    up to 4) under its own policy.  With ``log``, the strategy,
+    its cost model, the clients and each client's codec go there, and
+    every ``aggregate_fit`` appends its reported (client, codec,
+    staleness) to ``log["reported"]``."""
+
+    def make(cost_model, clients):
+        from repro_torch.core import (
+            BandwidthCodecPolicy, FedProx, FedTau, STRATEGIES, tau_from_reference_processor,
+        )
+
+        kw = dict(local_epochs=2, local_lr=0.1, codec_policy=BandwidthCodecPolicy())
+        if name == "fedtau":
+            spe = clients[0].steps_per_epoch()
+            tau = tau_from_reference_processor(cost_model, "jetson-tx2-gpu", epochs=2,
+                                               steps_per_epoch=spe)
+            strategy = FedTau(tau_s=tau, cost_model=cost_model, steps_per_epoch=spe, **kw)
+        elif name == "fedprox":
+            strategy = FedProx(mu=0.01, **kw)
+        elif name == "fedbuff":
+            strategy = STRATEGIES[name](buffer_size=FEDBUFF_K, **kw)
+        else:
+            strategy = STRATEGIES[name](**kw)
+        if log is not None:
+            inner = strategy.aggregate_fit
+
+            def logged(rnd, results, global_params):
+                log["reported"].append([(cid, type(r.parameters.codec).__name__, r.staleness)
+                                        for cid, r in results])
+                return inner(rnd, results, global_params)
+
+            strategy.aggregate_fit = logged
+            log.update(strategy=strategy, cost_model=cost_model, clients=clients, codec={
+                c.client_id: type(strategy.codec_for_client(c.client_id, c.properties())).__name__
+                for c in clients})
+        return strategy
+
+    return make
+
+
+def family_run(name: str, card: str) -> dict:
+    """One strategy at full width on the mixed fleet, 3 rounds, the launch
+    counts read and set to 0 at the end of every round and held against
+    what the round dispatched and aggregated: each dispatched Int8 client
+    one quantize_int8 and one dequantize_int8, each codec group among the
+    reported results one launch of its reduce, nothing else."""
+    from repro_torch.core import FedOpt, FedTau
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import tree_leaves
+
+    log: dict = {"reported": []}
+    dispatched: list[int] = []
+    per_round, marks, moments = [], [], []
+
+    def on_round():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        seen = sum(len(r) for _, _, r in per_round)  # aggregate_fit calls already read
+        per_round.append((ops.launch_counts(), list(dispatched), log["reported"][seen:]))
+        dispatched.clear()
+        ops.reset_launch_counts()
+        if len(marks) == 2 and isinstance(log["strategy"], FedOpt):
+            moments.append(any(float(t.abs().sum()) > 0
+                               for t in tree_leaves(log["strategy"]._server_state)))
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, (final, history) = flower_loop(
+        "mobilenet-head-office31", "cuda", 3, on_round=on_round, fleet=MIXED_FLEET,
+        make_strategy=family_strategy(name, log), dispatched=dispatched)
+    strategy, codec_of = log["strategy"], log["codec"]
+    launches = []
+    for rnd, (counts, sent, reported) in enumerate(per_round, 1):
+        reported = [row for rows in reported for row in rows]
+        int8_sent = sum(codec_of[cid] == "Int8Codec" for cid in sent)
+        want = {k: 0 for k in counts}
+        want.update(quantize_int8=int8_sent, dequantize_int8=int8_sent)
+        for codec in {codec for _, codec, _ in reported}:
+            want[GROUP_REDUCE[codec]] = 1
+        check(f"{name}: round {rnd} launches (an Int8 client sent: 1 quantize + 1 dequantize; "
+              f"a reported codec group: 1 reduce)", counts == want, launches=counts,
+              expected=want, dispatched=sent, reported=reported)
+        launches.append(counts)
+    check(f"{name}: global params and server state on cuda",
+          all(t.is_cuda for t in tree_leaves(final))
+          and all(t.is_cuda for t in tree_leaves(strategy._server_state)))
+    losses = [r.train_loss for r in history.rounds]
+    check(f"{name}: train loss finite", all(math.isfinite(x) for x in losses), train_loss=losses)
+    info = {}
+    if isinstance(strategy, FedTau):
+        clients = log["clients"]
+        budgets = strategy.client_step_budgets([c.client_id for c in clients])
+        full = strategy.local_epochs * strategy.steps_per_epoch
+        cut = [b for b, p in zip(budgets, MIXED_FLEET) if p == "jetson-tx2-cpu"]
+        steps = sum(min(b, strategy.local_epochs * c.steps_per_epoch())
+                    for b, c in zip(budgets, clients))
+        check(f"{name}: jetson-tx2-cpu clients cut below the full {full} steps, History.steps "
+              f"= the budgets' sum {steps}",
+              all(b < full for b in cut) and all(r.steps == steps for r in history.rounds),
+              budgets=budgets, steps=[r.steps for r in history.rounds], tau_s=strategy.tau_s)
+        info["budgets"] = budgets
+    if name == "fedbuff":
+        stale = [r.staleness_mean for r in history.rounds]
+        check(f"{name}: some update reported stale", any(s > 0 for s in stale),
+              staleness_mean=stale, participants=[r.participants for r in history.rounds])
+        info["staleness_mean"] = stale
+    if isinstance(strategy, FedOpt):
+        check(f"{name}: server moments nonzero after round 2", moments == [True])
+    round_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    print(f"{name}: rounds {', '.join(f'{x:.4f}' for x in round_s)} s host wall, train loss "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, eval acc "
+          f"{', '.join(f'{r.eval_acc:.4f}' for r in history.rounds)} ({card})",
+          flush=True)
+    return {"launches": launches, "round_wall_s": round_s, "train_loss": losses,
+            "eval_acc": [r.eval_acc for r in history.rounds],
+            "participants": [r.participants for r in history.rounds], **info}
+
+
+def fedadam_topk_zeros_check() -> dict:
+    """FedAdam over a TopK-only fleet (the four phones) at full width: the
+    pseudo-gradient is exactly zero where no client sent a value, so those
+    coordinates of the global come out of the card bitwise unchanged."""
+    from repro_torch.core.protocol import wire_to_enc
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import tree_flatten_to_vector
+
+    agg_log: list = []
+    ops.reset_launch_counts()
+    flower_loop("mobilenet-head-office31", "cuda", 1, agg_log=agg_log, fleet=MIXED_FLEET[:4],
+                make_strategy=family_strategy("fedadam"))
+    counts = ops.launch_counts()
+    (_, results, g_in, g_out, _), = agg_log
+    touched = torch.zeros(N_PARAMS, dtype=torch.bool)
+    for _, r in results:
+        touched[wire_to_enc(r.parameters, "cpu")["idx"].long()] = True
+    g_in, g_out = tree_flatten_to_vector(g_in), tree_flatten_to_vector(g_out)
+    untouched = ~touched
+    check("fedadam, TopK-only fleet: the coordinates no client sent are bitwise unchanged on "
+          "the card (one TopK reduce, no other kernel)",
+          0 < int(touched.sum()) < N_PARAMS
+          and torch.equal(g_out[untouched], g_in[untouched])
+          and not torch.equal(g_out[touched], g_in[touched])
+          and counts["topk_scatter_reduce"] == 1 and sum(counts.values()) == 1,
+          sent=int(touched.sum()), launches=counts)
+    return {"sent": int(touched.sum()), "launches": counts}
+
+
+def family_replay(name: str) -> float:
+    """The card's uploads at reduced width, replayed in order through a CPU
+    strategy of the same config: the new globals, and FedOpt's moments as
+    they evolve, within rtol=atol=1e-6 of the card's (the reduces' summation
+    order)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.utils.pytree import tree_flatten_to_vector
+
+    log: dict = {"reported": []}
+    card_log: list = []
+    flower_loop(get_config("mobilenet-head-office31").reduced(), "cuda", 3, agg_log=card_log,
+                fleet=MIXED_FLEET, make_strategy=family_strategy(name, log))
+    cpu_strategy = family_strategy(name)(log["cost_model"], log["clients"])
+    worst = 0.0
+    for rnd, results, g_in, g_out, state in card_log:
+        want = tree_flatten_to_vector(cpu_strategy.aggregate_fit(rnd, results, g_in))
+        got = tree_flatten_to_vector(g_out)
+        pairs = [(got, want)]
+        if state:
+            pairs.append((tree_flatten_to_vector(state),
+                          tree_flatten_to_vector(cpu_strategy._server_state)))
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        worst = max(worst, err)
+        check(f"{name}, reduced width: round {rnd} card global{' and state' if state else ''} = "
+              f"the CPU strategy's on the same uploads (rtol=atol=1e-6)",
+              all(torch.allclose(a, b, rtol=1e-6, atol=1e-6) for a, b in pairs),
+              max_abs_err=err)
+    return worst
+
+
+def strategy_family_phase(card: str, out_dir: Path) -> dict:
+    """Phase 3c: the rest of the strategy family behind Server.run on the
+    mixed fleet (phones TopK, Jetsons Int8, datacenter Null)."""
+    out = {name: family_run(name, card) for name in FAMILY}
+    out["fedadam_topk_only"] = fedadam_topk_zeros_check()
+    out["replay_max_abs_err"] = {name: family_replay(name) for name in FAMILY}
+    out["profile_fedadam"] = profile_phase(card, out_dir, MIXED_FLEET,
+                                           make_strategy=family_strategy("fedadam"),
+                                           label="fedadam mixed fleet ")
+    check("fedadam profiled round: the card did work", out["profile_fedadam"]
+          ["round3_device_busy_ms"] > 0, busy_ms=out["profile_fedadam"]["round3_device_busy_ms"])
+    return out
+
+
+# ---------------- phase 3d: the paper's tables ----------------
+def paper_tables_phase(card: str) -> dict:
+    """The twin's table2a, table2b and table3 at their default arguments on
+    the card and on the CPU: labels, simulated minutes and kJ equal (the
+    cost arithmetic does not depend on the device), accuracy within 0.02;
+    2a's time and energy rise with E, 2b's energy with C, and Table 3's
+    cutoff rows take less time than the CPU fleet without one."""
+    from repro_torch.benchmarks import paper_tables
+
+    out = {}
+    for name in ("table2a", "table2b", "table3"):
+        table = getattr(paper_tables, name)
+        t0 = time.perf_counter()
+        rows = table(device="cuda")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_rows = table(device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for (label, acc, minutes, kj), (_, cpu_acc, _, _) in zip(rows, cpu_rows, strict=True):
+            print(f"{name} {label}: acc {acc:.4f} (CPU {cpu_acc:.4f}), {minutes:.4f} sim min, "
+                  f"{kj:.4f} sim kJ ({card})", flush=True)
+        check(f"{name}: labels, minutes and kJ equal on the card and the CPU, accuracy within "
+              f"0.02", [r[0] for r in rows] == [r[0] for r in cpu_rows]
+              and all((a[2], a[3]) == (b[2], b[3]) and abs(a[1] - b[1]) <= 0.02
+                      for a, b in zip(rows, cpu_rows)), card=rows, cpu=cpu_rows)
+        out[name] = {"rows": rows, "cpu_rows": cpu_rows, "card_s": card_s, "cpu_s": cpu_s}
+    t2a, t2b = out["table2a"]["rows"], out["table2b"]["rows"]
+    check("table2a: time and energy rise with E",
+          all(a[2] < b[2] and a[3] < b[3] for a, b in zip(t2a, t2a[1:])))
+    check("table2b: energy rises with C", all(a[3] < b[3] for a, b in zip(t2b, t2b[1:])))
+    t3 = {label: minutes for label, _, minutes, _ in out["table3"]["rows"]}
+    check("table3: the cutoff rows take less time than CPU tau=0",
+          t3["CPU tau=GPU"] < t3["CPU tau=0"] and t3["CPU tau=1.12xGPU"] < t3["CPU tau=0"],
+          minutes=t3)
     return out
 
 
@@ -2726,6 +3046,12 @@ def main() -> int:
     reduced_parity_phase(MIXED_FLEET)
     REPORT["profile"] = profile_phase(card, args.out)
     REPORT["profile_mixed_fleet"] = profile_phase(card, args.out, MIXED_FLEET)
+    t0 = time.perf_counter()
+    family = REPORT["strategy_family"] = strategy_family_phase(card, args.out)
+    family["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = REPORT["paper_tables"] = paper_tables_phase(card)
+    tables["seconds"] = time.perf_counter() - t0
     REPORT["engine"] = round_engine_phase(card)
     mesh = REPORT["mesh"] = mesh_phase(card)
     serving = REPORT["serving"] = dense_serving_phase(card, args.out)
@@ -2735,6 +3061,9 @@ def main() -> int:
     for k, s in enumerate(mixed["round_wall_s"], 1):
         print(f"mixed fleet round {k}: {s:.4f} s host wall, eval acc "
               f"{mixed['eval_acc'][k - 1]:.4f} ({card})", flush=True)
+
+    print(f"phase 3c (strategy family): {family['seconds']:.2f} s; phase 3d (paper tables): "
+          f"{tables['seconds']:.2f} s ({card})", flush=True)
 
     kernels = []
     for name in ("quantize_int8", "dequantize_int8", "dequant_reduce", "fedavg_reduce",
@@ -2772,6 +3101,8 @@ def main() -> int:
               f"{aside(t)} ({card})", flush=True)
 
     REPORT.update(card=card, kernels=kernels, main_path=loop, mixed_fleet=mixed, rows=rows)
+    REPORT["total_s"] = time.perf_counter() - T_START
+    print(f"chip_smoke total: {REPORT['total_s']:.2f} s ({card})", flush=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1, default=str))
 
     print(json.dumps({"kernels": kernels}))

@@ -17,7 +17,10 @@ from .compression import (
     UpdateCodec, Int8Codec, NullCodec, TopKCodec, BandwidthCodecPolicy,
     CompressedPsum, fp32_collective_bytes, compress_update, decompress_update,
 )
-from .strategy import Strategy, FedAvg
+from .strategy import (
+    Strategy, FedAvg, FedProx, FedTau, tau_from_reference_processor, FedBuffStrategy,
+    FedOpt, FedAdam, FedYogi, FedAvgM, STRATEGIES, pseudo_gradient, weighted_mean,
+)
 from .rounds import (
     RoundSpec, init_collective_residual, make_client_update, make_round_step,
 )

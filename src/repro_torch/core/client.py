@@ -5,9 +5,9 @@
 is the twin of ``repro.core.client.JaxClient``: it owns a local dataset
 shard and a device profile and runs local SGD with ``torch.autograd``.  It
 honors the server's config knobs ``epochs``, the cutoff step budget
-``max_steps`` (tau), ``deadline_s`` and the uplink ``codec``.  With a
-codec it ships a ``CompressedParameters`` delta payload and carries its
-error-feedback residual across rounds.
+``max_steps`` (tau), ``deadline_s``, FedProx's ``mu`` and the uplink
+``codec``.  With a codec it ships a ``CompressedParameters`` delta payload
+and carries its error-feedback residual across rounds.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from repro_torch.data.federated import ClientDataset
 from repro_torch.optim import Optimizer, sgd
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import (
-    tree_bytes, tree_leaves, tree_map, tree_size, tree_unflatten,
+    tree_bytes, tree_leaves, tree_map, tree_size, tree_sq_norm, tree_sub, tree_unflatten,
 )
 
 from .compression import compress_update
@@ -119,10 +119,13 @@ class TorchClient(Client):
         )
         return prof.comm_time_s(up_b, down_b)
 
-    def _local_sgd(self, global_params, xs, ys, n_live: int, opt: Optimizer):
+    def _local_sgd(self, global_params, xs, ys, n_live: int, opt: Optimizer, mu: float):
         """``n_live`` SGD steps from ``global_params`` over the stacked
-        batches -> (params, loss summed over the steps).  Frozen leaves
-        (trainable_mask False) are never updated and get no gradient."""
+        batches -> (params, loss summed over the steps).  With ``mu`` > 0
+        each step's loss gains FedProx's ``0.5 * mu * ||w - w_global||^2``
+        against the detached global.  Frozen leaves (trainable_mask False)
+        are never updated and get no gradient."""
+        anchor = tree_map(torch.Tensor.detach, global_params)
         leaves = tree_leaves(global_params)
         mask = (
             tree_leaves(self.trainable_mask) if self.trainable_mask is not None
@@ -137,6 +140,8 @@ class TorchClient(Client):
             ]
             params = tree_unflatten(global_params, live)
             loss, _ = self.loss_fn(params, {"x": xs[step], "y": ys[step]})
+            if mu > 0:
+                loss = loss + 0.5 * mu * tree_sq_norm(tree_sub(params, anchor))
             grads = torch.autograd.grad(loss, [live[i] for i in train])
             with torch.no_grad():
                 new, opt_state = opt.update(
@@ -167,10 +172,7 @@ class TorchClient(Client):
                     max(0.0, deadline - self._comm_time_s(ins, cfg, prof))
                 ))
             )
-        if float(cfg.get("mu", 0.0)):
-            raise NotImplementedError(
-                "the FedProx term arrives with FedProx (ROADMAP.md queue 1 item 7)"
-            )
+        mu = float(cfg.get("mu", 0.0))
         lr = float(cfg.get("lr", 0.0))
         opt = sgd(lr) if lr else self.optimizer
 
@@ -183,7 +185,7 @@ class TorchClient(Client):
 
         global_params = tree_map(lambda t: t.to(self.device), ins.parameters)
         steps_done = min(budget, full_steps)
-        params, loss_sum = self._local_sgd(global_params, xs, ys, steps_done, opt)
+        params, loss_sum = self._local_sgd(global_params, xs, ys, steps_done, opt, mu)
         self._params = params
         metrics = {
             "loss": float(loss_sum) / max(1, steps_done),

@@ -273,3 +273,19 @@ class CostModel:
         if codec is None:
             return None
         return [int(codec.wire_bytes(n_params))] * n_clients
+
+    # ---- the paper's tau mechanism (§5, Table 3) ----
+    def tau_for_profile(self, reference: str, *, epochs: int, steps_per_epoch: int) -> float:
+        """Hardware-specific cutoff: the wall time the *reference* processor
+        needs for a full E-epoch round (paper: GPU round time 1.99 min)."""
+        ref = PROFILES[reference]
+        return epochs * steps_per_epoch * ref.step_time_s
+
+    def steps_under_tau(self, client_id: int, tau_s: float, full_steps: int) -> int:
+        """Client ``client_id``'s local step budget under cutoff ``tau_s``:
+        the steps its profile fits in tau, at least 1 and at most
+        ``full_steps``; tau = 0 means no cutoff (paper notation)."""
+        if tau_s <= 0:
+            return full_steps
+        p = self.profile_for(client_id)
+        return max(1, min(full_steps, p.steps_in_budget(tau_s)))

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.utils.pytree import (
-    safe_weight_sum, tree_flatten_to_vector, tree_leaves, tree_map,
+    safe_weight_sum, tree_flatten_to_vector, tree_leaves, tree_map, tree_sub,
     tree_unflatten_from_vector,
 )
 
@@ -149,7 +149,8 @@ class Strategy:
 
     def _fit_weights(self, results: list[tuple[int, FitRes]], device) -> torch.Tensor:
         """Per-result aggregation weights (the ONE hook both the grouped
-        wire reduce and the densify path flow through): example counts."""
+        wire reduce and the densify path flow through).  Default: example
+        counts; ``FedBuffStrategy`` discounts by staleness here."""
         return torch.tensor(
             [float(r.num_examples) for _, r in results], dtype=torch.float32,
             device=device,
@@ -158,16 +159,26 @@ class Strategy:
     def _grouped_fit_compatible(self) -> bool:
         """The grouped wire reduce computes weighted-mean + ``server_update``;
         that composition is only known to equal ``aggregate`` for the
-        in-tree linear aggregators the port has (FedAvg).  A subclass
-        overriding ``aggregate`` or ``server_update`` falls back to the
-        densify path."""
+        in-tree linear aggregators.  A subclass overriding ``aggregate``
+        (robust aggregation: median, trimmed mean, ...) or pairing a stock
+        ``aggregate`` with a custom ``server_update`` falls back to the
+        densify path -- identity checks on the class attributes, so
+        overrides anywhere in the MRO disqualify."""
         from .fedavg import FedAvg
+        from .fedbuff import FedBuffStrategy
+        from .fedopt import FedOpt
+        from .fedprox import FedProx
+        from .fedtau import FedTau
 
         cls = type(self)
-        return (
-            cls.aggregate is FedAvg.aggregate
-            and cls.server_update is Strategy.server_update
-        )
+        if cls.aggregate in (
+            FedAvg.aggregate, FedProx.aggregate, FedTau.aggregate,
+            FedBuffStrategy.aggregate,
+        ):
+            return cls.server_update is Strategy.server_update
+        if cls.aggregate is FedOpt.aggregate:
+            return cls.server_update is FedOpt.server_update
+        return False
 
     def _aggregate_fit_wire(
         self, rnd: int, results, weights: torch.Tensor, global_params: PyTree,
@@ -180,7 +191,11 @@ class Strategy:
         reduces each group's payloads on that codec's own kernel.  Each
         group yields its partial weighted delta sum; one fleet-wide
         ``safe_weight_sum`` denominator turns the combined sum into the
-        mean that feeds ``server_update``.
+        mean that feeds ``server_update`` -- identical to ``aggregate`` over
+        stacked decoded params for every strategy ``_grouped_fit_compatible``
+        admits.  A TopK-only pseudo-gradient stays EXACTLY zero at
+        untransmitted coordinates, so FedOpt leaves them untouched (no
+        fp-noise Adam drift).
         """
         from ..compression import Int8Codec, NullCodec, TopKCodec
 
@@ -273,8 +288,13 @@ class Strategy:
         self, avg_params: PyTree, global_params: PyTree, server_state: PyTree, rnd
     ) -> tuple[PyTree, PyTree]:
         """Consume the already-reduced client average.  FedAvg-family: the
-        average IS the new global."""
+        average IS the new global; FedOpt overrides it to apply a server
+        optimizer to the pseudo-gradient."""
         return avg_params, server_state
+
+    # client-side loss shaping hook (FedProx adds the proximal term)
+    def client_loss_extra(self, params: PyTree, global_params: PyTree) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
 
 
 def weighted_mean(client_params: PyTree, weights: torch.Tensor) -> PyTree:
@@ -288,3 +308,8 @@ def weighted_mean(client_params: PyTree, weights: torch.Tensor) -> PyTree:
         return (acc / wsum).to(x.dtype)
 
     return tree_map(leaf_mean, client_params)
+
+
+def pseudo_gradient(client_params: PyTree, weights: torch.Tensor, global_params: PyTree) -> PyTree:
+    """FedOpt's server 'gradient': g = global - weighted_mean(clients)."""
+    return tree_sub(global_params, weighted_mean(client_params, weights))

@@ -11,7 +11,9 @@ bf16 ulp (``rtol=2**-7``).  The FedAvg reduce forms its weight sum in
 client order inside the launch: with integer weights it is bitwise the
 composition it replaced in both forms (``tests/torch_kernel_models.py``'s
 fmaf chain, then ``ops._denormalize``); so is the Int8 reduce
-(``dequant_reduce``, the chain of fl(code * scale)).  The TopK scatter reduce adds the
+(``dequant_reduce``, the chain of fl(code * scale)).  With FedBuff's
+staleness weights, which are not integers, both stay within 4C units of
+2**-24 * sum_c |w_c x_c| (``reduce_error_units``).  The TopK scatter reduce adds the
 same fp32 products ``w_c * val`` as its plain version and divides by a
 weight sum it
 forms itself in a fixed order: with integer weights that sum is exact, so
@@ -39,7 +41,7 @@ from repro_torch.kernels import decode_attention as decode_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.utils.pytree import safe_weight_sum
 from torch_kernel_models import (dequant_reduce_composition, dequant_reduce_one_launch,
-                                 fedavg_one_launch)
+                                 fedavg_one_launch, fedbuff_weights, reduce_error_units)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -160,6 +162,32 @@ def test_cuda_dequant_reduce_is_the_composition_it_replaced(cuda, c, n_blocks):
     torch.testing.assert_close(ops.dequant_reduce(q, s, fw, normalize=False),
                                ref.dequant_reduce(q, s, fw) * fw.sum(),
                                rtol=TOL["rtol"], atol=TOL["atol"] * float(fw.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,c", [("fedavg_reduce", 2), ("fedavg_reduce", 64),
+                                      ("dequant_reduce", 6), ("dequant_reduce", 64)])
+def test_cuda_reduces_with_fedbuff_weights_within_bound(cuda, kernel, c):
+    """FedBuff's staleness weights n / (1 + s) ** 0.5, s = 0-4, are not
+    integers, so the weight sum the launch forms and PyTorch's may round
+    apart: both forms stay within 4C units of 2**-24 * sum_c |w_c x_c|
+    (over sum w for the mean) of the plain version, the first-order
+    rounding budget of two such reduces (``reduce_error_units``)."""
+    rng = np.random.default_rng(23 + c)
+    w = fedbuff_weights(rng.integers(10, 500, c)).to(cuda)
+    if kernel == "fedavg_reduce":
+        x = _t(_delta(rng, (c, 1_974_303))).to(cuda)
+        run = lambda normalize: ops.fedavg_reduce(x, w, normalize=normalize)
+        plain = ref.fedavg_reduce(x, w)
+    else:
+        qr, sr = ref.quantize_int8(_t(_delta(rng, (c * 7713 * 256,), zero_blocks=1)).to(cuda))
+        q, s = qr.reshape(c, -1), sr.reshape(c, -1)
+        x = ref.dequantize_int8(qr, sr).reshape(c, -1)
+        run = lambda normalize: ops.dequant_reduce(q, s, w, normalize=normalize)
+        plain = ref.dequant_reduce(q, s, w)
+    for normalize in (True, False):
+        want = plain if normalize else ops._denormalize(plain, w)
+        assert reduce_error_units(run(normalize), want, x, w, normalize=normalize) <= 4 * c
 
 
 @pytest.mark.cuda

@@ -2,10 +2,11 @@
 ablation scripts and the card tests' helpers import neither ``jax`` nor
 the JAX package ``repro``, so the port runs where JAX is not installed.
 An AST scan checks every import statement; a fresh interpreter imports
-every kernel module, the mesh launcher, the transformer, the mamba mixer
-and the serving driver, runs one CPU fit and a few reduced CPU decode
-steps of the dense and the hybrid stack, and checks that JAX never
-loaded."""
+every kernel module, the mesh launcher, the transformer, the mamba mixer,
+the serving driver, the strategies and the paper-table twin, runs a CPU
+fit (one with FedProx's term) and a few reduced CPU decode steps of the
+dense and the hybrid stack, and checks that JAX never loaded; another
+imports the paper-table twin with every CUDA query refused."""
 import ast
 import os
 import subprocess
@@ -57,6 +58,8 @@ import repro_torch.kernels.flash_attention, repro_torch.kernels.decode_attention
 import repro_torch.models.transformer, repro_torch.launch.serve
 import repro_torch.kernels.selective_scan, repro_torch.models.layers.mamba
 from repro_torch.core import CompressedPsum, init_collective_residual
+from repro_torch.core import FedAdam, FedBuffStrategy, FedProx, FedTau, STRATEGIES
+import repro_torch.benchmarks.paper_tables
 from repro_torch.launch.serve import generate
 
 m = build_model(get_config("mobilenet-head-office31").reduced(), device="cpu")
@@ -68,6 +71,8 @@ c = TorchClient(client_id=0, loss_fn=m.loss_fn, dataset=ds,
                 trainable_mask=m.trainable_mask(params), device="cpu")
 res = c.fit(FitIns(parameters=params, config={"epochs": 1, "codec": Int8Codec()}))
 assert res.num_examples == 64 and res.metrics["steps_done"] == 2
+res = c.fit(FitIns(parameters=params, config=FedProx(mu=0.01).fit_config(1, 0)))
+assert res.metrics["steps_done"] == 2
 lm = build_model(get_config("qwen3-0.6b").reduced(), device="cpu")
 import torch
 toks = generate(lm, lm.init(0), torch.zeros((1, 8), dtype=torch.int32), n_tokens=3,
@@ -88,4 +93,29 @@ print("ok")
         [sys.executable, "-c", code], env=env, capture_output=True, text=True,
         timeout=120,
     )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_paper_tables_twin_imports_without_a_device():
+    """The twin builds its models inside the tables: importing it (and the
+    strategies and optimizers it reaches) asks nothing of CUDA."""
+    code = """
+import sys
+import torch
+
+def refuse(*args, **kw):
+    raise AssertionError("CUDA was queried at import")
+
+torch.cuda.is_available = torch.cuda.init = torch.cuda.device_count = refuse
+import repro_torch.benchmarks.paper_tables as tables
+from repro_torch.core import FedAdam, FedAvgM, FedYogi, tau_from_reference_processor
+from repro_torch.optim import adam, adamw, yogi
+assert callable(tables.table2a) and callable(tables.table2b) and callable(tables.table3)
+assert not torch.cuda.is_initialized()
+assert "jax" not in sys.modules and "repro" not in sys.modules
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -91,6 +91,39 @@ def dequant_reduce_composition(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor
     return mean if normalize else ops._denormalize(mean, w)
 
 
+def fedbuff_weights(counts, alpha: float = 0.5) -> torch.Tensor:
+    """``FedBuffStrategy._fit_weights`` for client c with example count
+    ``counts[c]`` and staleness c % 5 (0-4, what its default policy
+    admits): the Python float ``n * (1 / (1 + s) ** alpha)``, then fp32.
+    The first weights on ``Server.run``'s path that are not integers."""
+    return torch.tensor(
+        [float(n) * (1.0 / (1.0 + float(c % 5)) ** alpha) for c, n in enumerate(counts)],
+        dtype=torch.float32,
+    )
+
+
+def reduce_error_units(out: torch.Tensor, plain: torch.Tensor, x: torch.Tensor,
+                       w: torch.Tensor, *, normalize: bool = True) -> float:
+    """max |out - plain| of two weighted reduces of the rows x (C, N), in
+    units of 2**-24 * sum_c |w_c x_c| (divided by sum_c w_c for the mean):
+    the first-order rounding budget of a weighted sum, in which every
+    rounding of a product, a sum, the weight sum or a division costs at
+    most one unit.  A mean that two reduces each form with C - 1 weight
+    additions, C products-and-adds and one division (or division of the
+    weights) differs by at most 4C units; the weighted sum (the weight
+    sums cancel) by at most 2C + 4 <= 4C."""
+    wf = w.to(torch.float64)
+    budget = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    for c in range(x.shape[0]):
+        budget += wf[c] * x[c].to(torch.float64).abs()
+    if normalize:
+        budget /= wf.sum()
+    diff = (out.to(torch.float64) - plain.to(torch.float64)).abs()
+    units = torch.where(budget > 0, diff / (budget * 2.0 ** -24),
+                        torch.where(diff > 0, math.inf, 0.0))
+    return float(units.max())
+
+
 def scan_kernel_order(x, dt, A, Bm, Cm, D, *, init_state=None):
     """``csrc/selective_scan.cu``'s order: the state as the plain version
     rounds it (each product and sum on its own), the states padded with
