@@ -198,11 +198,12 @@ def get_config(name: str) -> ArchConfig:
 
 
 # the port carries the configs of the models it runs (Jamba's without its
-# experts until MoE is ported; ROADMAP.md queue 1 items 14-15 add the rest)
+# experts until MoE is ported; ROADMAP.md queue 1 item 15 adds the rest)
 _ARCH_MODULES = (
     "jamba_1_5_large_398b",
     "mobilenet_head_office31",
     "qwen3_0_6b",
+    "resnet18_cifar10",
 )
 
 _loaded = False

@@ -8,10 +8,11 @@ methods are plain functions on nested dicts of tensors:
     trainable_mask(params) -> bool pytree (None = all trainable)
     prefill / decode_step / init_cache (transformers)
 
-The port runs the ``head`` family and the serving path (prefill + decode)
-of the transformers whose layers it has: attention, mamba and the gated
-MLP, so the dense family and the hybrid one without experts.  What is not
-ported raises ``NotImplementedError`` naming its ROADMAP.md item.
+The port runs the ``head`` and ``cnn`` (ResNet-18) families and the
+serving path (prefill + decode) of the transformers whose layers it has:
+attention, mamba and the gated MLP, so the dense family and the hybrid one
+without experts.  What is not ported raises ``NotImplementedError`` naming
+its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -28,7 +29,6 @@ PyTree = Any
 
 # the families none of whose models the port can run yet, and what they need
 _NOT_PORTED = {
-    "cnn": "ResNet-18 is ROADMAP.md queue 1 item 14",
     "ssm": "the mLSTM/sLSTM mixers (xLSTM) are ROADMAP.md queue 1 item 15",
     "moe": "the MoE feed-forward is ROADMAP.md queue 1 item 15",
     "vlm": "the frontend tokens are ROADMAP.md queue 1 item 15",
@@ -69,6 +69,19 @@ def build_model(arch, *, device=None) -> Model:
             init=lambda seed=0: headmodel.init_params(cfg, seed=seed, device=dev),
             loss_fn=lambda p, b: headmodel.loss_fn(cfg, p, b),
             trainable_mask=headmodel.trainable_mask,
+        )
+
+    if arch_cfg.family == "cnn":
+        from repro_torch.configs.resnet18_cifar10 import CNN_CONFIG
+        from . import resnet
+
+        cfg = CNN_CONFIG if not arch_cfg.name.endswith("reduced") else CNN_CONFIG.reduced()
+        return Model(
+            cfg=cfg,
+            arch=arch_cfg,
+            device=dev,
+            init=lambda seed=0: resnet.init_params(cfg, seed, device=dev),
+            loss_fn=lambda p, b: resnet.loss_fn(cfg, p, b),
         )
 
     if arch_cfg.family in ("dense", "hybrid"):

@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as decode_kernel
 from repro_torch.kernels import ops, ref
-from repro_torch.utils.pytree import safe_weight_sum
+from repro_torch.utils.pytree import safe_weight_sum, tree_leaves
 from torch_kernel_models import (dequant_reduce_composition, dequant_reduce_one_launch,
                                  fedavg_one_launch, fedbuff_weights, reduce_error_units)
 
@@ -136,14 +136,15 @@ def test_cuda_dequant_reduce(cuda, c, n_blocks):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,n_blocks", [(6, 7713), (64, 7713), (3, 3), (1030, 9), (3, 20_001),
-                                        (70, 20_001)])
+                                        (70, 20_001), (4, 43_649)])
 def test_cuda_dequant_reduce_is_the_composition_it_replaced(cuda, c, n_blocks):
     """Integer weights: bitwise the one-launch model and the composition
     it replaced (the weights normalized around the old kernel's chain,
     then ``ops._denormalize``) with normalize True and False: the fleet's
     C = 6 and C = 64 at Np, a ragged 3 blocks, C past the 1024 weights and
-    the 64 scale rows a warp stages, and 20,001 blocks (1,251 CTAs, more
-    than the card holds at once).  Weights that are not
+    the 64 scale rows a warp stages, 20,001 blocks (1,251 CTAs, more
+    than the card holds at once), and the Jetson fleet's C = 4 at the
+    ResNet's Np = 11,174,144 (43,649 blocks).  Weights that are not
     integers stay within 1e-6 of the plain version (times sum(w) for the
     sum); all-zero weights give zeros, no NaN, in both forms."""
     rng = np.random.default_rng(c + n_blocks)
@@ -224,7 +225,7 @@ def _pad(x):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 255, 257, 1000, 1_974_303, 8 * 1_974_528 + 5])
+@pytest.mark.parametrize("n", [1, 255, 257, 1000, 1_974_303, 8 * 1_974_528 + 5, 11_173_962])
 def test_cuda_quantize_any_n_is_the_padded_plain_version(cuda, n):
     """Any N: one launch quantizes x as if padded with zeros to a block
     multiple, bitwise the plain version of the padded x; the pad's codes
@@ -264,7 +265,7 @@ def test_cuda_dequantize_at_grid_edges(cuda, n_blocks):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 257, 1_974_303])
+@pytest.mark.parametrize("n", [1, 257, 1_974_303, 11_173_962])
 def test_cuda_int8_encode_matches_its_cpu_route(cuda, n):
     """Int8Codec's encode and decode on the card (one quantize launch on
     the unpadded delta) bitwise the same codec on the CPU (F.pad, then the
@@ -556,6 +557,51 @@ def test_cuda_collective_leaf_table_bitwise(cuda, live):
                                    for a, n, r in zip(starts, HEAD_LEAVES, rs))
 
 
+def _resnet_leaf_sizes():
+    """ResNet-18's 62 leaf sizes in JAX's order (``fc_b``'s 10 floats first)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.resnet18_cifar10 import CNN_CONFIG
+    from repro_torch.models import resnet
+
+    assert get_config("resnet18-cifar10").family == "cnn"
+    return tuple(t.numel() for t in tree_leaves(resnet.init_params(CNN_CONFIG, 0, device="cpu")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [None, True, False])
+def test_cuda_collective_leaf_table_resnet_bitwise(cuda, live):
+    """The leaf-table trio over ResNet-18's 62 leaves at their real starts
+    in one flat decode (61 of them start away from a 16-byte boundary),
+    bitwise its plain versions and the per-leaf composition it replaced."""
+    from repro_torch.kernels.collective_quant import first_blocks
+    from torch_kernel_models import collective_per_leaf
+
+    sizes = _resnet_leaf_sizes()
+    assert len(sizes) == 62 and sum(sizes) == 11_173_962
+    rng = np.random.default_rng(62)
+    ds = list(torch.split(_t(_delta(rng, (sum(sizes),))).to(cuda), sizes))
+    assert sum(d.data_ptr() % 16 != 0 for d in ds) == 61
+    rs = [(_t(_delta(rng, (n,))) * 1e-3).to(cuda) for n in sizes]
+    lv = None if live is None else torch.tensor(live, device=cuda)
+    wf = torch.full((1,), 0.0 if live is False else 123.0, device=cuda)
+    absmax = ops.collective_absmax(ds, wf, rs, lv)
+    assert _same_bits(absmax, ref.collective_absmax(ds, wf, rs, lv))
+    q, s, new = ops.collective_pack_leaves(ds, wf, rs, absmax, lv)
+    want = ref.collective_pack_leaves(ds, wf, rs, absmax, lv)
+    assert torch.equal(q, want[0]) and _same_bits(s, want[1]) and _same_bits(new, want[2])
+    total = ops.collective_unpack(q, s)
+    assert _same_bits(total, ref.collective_unpack(q, s))
+    per_leaf = collective_per_leaf(ds, wf, rs, lv, ref.collective_pack, ref.collective_unpack)
+    starts = first_blocks(sizes)
+    for (am, sc, code, tot, row), a, b, n in zip(per_leaf, starts, starts[1:], sizes):
+        assert _same_bits(absmax[a:b], am) and _same_bits(s[a:b], sc)
+        assert torch.equal(q[a * 256:b * 256], code)
+        assert _same_bits(total[a * 256:a * 256 + n], tot)
+        assert _same_bits(new[a * 256:a * 256 + n], row)
+    if live is False:
+        assert not q.any()
+
+
 @pytest.mark.cuda
 def test_cuda_psum_leaves_one_launch_each(cuda):
     """``CompressedPsum.psum_leaves`` launches each of the three kernels once
@@ -802,3 +848,36 @@ def test_cuda_hybrid_stack_matches_the_cpu(cuda):
             assert ops.launch_counts()["decode_attention"] == cfg.n_layers - n_mamba
             want, cache = cpu.decode_step(params, {"tokens": tok}, cache, 128)
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+# ---------------- the ResNet's convs (the TF32 guard) ----------------
+@pytest.mark.cuda
+def test_cuda_resnet_conv_and_forward_are_fp32(cuda):
+    """The package turns TF32 off for cuDNN and cuBLAS at import; a
+    ``repro_torch`` conv on the card then agrees with the CPU's within
+    fp32 summation order (atol 2e-5 on outputs of magnitude ~5; TF32's
+    10-bit mantissa would be off by ~1e-2), and so does the full-width
+    ResNet's forward (logits within 1e-4)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model, resnet
+
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(3)
+    for stride, (h, k, cin, cout) in ((1, (32, 3, 64, 64)), (2, (32, 3, 64, 128)),
+                                      (2, (16, 1, 128, 256))):
+        x = _t(rng.normal(size=(8, h, h, cin)).astype(np.float32))
+        w = _t((rng.normal(size=(k, k, cin, cout)) / np.sqrt(k * k * cin)).astype(np.float32))
+        card = resnet.conv2d(x.to(cuda), w.to(cuda), stride).cpu()
+        torch.testing.assert_close(card, resnet.conv2d(x, w, stride), rtol=0, atol=2e-5)
+    cpu_model = build_model(get_config("resnet18-cifar10"), device="cpu")
+    params = cpu_model.init(0)
+    x = _t(rng.normal(size=(4, 32, 32, 3)).astype(np.float32))
+    want = resnet.forward(cpu_model.cfg, params, x)
+    got = resnet.forward(cpu_model.cfg, _to(params, cuda), x.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def _to(tree, device):
+    from repro_torch.utils.pytree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)

@@ -98,9 +98,9 @@ def test_build_model_runs_on_the_card_unless_asked():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model("mobilenet-head-office31")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # a family not ported yet
         build_model(dataclasses.replace(
-            get_config("mobilenet-head-office31"), name="cnn", family="cnn"
+            get_config("mobilenet-head-office31"), name="moe", family="moe"
         ), device="cpu")
 
 

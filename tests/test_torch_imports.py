@@ -3,10 +3,12 @@ ablation scripts and the card tests' helpers import neither ``jax`` nor
 the JAX package ``repro``, so the port runs where JAX is not installed.
 An AST scan checks every import statement; a fresh interpreter imports
 every kernel module, the mesh launcher, the transformer, the mamba mixer,
-the serving driver, the strategies and the paper-table twin, runs a CPU
-fit (one with FedProx's term) and a few reduced CPU decode steps of the
+the serving driver, the strategies, the paper-table twin, the ResNet and
+the heterogeneous-cutoff example, runs a CPU fit (one with FedProx's
+term), a reduced ResNet's loss and a few reduced CPU decode steps of the
 dense and the hybrid stack, and checks that JAX never loaded; another
-imports the paper-table twin with every CUDA query refused."""
+imports the paper-table twin and the example with every CUDA query
+refused."""
 import ast
 import os
 import subprocess
@@ -60,6 +62,7 @@ import repro_torch.kernels.selective_scan, repro_torch.models.layers.mamba
 from repro_torch.core import CompressedPsum, init_collective_residual
 from repro_torch.core import FedAdam, FedBuffStrategy, FedProx, FedTau, STRATEGIES
 import repro_torch.benchmarks.paper_tables
+import repro_torch.examples.heterogeneous_cutoff
 from repro_torch.launch.serve import generate
 
 m = build_model(get_config("mobilenet-head-office31").reduced(), device="cpu")
@@ -73,8 +76,12 @@ res = c.fit(FitIns(parameters=params, config={"epochs": 1, "codec": Int8Codec()}
 assert res.num_examples == 64 and res.metrics["steps_done"] == 2
 res = c.fit(FitIns(parameters=params, config=FedProx(mu=0.01).fit_config(1, 0)))
 assert res.metrics["steps_done"] == 2
-lm = build_model(get_config("qwen3-0.6b").reduced(), device="cpu")
 import torch
+cnn = build_model(get_config("resnet18-cifar10").reduced(), device="cpu")
+loss, met = cnn.loss_fn(cnn.init(0), {"x": torch.zeros(2, 32, 32, 3),
+                                      "y": torch.zeros(2, dtype=torch.int32)})
+assert loss.isfinite() and set(met) == {"ce", "acc"}
+lm = build_model(get_config("qwen3-0.6b").reduced(), device="cpu")
 toks = generate(lm, lm.init(0), torch.zeros((1, 8), dtype=torch.int32), n_tokens=3,
                 context_len=16)
 assert toks.shape == (1, 3)
@@ -97,8 +104,9 @@ print("ok")
 
 
 def test_paper_tables_twin_imports_without_a_device():
-    """The twin builds its models inside the tables: importing it (and the
-    strategies and optimizers it reaches) asks nothing of CUDA."""
+    """The twin builds its models inside the tables, the example inside
+    ``run``: importing them (and the strategies and optimizers they reach)
+    asks nothing of CUDA."""
     code = """
 import sys
 import torch
@@ -108,9 +116,11 @@ def refuse(*args, **kw):
 
 torch.cuda.is_available = torch.cuda.init = torch.cuda.device_count = refuse
 import repro_torch.benchmarks.paper_tables as tables
+import repro_torch.examples.heterogeneous_cutoff as example
 from repro_torch.core import FedAdam, FedAvgM, FedYogi, tau_from_reference_processor
 from repro_torch.optim import adam, adamw, yogi
 assert callable(tables.table2a) and callable(tables.table2b) and callable(tables.table3)
+assert callable(example.run)
 assert not torch.cuda.is_initialized()
 assert "jax" not in sys.modules and "repro" not in sys.modules
 print("ok")

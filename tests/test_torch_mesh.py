@@ -6,7 +6,9 @@ the Null, Int8 and TopK uplink codecs, 3 rounds with client 0 masked in
 round 2, from the same JAX-initialized params and numpy batches.
 
 One module-scoped 4-rank job (``torch_mesh_ranks.mesh_rounds``) runs every
-case; its ranks import no JAX.  JAX outputs go through ``np.asarray``
+case, then the reduced ResNet's int8 collective with the Int8 uplink (its
+20 leaves; ``RESNET_CASE``, held by its own tolerances below); its ranks
+import no JAX.  JAX outputs go through ``np.asarray``
 before any indexing: indexing a mesh-sharded array directly raises
 ``ShardingTypeError`` under jax 0.9.
 
@@ -65,6 +67,10 @@ from repro_torch.optim import sgd
 
 C, STEPS, B = 4, 2, 8
 AXES = ("pod", "data")
+HEAD, RESNET = "mobilenet-head-office31", "resnet18-cifar10"
+# the reduced ResNet's case (its 20 leaves through the int8 collective),
+# keyed apart from the head model's (collective, codec) cases
+RESNET_CASE = ("resnet", "int8", "Int8Codec")
 WEIGHTS = np.asarray([1.0, 2.0, 3.0, 1.0], np.float32)   # example counts: exact sums
 BUDGETS = np.asarray([2, 1, 2, 2], np.int32)             # client 1 stops after one step
 MASKS = [np.ones(C, np.float32), np.asarray([0.0, 1.0, 1.0, 1.0], np.float32),
@@ -76,14 +82,21 @@ CODE_EPS = 2e-3  # in block scales (module docstring)
 MAX_FLIPS = 16   # differing codes a round, of C x 7,199 entries
 
 
+def _arch(case) -> str:
+    return RESNET if case[0] == "resnet" else HEAD
+
+
 @functools.cache
-def _jax_model():
-    jm = jbuild_model(jget_config("mobilenet-head-office31").reduced())
+def _jax_model(arch=HEAD):
+    jm = jbuild_model(jget_config(arch).reduced())
     return jm, jm.init(jax.random.key(0))
 
 
-def _batches():
+def _batches(arch=HEAD):
     rng = np.random.default_rng(0)
+    if arch == RESNET:  # NHWC images, 4 a batch
+        return {"x": rng.normal(size=(C, STEPS, 4, 32, 32, 3)).astype(np.float32),
+                "y": rng.integers(0, 10, (C, STEPS, 4)).astype(np.int32)}
     return {
         "x": rng.normal(size=(C, STEPS, B, 64)).astype(np.float32),
         "y": rng.integers(0, 31, (C, STEPS, B)).astype(np.int32),
@@ -98,19 +111,21 @@ def _jmesh():
 
 @pytest.fixture(scope="module")
 def port_run():
-    """Every case on the port's 4-rank gloo mesh, in one spawn."""
-    _, jparams = _jax_model()
-    params_np = jax.tree.map(np.asarray, jparams)
+    """Every case on the port's 4-rank gloo mesh, in one spawn: the head
+    model's, then the reduced ResNet's."""
+    runs = [(prefix, arch, cases, jax.tree.map(np.asarray, _jax_model(arch)[1]),
+             _batches(arch), WEIGHTS, BUDGETS, MASKS, STEPS)
+            for prefix, arch, cases in (((), HEAD, CASES),
+                                        (RESNET_CASE[:1], RESNET, [RESNET_CASE[1:]]))]
     return run_local_mesh(
         torch_mesh_ranks.mesh_rounds, pod=2, data=2, backend="gloo", device="cpu",
-        args=(CASES, params_np, _batches(), WEIGHTS, BUDGETS, MASKS, STEPS),
-        timeout_s=240,
+        args=(runs,), timeout_s=240,
     )
 
 
 @functools.cache
-def _jax_step(collective, codec_name):
-    jm, _ = _jax_model()
+def _jax_step(collective, codec_name, arch=HEAD):
+    jm, _ = _jax_model(arch)
     spec = J.RoundSpec(max_steps=STEPS, execution_mode="parallel",
                        codec=getattr(J, codec_name)(), collective=collective)
     return jax.jit(J.make_round_step(jm.loss_fn, jsgd(0.1), J.FedAvg(), spec, mesh=_jmesh(),
@@ -126,8 +141,8 @@ def _port_rows(port_run, case, rnd, key):
 def _port_start(port_run, case, rnd):
     """What the port's round ``rnd`` started from, as numpy: flat params,
     and the codec and collective residual rows (C, ...) per state leaf."""
-    collective, codec_name = case
-    _, jparams = _jax_model()
+    collective, codec_name = case[-2:]
+    _, jparams = _jax_model(_arch(case))
     n = sum(x.size for x in jax.tree.leaves(jparams))
     if rnd == 0:
         codec_rows = [np.asarray(x).reshape(C, -1) for x in
@@ -152,8 +167,8 @@ def _jax_round(port_run, case, rnd):
     ``rnd`` started from: flat params, metrics, and the codec and
     collective residual rows (C, ...) as numpy.  Each round is compared
     from the same inputs, so a difference cannot carry into later rounds."""
-    collective, codec_name = case
-    _, jparams = _jax_model()
+    collective, codec_name = case[-2:]
+    _, jparams = _jax_model(_arch(case))
     n = sum(x.size for x in jax.tree.leaves(jparams))
     flat, codec_rows, coll_rows = _port_start(port_run, case, rnd)
     sizes = np.cumsum([x.size for x in jax.tree.leaves(jparams)])[:-1]
@@ -161,8 +176,8 @@ def _jax_round(port_run, case, rnd):
     state = _unflatten_like(getattr(J, codec_name)().init_client_state(C, n), codec_rows)
     if collective == "int8":
         state = (state, _unflatten_like(J.init_collective_residual(jparams, C), coll_rows))
-    batch = jax.tree.map(jnp.asarray, _batches())
-    g, _, state, met = _jax_step(collective, codec_name)(
+    batch = jax.tree.map(jnp.asarray, _batches(_arch(case)))
+    g, _, state, met = _jax_step(collective, codec_name, _arch(case))(
         g, (), state, batch, jnp.asarray(WEIGHTS), jnp.asarray(BUDGETS), rnd,
         jnp.asarray(MASKS[rnd]))
     codec_state, coll = state if collective == "int8" else (state, ())
@@ -304,8 +319,11 @@ def test_mesh_int8_collective_is_the_reference_psum(port_run, codec_name):
     ``wx + residual``, padded) with the JAX package's reference kernels: the
     shared scales, every rank's new collective residual row and the new
     global, bitwise.  The padded tail and a masked rank's ``eff`` are zero."""
-    case = ("int8", codec_name)
-    _, jparams = _jax_model()
+    _check_reference_psum(port_run, ("int8", codec_name))
+
+
+def _check_reference_psum(port_run, case):
+    _, jparams = _jax_model(_arch(case))
     shapes = [x.size for x in jax.tree.leaves(jparams)]
     for rnd, m in enumerate(MASKS):
         flat, _, prev_rows = _port_start(port_run, case, rnd)
@@ -377,6 +395,66 @@ def test_mesh_round_launches_and_state(port_run, collective, codec_name):
     n_leaves = len(jax.tree.leaves(_jax_model()[1]))
     assert len(rounds[0]["coll_row"]) == (n_leaves if collective == "int8" else 0)
     assert len(rounds[0]["codec_row"]) == (0 if codec_name == "NullCodec" else 1)
+
+
+def test_mesh_resnet_int8_collective_is_the_reference_psum(port_run):
+    """The reduced ResNet's 20 leaves (``fc_b``'s 10 floats sort first, so
+    19 start away from a 16-byte boundary) through the int8 collective
+    with the Int8 uplink: every round rebuilt bitwise from the ranks'
+    logged ``eff``, as for the head model."""
+    _check_reference_psum(port_run, RESNET_CASE)
+
+
+def test_mesh_resnet_rows_launches_and_all_reduces(port_run):
+    """The ResNet case's state: one uplink residual row and a collective
+    row per leaf (20); no kernel launch on the CPU; one MAX and one int32
+    SUM all-reduce a tier a round over all 20 leaves; rank 0's rows carried
+    bitwise through its masked round 2; ``mask=None`` bitwise all ones."""
+    assert len(jax.tree.leaves(_jax_model(RESNET)[1])) == 20
+    for r in range(C):
+        rec = port_run[r][RESNET_CASE]
+        assert len(rec["rounds"][0]["coll_row"]) == 20
+        assert len(rec["rounds"][0]["codec_row"]) == 1
+        assert all(sum(x["launches"].values()) == 0 for x in rec["rounds"])
+        assert all(x["all_reduces"][:2] == (2, 2) for x in rec["rounds"])
+        assert rec["mask_none_same"]
+    rank0 = port_run[0][RESNET_CASE]["rounds"]
+    for key in ("codec_row", "coll_row"):
+        for before, after in zip(rank0[0][key], rank0[1][key], strict=True):
+            np.testing.assert_array_equal(before, after)
+
+
+RESNET_TOL = 1e-4    # a client's update, two local steps (test_torch_rounds.py)
+RESNET_FLIPS = 1e-2  # the share of uplink or collective codes that may differ
+
+
+def test_mesh_resnet_round_matches_jax(port_run):
+    """Each ResNet round, from the state the port's round started from,
+    against JAX's shard_map round step.  A client's update differs by at
+    most ``RESNET_TOL`` between the frameworks (convs summed in another
+    order), so an uplink or collective code near a half-way point may
+    differ, and its residual moves instead.  With the inputs equal,
+    sent_c = w_c dec_c + r_in - r_coll_c and dec_c = delta_c + r_up_in -
+    r_up_c, so a priori
+    |d global| <= sum_c (w_c (RESNET_TOL + |d r_up_c|) + |d r_coll_c|) / W;
+    a residual gap past its code-equal bound counts as a differing code,
+    and at most ``RESNET_FLIPS`` of either kind may.  The loss metrics
+    within rtol 1e-4, the steps equal."""
+    for rnd in range(len(MASKS)):
+        w_eff = (WEIGHTS * MASKS[rnd])[:, None]
+        want = _jax_round(port_run, RESNET_CASE, rnd)
+        got = port_run[0][RESNET_CASE]["rounds"][rnd]
+        (up,), (up_j,) = _port_rows(port_run, RESNET_CASE, rnd, "codec_row"), want["codec_rows"]
+        coll = np.concatenate(_port_rows(port_run, RESNET_CASE, rnd, "coll_row"), axis=1)
+        up_gap, coll_gap = np.abs(up - up_j), np.abs(coll - np.concatenate(want["coll_rows"], 1))
+        assert (up_gap > RESNET_TOL).mean() <= RESNET_FLIPS
+        assert (coll_gap > w_eff * (RESNET_TOL + up_gap) + 1e-6).mean() <= RESNET_FLIPS
+        allowed = (w_eff * (RESNET_TOL + up_gap) + coll_gap).sum(axis=0) / w_eff.sum()
+        err = np.abs(got["params"] - want["params"])
+        assert np.all(err <= 1e-6 + allowed), f"round {rnd}: max err {err.max()}"
+        for key in ("client_loss_mean", "client_loss_max", "steps_total"):
+            np.testing.assert_allclose(got["metrics"][key], want["metrics"][key], rtol=1e-4,
+                                       err_msg=key)
 
 
 def test_client_mesh_layout_matches_jax_make_mesh(port_run):

@@ -1,7 +1,9 @@
 """Port parity for the round engine without a mesh (``core/rounds.py``):
 ``make_round_step`` against the JAX package's jitted round step, for the
 parallel and sequential modes with the Null, Int8 and TopK codecs, on the
-same JAX-initialized params and numpy batches.
+same JAX-initialized params and numpy batches, for the head model and the
+reduced ResNet (whose tolerance ``test_resnet_round_step_matches_jax``
+states).
 
 Tolerances: local SGD is fp32 on both sides but its matmuls sum in another
 order, so params differ in the last bits (observed ~3e-8 after two rounds):
@@ -37,6 +39,7 @@ WEIGHTS = np.asarray([1.0, 2.0, 0.5], np.float32)
 BUDGETS = np.asarray([2, 1, 2], np.int32)  # the tau cutoff: client 1 stops after one step
 DROP_1 = np.asarray([1.0, 0.0, 1.0], np.float32)
 CODECS = ["NullCodec", "Int8Codec", "TopKCodec"]
+MAX_FLIP_SHARE = 1e-2  # Int8 codes / TopK selections that may differ (restart)
 
 
 @functools.cache
@@ -45,15 +48,6 @@ def _models():
     jparams = jm.init(jax.random.key(0))
     tm = build_model(get_config("mobilenet-head-office31").reduced(), device="cpu")
     return jm, jparams, tm
-
-
-@functools.cache
-def _jax_round_step(mode, codec_name, microbatches=1):
-    """One jitted JAX round step per configuration, shared by every test."""
-    jm, _, _ = _models()
-    spec = J.RoundSpec(max_steps=STEPS, execution_mode=mode, microbatches=microbatches,
-                       codec=getattr(J, codec_name)())
-    return jax.jit(J.make_round_step(jm.loss_fn, jsgd(0.1), J.FedAvg(), spec))
 
 
 def _torch_round_step(mode, codec_name, microbatches=1, **kw):
@@ -89,50 +83,100 @@ def _flat(tree, jax_side):
     return np.concatenate([np.asarray(x).reshape(-1) for x in leaves])
 
 
-def _topk_allowance(jstate, tstate, weights):
-    """Per coordinate: for every client whose residual is zero (transmitted)
-    on one side only, that entry's |value| x the client's weight share."""
-    js, ts = np.asarray(jstate), tstate.numpy()
-    differs = (js == 0) != (ts == 0)
-    share = (weights / weights.sum())[:, None]
-    return (differs * np.maximum(np.abs(js), np.abs(ts)) * share).sum(axis=0)
-
-
-@pytest.mark.parametrize("codec_name", CODECS)
-@pytest.mark.parametrize("mode", ["parallel", "sequential"])
-def test_round_step_matches_jax(mode, codec_name):
-    """Two rounds: the first with every client (the port passes
+def _check_round_step(models, batch, mode, codec_name, tol=1e-6, restart=False):
+    """Two rounds of the port's round step against JAX's from the same
+    params and batches: the first with every client (the port passes
     ``mask=None``, JAX an all-ones mask: the contract says they are the
-    same bits), the second with client 1 dropped."""
-    _, jparams, _ = _models()
-    jrs = _jax_round_step(mode, codec_name)
-    trs = _torch_round_step(mode, codec_name)
-    n = _n_params()
+    same bits), the second with client 1 dropped.  New globals and
+    residuals within ``atol=tol``.
+
+    With ``restart``, JAX's second round starts from the state the port's
+    started from (params and residual rows), so no difference carries, and
+    a code or selection on its edge may differ between the packages: an
+    Int8 code moves its residual entry by one block scale, a TopK
+    selection moves its value between wire and residual.  At most
+    ``MAX_FLIP_SHARE`` of the entries may, each moving the global by its
+    residual gap times the client's weight share."""
+    jm, jparams, tm = models
+    spec = dict(max_steps=STEPS, execution_mode=mode)
+    jrs = jax.jit(J.make_round_step(jm.loss_fn, jsgd(0.1), J.FedAvg(),
+                                    J.RoundSpec(**spec, codec=getattr(J, codec_name)())))
+    trs = T.make_round_step(tm.loss_fn, sgd(0.1), T.FedAvg(),
+                            T.RoundSpec(**spec, codec=getattr(T, codec_name)()))
+    n = sum(x.size for x in jax.tree.leaves(jparams))
     jc, tc = getattr(J, codec_name)(), getattr(T, codec_name)()
     jg, jst = jparams, jc.init_client_state(C, n)
-    tg, tst = _torch_params(), tc.init_client_state(C, n, device="cpu")
-    batch = _batches()
+    tg = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    tst = tc.init_client_state(C, n, device="cpu")
     for rnd, mask in enumerate((np.ones(C, np.float32), DROP_1)):
+        if restart and rnd:
+            jg = jax.tree.unflatten(jax.tree.structure(jparams),
+                                    [jnp.asarray(x.numpy()) for x in tree_leaves(tg)])
+            jst = jst if codec_name == "NullCodec" else jnp.asarray(tst.numpy())
         tst_in = tst
         jg, _, jst, jmet = jrs(jg, (), jst, jax.tree.map(jnp.asarray, batch),
                                jnp.asarray(WEIGHTS), jnp.asarray(BUDGETS), rnd, jnp.asarray(mask))
         tg, _, tst, tmet = trs(tg, (), tst, _t(batch), torch.from_numpy(WEIGHTS),
                                torch.from_numpy(BUDGETS), rnd,
                                None if rnd == 0 else torch.from_numpy(mask))
-        atol = 1e-6
-        if codec_name == "TopKCodec":
-            atol = atol + _topk_allowance(jst, tst, WEIGHTS * mask)
+        atol, flips = tol, False
+        if codec_name != "NullCodec":
+            gap = np.abs(tst.numpy() - np.asarray(jst))
+            flips = gap > tol
+            if codec_name == "TopKCodec":
+                flips = flips & ((np.asarray(jst) == 0) != (tst.numpy() == 0))
+            assert flips.sum() <= (MAX_FLIP_SHARE * flips.size if restart else 0), flips.sum()
+            share = (WEIGHTS * mask / (WEIGHTS * mask).sum())[:, None]
+            atol = atol + (flips * gap * share).sum(axis=0)
         assert np.all(np.abs(_flat(tg, False) - _flat(jg, True)) <= atol)
         if codec_name != "NullCodec":
-            np.testing.assert_allclose(tst.numpy(), np.asarray(jst), rtol=0, atol=1e-6)
+            np.testing.assert_allclose(np.where(flips, 0, tst.numpy()),
+                                       np.where(flips, 0, np.asarray(jst)), rtol=0, atol=tol)
             if rnd == 1:  # the dropped client's residual row: bitwise unchanged
                 assert torch.equal(tst[1], tst_in[1])
         else:
             assert tst == () and jst == ()
         assert set(tmet) == set(jmet)
+        # |d mean of row norms| <= the mean of the rows' gap norms
+        met_atol = {}
+        if restart and codec_name != "NullCodec":
+            met_atol["residual_norm_mean"] = float(
+                np.mean(np.linalg.norm(np.where(flips, gap, tol), axis=1)))
         for key in jmet:
-            np.testing.assert_allclose(float(tmet[key]), float(jmet[key]), rtol=1e-5, atol=1e-7)
+            np.testing.assert_allclose(float(tmet[key]), float(jmet[key]), rtol=1e-5,
+                                       atol=met_atol.get(key, 1e-7), err_msg=key)
     assert int(tmet["steps_total"]) == 4  # budgets 2 + 2; the dropped client's step left out
+
+
+@pytest.mark.parametrize("codec_name", CODECS)
+@pytest.mark.parametrize("mode", ["parallel", "sequential"])
+def test_round_step_matches_jax(mode, codec_name):
+    _check_round_step(_models(), _batches(), mode, codec_name)
+
+
+@functools.cache
+def _resnet_models():
+    jm = jbuild_model(jget_config("resnet18-cifar10").reduced())
+    tm = build_model(get_config("resnet18-cifar10").reduced(), device="cpu")
+    return jm, jm.init(jax.random.key(0)), tm
+
+
+@pytest.mark.parametrize("codec_name", CODECS)
+@pytest.mark.parametrize("mode", ["parallel", "sequential"])
+def test_resnet_round_step_matches_jax(mode, codec_name):
+    """The reduced ResNet (20 leaves, 19,994 values; NHWC images of 32 x
+    32) through both modes: ``torch.func.vmap`` maps its convs, pads and
+    GroupNorm over the clients.  ``atol=1e-4``: two SGD steps at lr 0.1 on
+    conv gradients summed over 32 x 32 pixels in another order (vmap maps
+    a conv to a grouped one) leave one client's params (up to ~1) up to
+    6.1e-5 apart, the mean 8.7e-6 in a round and 2.0e-5 over two; so each
+    round starts from the port's state (``restart``).  Where a client's
+    delta is small, that gap is a fifth of its Int8 step: 132 of the
+    59,982 codes (0.22%) differed in one parallel round."""
+    rng = np.random.default_rng(6)
+    batch = {"x": rng.normal(size=(C, STEPS, 4, 32, 32, 3)).astype(np.float32),
+             "y": rng.integers(0, 10, (C, STEPS, 4)).astype(np.int32)}
+    _check_round_step(_resnet_models(), batch, mode, codec_name, tol=1e-4, restart=True)
 
 
 @pytest.mark.parametrize("codec_name", ["Int8Codec", "TopKCodec"])

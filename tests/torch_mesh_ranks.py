@@ -90,10 +90,13 @@ def layout(mesh):
     }
 
 
-def mesh_rounds(mesh, cases, params_np, batches_np, weights, budgets, masks, steps):
-    """Run every (collective, codec) case for ``len(masks)`` rounds on this
-    rank's client and return, per case and round, what the parity test
-    compares: the new global (flat), the metrics, this rank's codec and
+def mesh_rounds(mesh, runs):
+    """For each run ``(prefix, arch, cases, params_np, batches_np, weights,
+    budgets, masks, steps)``: build the reduced ``arch`` from the JAX
+    params ``params_np``, run every (collective, codec) case of ``cases``
+    for ``len(masks)`` rounds on this rank's client and return, per case
+    (keyed ``prefix + (collective, codec)``) and round, what the parity
+    tests compare: the new global (flat), the metrics, this rank's codec and
     collective residual rows, and the kernel launches of the round.  Each
     case also runs its first round with ``mask=None`` and reports whether
     that equals the all-ones mask bitwise.  For the int8 collective each
@@ -101,14 +104,23 @@ def mesh_rounds(mesh, cases, params_np, batches_np, weights, budgets, masks, ste
     scales of this rank's ``CompressedPsum.psum_leaves``, and for the Int8
     uplink the value it quantized and its scales (``OpsLog``)."""
     OpsLog.install()
+    torch.set_num_threads(1)  # four ranks share the host's cores
+    out = {"layout": layout(mesh)}
+    for prefix, arch, *run in runs:
+        for case, rec in _arch_rounds(mesh, arch, *run):
+            out[prefix + case] = rec
+    return out
+
+
+def _arch_rounds(mesh, arch, cases, params_np, batches_np, weights, budgets, masks, steps):
+    """``mesh_rounds``' cases on one model: yields (case, its record)."""
     r = mesh.rank
-    model = build_model(get_config("mobilenet-head-office31").reduced(), device="cpu")
+    model = build_model(get_config(arch).reduced(), device="cpu")
     params0 = params_from_numpy(params_np, "cpu")
     n = sum(x.numel() for x in tree_leaves(params0))
     batches = {k: torch.from_numpy(v[r:r + 1].copy()) for k, v in batches_np.items()}
     w = torch.from_numpy(weights[r:r + 1].copy())
     bud = torch.from_numpy(budgets[r:r + 1].copy())
-    out = {"layout": layout(mesh)}
     for collective, codec_name in cases:
         codec = getattr(T, codec_name)()
         spec = T.RoundSpec(max_steps=steps, execution_mode="parallel", codec=codec,
@@ -145,8 +157,7 @@ def mesh_rounds(mesh, cases, params_np, batches_np, weights, budgets, masks, ste
                 "uplink_log": uplink_log,
             })
             g, state = g_new, state_new
-        out[(collective, codec_name)] = {"rounds": rounds, "mask_none_same": none_same}
-    return out
+        yield (collective, codec_name), {"rounds": rounds, "mask_none_same": none_same}
 
 
 def fail_on_rank_one(mesh):
