@@ -144,12 +144,36 @@ Phases (any failure exits non-zero):
    rounds, every FL kernel once a reduce; (c) the round engine as phase 6;
    (d) the mesh's int8 collective with the Int8 uplink on phase 7's 4
    gloo ranks, 2 rounds, held against the vmap fp32 round step.
+11. population mode on mobilenet-head-office31 at full width (N =
+   1,974,303): (a) Population.synthetic(1,000,000) of the mixed fleet's
+   seven classes, the from_profiles churn trace, cohort 16, FedAvg under
+   BandwidthCodecPolicy, a LazyClientPool of 64 over a CohortState, 3
+   rounds: each round's launches against its cohort's codec groups (a
+   quantize and a dequantize an Int8 client, a reduce a reported group,
+   nothing else), its billed bytes against the cohort's wires, the pool's
+   live clients, accuracy rising; round 2 split by host stage (sampling,
+   materializing, properties, fit, aggregate, evaluate), round 3 profiled;
+   (b) 48 devices, a pool of 8 and a store of 32 rows, 4 rounds (store
+   evictions, rehydrated clients), the run at N == cohort size through
+   population mode and the list path (History equal, the global bitwise),
+   and the spill run's reduced-width card-vs-CPU replay as in phase 4;
+   (c) make_round_step (parallel, C = 8) with Int8 and TopK, its residual
+   rows through CohortState.gather / scatter bitwise against the state
+   threaded on the card, the eviction replay bitwise, gather and scatter of
+   the (8, N) block timed beside one copy of it each way; (d) a round
+   setup (CostAwareFedAvg.sample_cohort, step_jitter_for, gather, scatter
+   at C = 16) at 10^3 and 10^6 devices, the median at 10^6 within 2x (or
+   2 ms) of 10^3, <= 2 bytes a device; (e) straggler_bench.py's population
+   row: 60 devices, cohort 8, Deadline at 1.25x a Jetson's round, 3 rounds
+   each of CostAwareFedAvg (every cohort predicted feasible) and blind
+   FedAvg (no fewer drops).
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
 to DIR/chip_smoke.json and the profiled round's trace to
-DIR/round3_trace.json, DIR/mixed_fleet_round3_trace.json and
-DIR/fedadam_mixed_fleet_round3_trace.json and DIR/resnet_round3_trace.json.gz, the serving
+DIR/round3_trace.json, DIR/mixed_fleet_round3_trace.json,
+DIR/fedadam_mixed_fleet_round3_trace.json, DIR/resnet_round3_trace.json.gz
+and DIR/population_round3_trace.json.gz, the serving
 traces to DIR/serving_{prefill,decode}_trace.json and
 DIR/hybrid_{prefill,decode}_trace.json (DIR defaults to smoke_out).  If
 ``repro_torch`` cannot be imported (the script run away from the
@@ -1701,6 +1725,35 @@ def trainable_mask_of(model, params):
     return None if model.trainable_mask is None else model.trainable_mask(params)
 
 
+def stage_timed(fn, stage: str, stage_s: dict):
+    """``fn`` adding its host seconds, synchronized, to ``stage_s[stage]``."""
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        stage_s[stage] = stage_s.get(stage, 0.0) + time.perf_counter() - t0
+        return out
+    return call
+
+
+def instrument_clients(clients, stage_s: dict | None = None, dispatched: list | None = None):
+    """``instrument``'s client half: with ``stage_s`` every ``fit`` /
+    ``evaluate`` adds its host seconds to it; with ``dispatched`` every
+    ``fit`` appends its client id."""
+    if dispatched is not None:
+        def logged(fn, cid):
+            def call(ins):
+                dispatched.append(cid)
+                return fn(ins)
+            return call
+        for c in clients:
+            c.fit = logged(c.fit, c.client_id)
+    if stage_s is not None:
+        for c in clients:
+            c.fit = stage_timed(c.fit, "fit", stage_s)
+            c.evaluate = stage_timed(c.evaluate, "evaluate", stage_s)
+
+
 def instrument(clients, strategy, on_round=None, stage_s: dict | None = None,
                agg_log: list | None = None, dispatched: list | None = None):
     """Wraps, on these instances, what a phase reads of a Server run, and
@@ -1720,27 +1773,9 @@ def instrument(clients, strategy, on_round=None, stage_s: dict | None = None,
             if on_round is not None:
                 on_round()
 
-    def timed(fn, stage):
-        def call(*args, **kw):
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            stage_s[stage] = stage_s.get(stage, 0.0) + time.perf_counter() - t0
-            return out
-        return call
-
-    if dispatched is not None:
-        def logged(fn, cid):
-            def call(ins):
-                dispatched.append(cid)
-                return fn(ins)
-            return call
-        for c in clients:
-            c.fit = logged(c.fit, c.client_id)
+    instrument_clients(clients, stage_s, dispatched)
     if stage_s is not None:
-        for c in clients:
-            c.fit, c.evaluate = timed(c.fit, "fit"), timed(c.evaluate, "evaluate")
-        strategy.aggregate_fit = timed(strategy.aggregate_fit, "aggregate_fit")
+        strategy.aggregate_fit = stage_timed(strategy.aggregate_fit, "aggregate_fit", stage_s)
     if agg_log is not None:
         def recorded(fn):
             def call(rnd, results, global_params):
@@ -1878,7 +1913,7 @@ def mixed_fleet_phase(arch="mobilenet-head-office31", fleet=MIXED_FLEET,
             "train_loss": [r.train_loss for r in history.rounds], "n_params": n}
 
 
-def reduced_parity_phase(fleet=PROFILE_FLEET) -> None:
+def reduced_parity_phase(fleet=PROFILE_FLEET, loop=None, name: str | None = None) -> None:
     """The card (kernels) against the CPU (plain versions) at reduced width.
 
     1. Replay: every round's uploads that reached the card's
@@ -1893,17 +1928,24 @@ def reduced_parity_phase(fleet=PROFILE_FLEET) -> None:
        for every code that differs between the two runs' wires, that code's
        change times its block scale times its client's weight share, and for
        every TopK index sent by one run only, its |value| times the weight
-       share."""
+       share.
+
+    ``loop(arch, device, **probe)`` runs the 2 rounds (default: the Flower
+    loop on ``fleet``); ``name`` labels the checks."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import FedAvg, Int8Codec, TopKCodec
     from repro_torch.core.protocol import wire_to_enc
     from repro_torch.utils.pytree import tree_flatten_to_vector
 
     arch = get_config("mobilenet-head-office31").reduced()
-    name = "reduced width" if fleet is PROFILE_FLEET else "mixed fleet, reduced width"
+    if name is None:
+        name = "reduced width" if fleet is PROFILE_FLEET else "mixed fleet, reduced width"
+    if loop is None:
+        def loop(arch, device, **probe):
+            return flower_loop(arch, device, 2, fleet=fleet, **probe)
     card_log, cpu_log = [], []
-    _, _, (on_card, h_card) = flower_loop(arch, "cuda", 2, agg_log=card_log, fleet=fleet)
-    _, _, (on_cpu, h_cpu) = flower_loop(arch, "cpu", 2, agg_log=cpu_log, fleet=fleet)
+    _, _, (on_card, h_card) = loop(arch, "cuda", agg_log=card_log)[:3]
+    _, _, (on_cpu, h_cpu) = loop(arch, "cpu", agg_log=cpu_log)[:3]
 
     replay_err = 0.0
     cpu_strategy = FedAvg(local_epochs=2, local_lr=0.1)
@@ -1951,6 +1993,15 @@ SERVING_KERNELS = {
     "decode_attention": ("decode_attention_split_kernel", "decode_attention_combine_kernel"),
     "selective_scan": ("selective_scan_kernel",),
 }
+
+
+def export_gzipped_trace(prof, trace: Path) -> None:
+    """The profiler's chrome trace as ``trace``.gz: a round of many clients'
+    steps is tens of MB of JSON, and a chip call brings back 64 MiB."""
+    prof.export_chrome_trace(str(trace))
+    with open(trace, "rb") as raw, gzip.open(f"{trace}.gz", "wb") as packed:
+        shutil.copyfileobj(raw, packed)
+    trace.unlink()
 
 
 def device_time(prof) -> tuple[float, dict]:
@@ -3212,11 +3263,7 @@ def resnet_example_leg(card: str, out_dir: Path) -> dict:
     fl_us = sum(us for name, us in by_kernel.items() if any(k in name for k in PORT_KERNELS))
     conv_us = sum(us for name, us in by_kernel.items()
                   if any(k in name.lower() for k in CONV_KERNELS))
-    trace = out_dir / "resnet_round3_trace.json"  # ~10^5 kernels: kept gzipped
-    prof.export_chrome_trace(str(trace))
-    with open(trace, "rb") as raw, gzip.open(f"{trace}.gz", "wb") as packed:
-        shutil.copyfileobj(raw, packed)
-    trace.unlink()
+    export_gzipped_trace(prof, out_dir / "resnet_round3_trace.json")  # ~10^5 kernels
     out["profile"] = {
         "round2_host_s": round2_s, "round2_stage_s": split, "round3_device_busy_ms": busy_us / 1e3,
         "device_idle_share_vs_round2": 1.0 - busy_us / 1e6 / round2_s,
@@ -3304,6 +3351,476 @@ def resnet_phase(card: str, out_dir: Path, head_rows: dict) -> dict:
     *_, out["mesh"], out["mesh_wall_s"] = mesh_cases(card, RESNET, RESNET_MESH_CASES, 2, False)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 10 (ResNet-18): {out['seconds']:.2f} s ({card})", flush=True)
+    return out
+
+
+# ---------------- phase 11: population mode ----------------
+HEAD = "mobilenet-head-office31"
+# the mixed fleet's seven device classes, drawn uniformly: under
+# BandwidthCodecPolicy the phones ship TopK, the Jetsons Int8 and the
+# datacenter-class chip Null
+POP_MIX = tuple(dict.fromkeys(MIXED_FLEET))
+POP_N = 1_000_000             # leg a: the quickstart's scale, ten times over
+POP_COHORT = 16
+# leg b: a pool and a store smaller than what the rounds touch, so clients
+# are evicted and rehydrated and store rows are evicted
+POP_SPILL = dict(n_devices=48, pool_capacity=8, store_capacity=32, n_shards=8,
+                 n_examples=1024)
+POP_ENGINE_COHORT = [11, 5, 900_001, 3, 42, 77, 123_456, 8]   # leg c, C = 8
+POP_SETUP_NS = (1_000, 1_000_000)                              # leg d
+POP_SETUP_ROUNDS = 20
+POP_SETUP_FLOOR_MS = 2.0      # benchmarks/population_bench.py's absolute floor
+# leg e: benchmarks/straggler_bench.py's population row
+STRAGGLER_N, STRAGGLER_COHORT, STRAGGLER_SHARD = 60, 8, 32
+STRAGGLER_MIX = ("jetson-tx2-gpu", "pixel-2", "pixel-3")
+
+
+def codec_group(name: str) -> str:
+    """The codec BandwidthCodecPolicy gives device class ``name``."""
+    from repro_torch.core import PROFILES, BandwidthCodecPolicy, ClientProperties
+
+    p = PROFILES[name]
+    return type(BandwidthCodecPolicy().codec_for(ClientProperties(
+        client_id=0, device_profile=name, uplink_mbps=p.uplink_mbps,
+        downlink_mbps=p.downlink_mbps))).__name__
+
+
+def population_loop(arch, device, n_rounds: int, *, n_devices: int, pool_capacity: int = 64,
+                    store_capacity: int = 4096, n_shards: int = 5,
+                    n_examples: int = 2000, churn: bool = True, legacy: bool = False,
+                    stage_s: dict | None = None, dispatched: list | None = None, **probe):
+    """Population mode on ``arch``: ``Population.synthetic(n_devices,
+    POP_MIX, seed=0)``, FedAvg under BandwidthCodecPolicy at the family's
+    ``LOCAL_LR``, cohort ``POP_COHORT``, the ``from_profiles`` churn trace (with
+    ``churn``), and a ``LazyClientPool`` whose clients share ``n_shards``
+    shards of ``n_examples`` examples by ``cid % n_shards`` (as the
+    quickstart's do) and spill their residuals into a ``CohortState``.
+    With ``legacy`` the same clients run as a list on the list-of-clients
+    path.  With ``stage_s`` every pool materialization, ``sample_cohort``
+    and client ``properties`` add their host seconds to it too; the rest of
+    the probe goes to ``instrument``.  Returns the params, the cost model,
+    (final, History), the pool and the population."""
+    from repro_torch.core import (
+        AvailabilityTrace, BandwidthCodecPolicy, CohortState, CostModel, FedAvg,
+        LazyClientPool, Population, Server, TopKCodec, TorchClient, make_cost_model_for,
+    )
+    from repro_torch.data.federated import ClientDataset, dirichlet_partition
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_bytes, tree_size
+
+    model = build_model(arch, device=device)
+    shards = dirichlet_partition(model_data(model, n_examples, seed=0), n_clients=n_shards,
+                                 alpha=1.0, seed=0)
+    params = model.init(0)
+    mask = trainable_mask_of(model, params)
+    pop = Population.synthetic(n_devices, mix=POP_MIX, seed=0)
+    strategy = FedAvg(local_epochs=2, local_lr=LOCAL_LR[model.arch.family],
+                      codec_policy=BandwidthCodecPolicy())
+
+    def factory(cid):
+        shard = shards[cid % n_shards]
+        c = TorchClient(client_id=cid, loss_fn=model.loss_fn, batch_size=32,
+                        dataset=ClientDataset(client_id=cid, x=shard.x, y=shard.y),
+                        trainable_mask=mask, device_profile=pop.profile(cid).name, device=device)
+        instrument_clients([c], stage_s, dispatched)
+        if stage_s is not None:
+            c.properties = stage_timed(c.properties, "properties", stage_s)
+        return c
+
+    logger = instrument([], strategy, stage_s=stage_s, **probe)
+    trace = AvailabilityTrace.from_profiles(pop, seed=0) if churn else None
+    if legacy:
+        server = Server(strategy=strategy, clients=[factory(c) for c in range(n_devices)],
+                        cost_model=make_cost_model_for(params, [pop.profile(c) for c in
+                                                                range(n_devices)]),
+                        availability=trace, device=device, logger=logger)
+        return params, server.cost_model, server.run(params, num_rounds=n_rounds), None, pop
+    if stage_s is not None:
+        strategy.sample_cohort = stage_timed(strategy.sample_cohort, "sample_cohort", stage_s)
+        factory = stage_timed(factory, "materialize", stage_s)
+    store = CohortState(TopKCodec(), tree_size(params), capacity=store_capacity, device=device)
+    pool = LazyClientPool(pop, factory, capacity=pool_capacity, state_store=store)
+    server = Server(strategy=strategy, clients=pool, population=pop, cohort_size=POP_COHORT,
+                    cost_model=CostModel(profiles=[], update_bytes=tree_bytes(params),
+                                         population=pop),
+                    availability=trace, device=device, logger=logger)
+    return params, server.cost_model, server.run(params, num_rounds=n_rounds), pool, pop
+
+
+def population_scale_leg(card: str, out_dir: Path, dev="cuda", arch=HEAD) -> dict:
+    """Leg (a): 10^6 devices of ``POP_MIX``, cohort 16, churn, FedAvg under
+    BandwidthCodecPolicy, ``LazyClientPool(capacity=64)`` over a
+    ``CohortState``, 3 rounds.  Every round: the launch counts (set to 0 at
+    the end of the round before) against the dispatched codec groups --
+    one quantize and one dequantize an Int8 client, one reduce a group that
+    reported, nothing else --, the billed bytes against the cohort's wires,
+    the pool's live clients.  Round 2's host seconds by stage, round 3
+    under torch.profiler (its idle share against round 2)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import BandwidthCodecPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import tree_leaves, tree_size
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    stage_s, dispatched, marks, by_round, ids_by_round, splits = {}, [], [], [], [], []
+
+    def on_round():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        by_round.append(ops.launch_counts())
+        ops.reset_launch_counts()
+        ids_by_round.append(list(dispatched))
+        dispatched.clear()
+        splits.append(dict(stage_s))
+        stage_s.clear()
+        if len(marks) == 2:
+            prof.start()
+        elif len(marks) == 3:
+            prof.stop()
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, cost_model, (final, history), pool, pop = population_loop(
+        arch, dev, 3, n_devices=POP_N, stage_s=stage_s, dispatched=dispatched,
+        on_round=on_round)
+    n = tree_size(params)
+    policy = BandwidthCodecPolicy()
+    codecs = {"Int8Codec": policy.int8, "TopKCodec": policy.topk, "NullCodec": policy.null}
+    label = f"population ({POP_N:,} devices, cohort {POP_COHORT})"
+    check(f"{label}: packed fleet <= 2 bytes a device", pop.nbytes / len(pop) <= 2.0,
+          bytes_per_device=pop.nbytes / len(pop))
+    groups_by_round = []
+    for rnd, (ids, counts, rec) in enumerate(zip(ids_by_round, by_round, history.rounds), 1):
+        groups = {k: 0 for k in codecs}
+        for cid in ids:
+            groups[codec_group(pop.profile(cid).name)] += 1
+        groups_by_round.append(groups)
+        want = {k: 0 for k in counts}
+        want.update(quantize_int8=groups["Int8Codec"], dequantize_int8=groups["Int8Codec"],
+                    dequant_reduce=int(groups["Int8Codec"] > 0),
+                    topk_scatter_reduce=int(groups["TopKCodec"] > 0),
+                    fedavg_reduce=int(groups["NullCodec"] > 0))
+        check(f"{label}: round {rnd} launches = its codec groups {groups} (a quantize and a "
+              "dequantize an Int8 client, a reduce a group), nothing else",
+              counts == want and rec.participants == len(ids) == POP_COHORT,
+              launches={k: v for k, v in counts.items() if v}, participants=rec.participants)
+        expect = (sum(codecs[codec_group(pop.profile(c).name)].wire_bytes(n) for c in ids)
+                  + len(ids) * cost_model.update_bytes)
+        check(f"{label}: round {rnd} comm_bytes = the cohort's codec wires + downlinks",
+              rec.comm_bytes == expect, comm_bytes=rec.comm_bytes, expected=expect)
+    check(f"{label}: the pool holds at most its 64 live clients, the global on cuda",
+          pool.live <= pool.capacity and all(t.device.type == torch.device(dev).type
+                                             for t in tree_leaves(final)),
+          live=pool.live, materializations=pool.materializations)
+    accs = [r.eval_acc for r in history.rounds]
+    check(f"{label}: accuracy over the round's cohort finite and rising (round 3 > round 1)",
+          all(math.isfinite(a) for a in accs) and accs[-1] > accs[0], eval_acc=accs)
+    round_s = [b - a for a, b in zip(marks, marks[1:])]
+    split = dict(splits[1])
+    split["other"] = round_s[0] - sum(split.values())
+    busy_us, by_kernel = device_time(prof)
+    ours_us = sum(us for k, us in by_kernel.items() if any(p in k for p in PORT_KERNELS))
+    idle = 1.0 - busy_us / 1e6 / round_s[0]
+    export_gzipped_trace(prof, out_dir / "population_round3_trace.json")
+    launches = {k: sum(c[k] for c in by_round) for k in by_round[0]}
+    print(f"{label}: round 2 host split {json.dumps({k: round(v, 4) for k, v in split.items()})} "
+          f"of {round_s[0]:.4f} s; round 3 profiled {round_s[1]:.4f} s: card busy "
+          f"{busy_us / 1e3:.3f} ms, the FL kernels {ours_us:.1f} us, idle {idle:.4f} of round 2; "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})} ({card})", flush=True)
+    return {"launches": launches, "launches_by_round": by_round, "groups": groups_by_round,
+            "round2_stage_s": split, "round_s": round_s, "round1_stage_s": splits[0],
+            "run_wall_s": time.perf_counter() - t0, "round3_device_busy_ms": busy_us / 1e3,
+            "round3_fl_kernels_us": ours_us, "device_idle_share_vs_round2": idle,
+            "eval_acc": accs, "live": pool.live, "materializations": pool.materializations}
+
+
+def population_spill_leg(card: str, dev="cuda", arch=HEAD) -> dict:
+    """Leg (b): ``POP_SPILL`` (48 devices, cohort 16, a pool of 8 live
+    clients over a store of 32 rows), 4 rounds: clients are evicted and
+    rehydrated and store rows evicted.  Then the same loop at N == cohort
+    size (no churn, the pool larger than the fleet) through population mode
+    and the list path: History's time, energy, bytes, participants and
+    losses equal, the final global bitwise.  Last, the spill run at reduced
+    width on the card and the CPU, held as phase 4 holds the Flower loop."""
+    from repro_torch.utils.pytree import tree_flatten_to_vector
+
+    _, _, (final, history), pool, _ = population_loop(arch, dev, 4, **POP_SPILL)
+    store = pool.state_store
+    check("population spill: store evictions > 0 and materializations > live clients",
+          store.evictions > 0 and pool.materializations > pool.live,
+          store_evictions=store.evictions, store_rows=len(store),
+          materializations=pool.materializations, live=pool.live,
+          participants=[r.participants for r in history.rounds])
+    accs = [r.eval_acc for r in history.rounds]
+    check("population spill: accuracy finite, global on the card",
+          all(math.isfinite(a) for a in accs)
+          and tree_flatten_to_vector(final).device.type == torch.device(dev).type,
+          eval_acc=accs)
+    runs = {}
+    for legacy in (False, True):
+        _, _, runs[legacy], *_ = population_loop(
+            arch, dev, 3, n_devices=POP_COHORT, pool_capacity=2 * POP_COHORT, churn=False,
+            legacy=legacy, n_shards=8, n_examples=1024)
+    (g_pop, h_pop), (g_leg, h_leg) = runs[False], runs[True]
+    fields = ("wall_time_s", "energy_j", "comm_bytes", "participants", "steps", "train_loss",
+              "eval_loss", "eval_acc")
+    same = all(getattr(a, f) == getattr(b, f) for a, b in zip(h_pop.rounds, h_leg.rounds,
+                                                              strict=True) for f in fields)
+    check(f"population at N == cohort size ({POP_COHORT}) = the list path: History equal, "
+          "the final global bitwise",
+          same and torch.equal(tree_flatten_to_vector(g_pop), tree_flatten_to_vector(g_leg)),
+          participants=[r.participants for r in h_pop.rounds],
+          max_abs_err=float((tree_flatten_to_vector(g_pop) - tree_flatten_to_vector(g_leg))
+                            .abs().max()))
+    if torch.device(dev).type == "cuda":
+        reduced_parity_phase(loop=lambda arch, device, **probe: population_loop(
+            arch, device, 2, **POP_SPILL, **probe), name="population spill, reduced width")
+    return {"store_evictions": store.evictions, "materializations": pool.materializations,
+            "live": pool.live, "eval_acc": accs}
+
+
+def population_engine_leg(card: str, dev="cuda", arch=HEAD) -> dict:
+    """Leg (c): ``make_round_step`` (parallel) at full width, C = 8 (8 local
+    steps of batch 32, phase 6's budgets), Int8 and TopK, 3 rounds with the
+    residual rows resident only while sampled (``CohortState.gather`` /
+    ``scatter`` over ``POP_ENGINE_COHORT``) against the same rounds with the
+    state threaded on the card: globals and metrics bitwise every round,
+    the threaded rows and ``store.gather`` after round 3 bitwise, phase 6's
+    launches a round.  The eviction replay: a store of one row, each round
+    bitwise the round with the lost rows zeroed by hand.  Then the gather
+    and scatter of the (8, N) block timed beside one copy of its bytes
+    each way."""
+    from repro_torch.core import (CohortState, FedAvg, Int8Codec, RoundSpec, TopKCodec,
+                                  make_round_step)
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import tree_flatten_to_vector, tree_size
+
+    c, steps, b = 8, 8, 32
+    cohort = POP_ENGINE_COHORT
+    model = build_model(arch, device=dev)
+    params = model.init(0)
+    n = tree_size(params)
+    data = model_data(model, c * steps * b, seed=1)
+    batches = {
+        "x": torch.from_numpy(data.x.reshape(c, steps, b, *data.x.shape[1:])).to(dev),
+        "y": torch.from_numpy(data.y.reshape(c, steps, b)).to(dev),
+    }
+    weights = torch.from_numpy(np.random.default_rng(2).integers(50, 400, c)
+                               .astype(np.float32)).to(dev)
+    budgets = torch.tensor(ENGINE_BUDGETS, dtype=torch.int32, device=dev)
+    want = {"Int8Codec": (1, 1, 1, 0), "TopKCodec": (0, 0, 0, 1)}
+
+    def same(a, b):
+        return torch.equal(tree_flatten_to_vector(a), tree_flatten_to_vector(b))
+
+    def same_metrics(a, b):
+        return set(a) == set(b) and all(torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
+                                        for k in a)
+
+    out = {}
+    for name, codec in (("Int8Codec", Int8Codec()), ("TopKCodec", TopKCodec())):
+        step = make_round_step(model.loss_fn, sgd(LOCAL_LR[model.arch.family]), FedAvg(),
+                               RoundSpec(max_steps=steps, execution_mode="parallel", codec=codec),
+                               trainable_mask=trainable_mask_of(model, params))
+        g, state, threaded = params, codec.init_client_state(c, n, device=dev), []
+        for rnd in range(3):
+            g, _, state, met = step(g, (), state, batches, weights, budgets, rnd)
+            threaded.append((g, met))
+        store = CohortState(codec, n, capacity=16, device=dev)
+        gp, counts, ok = params, [], []
+        for rnd in range(3):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            dense = store.gather(cohort)
+            gp, _, dense, met = step(gp, (), dense, batches, weights, budgets, rnd)
+            store.scatter(cohort, dense)
+            counts.append(ops.launch_counts())
+            ok.append(same(gp, threaded[rnd][0]) and same_metrics(met, threaded[rnd][1]))
+        got = [(k["quantize_int8"], k["dequantize_int8"], k["dequant_reduce"],
+                k["topk_scatter_reduce"]) for k in counts]
+        check(f"population engine {name}: 3 rounds through CohortState.gather / scatter bitwise "
+              "the threaded rounds (globals, metrics), the rows after round 3 bitwise, launches "
+              f"{want[name]} a round (quantize, dequantize, dequant_reduce, topk_scatter_reduce)",
+              all(ok) and torch.equal(store.gather(cohort), state)
+              and all(x == want[name] for x in got), rounds_bitwise=ok, launches=got)
+
+        tight = CohortState(codec, n, capacity=1, device=dev)
+        g1, g2, fresh = params, params, CohortState(codec, n, capacity=16, device=dev)
+        ok = []
+        for rnd in range(3):
+            dense = tight.gather(cohort)
+            g1, _, dense, m1 = step(g1, (), dense, batches, weights, budgets, rnd)
+            tight.scatter(cohort, dense)
+            zeroed = fresh.gather(cohort)
+            zeroed[: c - 1] = 0.0  # what the tight store's evictions reset
+            g2, _, zeroed, m2 = step(g2, (), zeroed, batches, weights, budgets, rnd)
+            fresh.scatter(cohort, zeroed)
+            ok.append(same(g1, g2) and same_metrics(m1, m2)
+                      and bool(torch.isfinite(m1["residual_norm_mean"])))
+        check(f"population engine {name}: after evictions (a store of 1 row) every round "
+              "bitwise the round with the lost rows zeroed", all(ok) and tight.evictions > 0,
+              rounds_bitwise=ok, evictions=tight.evictions)
+        out[name] = {"launches": got}
+
+    store = CohortState(Int8Codec(), n, capacity=16, device=dev)
+    block = torch.randn(c, n, device=dev)
+    host = torch.randn(c, n)
+    store.scatter(cohort, block)
+
+    def host_ms(fn, iters=7):
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    moved = c * n * 4
+    out["copies"] = {
+        "gather_ms": host_ms(lambda: store.gather(cohort)),
+        "scatter_ms": host_ms(lambda: store.scatter(cohort, block)),
+        "h2d_ms": host_ms(lambda: host.to(dev)),
+        "d2h_ms": host_ms(lambda: block.cpu()),
+        "bytes": moved,
+    }
+    r = out["copies"]
+    print(f"population engine: gather of the (8, N) block {r['gather_ms']:.3f} ms, scatter "
+          f"{r['scatter_ms']:.3f} ms; one copy of its {moved / 1e6:.1f} MB host to device "
+          f"{r['h2d_ms']:.3f} ms, device to host {r['d2h_ms']:.3f} ms ({card})", flush=True)
+    return out
+
+
+def population_setup_leg(card: str, dev="cuda") -> dict:
+    """Leg (d), ``benchmarks/population_bench.py``'s guard on the card: one
+    round setup is ``CostAwareFedAvg.sample_cohort`` (availability streamed,
+    deadline 30 s) + ``step_jitter_for`` + ``CohortState.gather`` of the
+    cohort's (16, N) rows to the card + ``scatter`` back, at the head
+    model's N; the median of 20 at 10^6 devices stays within 2x of (or
+    2 ms above) the median at 10^3, and the fleet packs into <= 2 bytes a
+    device."""
+    from repro_torch.core import (AvailabilityTrace, CohortState, CostAwareFedAvg, CostModel,
+                                  Population, TopKCodec)
+
+    rows = {}
+    for n_dev in POP_SETUP_NS:
+        pop = Population.synthetic(n_dev, seed=0)
+        trace = AvailabilityTrace.from_profiles(pop, seed=0, jitter_std=0.1)
+        cm = CostModel(profiles=[], update_bytes=4 * N_PARAMS, population=pop)
+        strategy = CostAwareFedAvg(expected_steps=20)
+        store = CohortState(TopKCodec(frac=0.01), N_PARAMS, capacity=64, device=dev)
+        times, sizes = [], []
+        for rnd in range(1, POP_SETUP_ROUNDS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cohort = strategy.sample_cohort(rnd, pop, POP_COHORT, availability=trace,
+                                            cost_model=cm, deadline_s=30.0)
+            trace.step_jitter_for(rnd, cohort)
+            dense = store.gather(cohort)
+            store.scatter(cohort, dense + 1.0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            sizes.append(len(cohort))
+        rows[n_dev] = {"round_setup_ms": statistics.median(times), "min_ms": min(times),
+                       "bytes_per_device": pop.nbytes / len(pop), "store_rows": len(store),
+                       "store_evictions": store.evictions, "cohorts": sizes}
+    small, big = (rows[k] for k in POP_SETUP_NS)
+    t_small, t_big = small["round_setup_ms"], big["round_setup_ms"]
+    check(f"population round setup flat in N: {t_big:.2f} ms at {POP_SETUP_NS[1]:,} devices "
+          f"within 2x of (or {POP_SETUP_FLOOR_MS} ms above) {t_small:.2f} ms at "
+          f"{POP_SETUP_NS[0]:,}; <= 2 bytes a device",
+          t_big <= max(2.0 * t_small, t_small + POP_SETUP_FLOOR_MS)
+          and big["bytes_per_device"] <= 2.0
+          and all(s == POP_COHORT for r in rows.values() for s in r["cohorts"]),
+          rows={k: {x: v[x] for x in ("round_setup_ms", "min_ms", "bytes_per_device")}
+                for k, v in rows.items()})
+    print(f"population round setup (C = {POP_COHORT}, N = {N_PARAMS:,}): median "
+          + ", ".join(f"{r['round_setup_ms']:.3f} ms at {k:,} devices" for k, r in rows.items())
+          + f" ({card})", flush=True)
+    return {str(k): v for k, v in rows.items()}
+
+
+def population_deadline_leg(card: str, dev="cuda", arch=HEAD) -> dict:
+    """Leg (e), ``benchmarks/straggler_bench.py``'s population row on the
+    card: 60 devices of ``STRAGGLER_MIX``, cohort 8, ``Deadline(tau)`` at
+    1.25x a Jetson TX2 GPU's round (2 steps, the full model both ways), 3
+    rounds each of ``CostAwareFedAvg`` and blind ``FedAvg``: every
+    cost-aware cohort is predicted feasible, and the cost-aware run drops
+    no more clients than the blind one."""
+    from repro_torch.core import (PROFILES, CostAwareFedAvg, CostModel, Deadline, FedAvg,
+                                  LazyClientPool, Population, Server, TorchClient,
+                                  deadline_feasible)
+    from repro_torch.data.federated import ClientDataset
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_bytes
+
+    model = build_model(arch, device=dev)
+    data = model_data(model, STRAGGLER_N * STRAGGLER_SHARD, seed=0)
+    params = model.init(0)
+    mask = trainable_mask_of(model, params)
+    pop = Population.synthetic(STRAGGLER_N, mix=STRAGGLER_MIX, seed=0)
+    cm = CostModel(profiles=[], update_bytes=tree_bytes(params), population=pop)
+    spe = STRAGGLER_SHARD // 16
+    jet = PROFILES["jetson-tx2-gpu"]
+    tau = 1.25 * (spe * jet.step_time_s + jet.comm_time_s(cm.update_bytes, cm.update_bytes))
+    out = {"tau_s": tau}
+    for label, strategy in (
+        ("cost-aware", CostAwareFedAvg(local_epochs=1, local_lr=0.1, expected_steps=spe)),
+        ("blind", FedAvg(local_epochs=1, local_lr=0.1)),
+    ):
+        dispatched, by_round = [], []
+
+        def factory(cid):
+            lo = cid * STRAGGLER_SHARD
+            c = TorchClient(client_id=cid, loss_fn=model.loss_fn, batch_size=16,
+                            dataset=ClientDataset(client_id=cid, x=data.x[lo:lo + STRAGGLER_SHARD],
+                                                  y=data.y[lo:lo + STRAGGLER_SHARD]),
+                            trainable_mask=mask, device_profile=pop.profile(cid).name, device=dev)
+            instrument_clients([c], dispatched=dispatched)
+            return c
+
+        def on_round():
+            by_round.append(list(dispatched))
+            dispatched.clear()
+
+        server = Server(strategy=strategy,
+                        clients=LazyClientPool(pop, factory, capacity=STRAGGLER_N), cost_model=cm, policy=Deadline(tau=tau), population=pop,
+                        cohort_size=STRAGGLER_COHORT, device=dev,
+                        logger=instrument([], strategy, on_round=on_round))
+        _, hist = server.run(params, num_rounds=3)
+        feasible = [bool(deadline_feasible(pop.expected_round_s(
+            ids, steps=spe, up_bytes=cm.update_bytes, down_bytes=cm.update_bytes), tau).all())
+            for ids in by_round]
+        out[label] = {"dropped": sum(r.dropped for r in hist.rounds),
+                      "participants": [r.participants for r in hist.rounds],
+                      "predicted_feasible": feasible, "sim_s": hist.total_time_s,
+                      "sim_j": hist.total_energy_j,
+                      "classes": [sorted(pop.profile(c).name for c in ids) for ids in by_round]}
+    aware, blind = out["cost-aware"], out["blind"]
+    check(f"population under Deadline(tau = {tau:.3f} s): every cost-aware cohort predicted "
+          "feasible, and it drops no more clients than blind sampling",
+          all(aware["predicted_feasible"]) and aware["dropped"] <= blind["dropped"],
+          aware={k: aware[k] for k in ("dropped", "participants", "predicted_feasible")},
+          blind={k: blind[k] for k in ("dropped", "participants", "predicted_feasible")})
+    return out
+
+
+def population_phase(card: str, out_dir: Path) -> dict:
+    """Phase 11: population mode on the head model at full width (N =
+    1,974,303), legs (a) 10^6 devices with the codec fleet, (b) spill and
+    rehydration, (c) the round engine over CohortState, (d) round setup flat
+    in N, (e) cost-aware sampling under a Deadline."""
+    t0 = time.perf_counter()
+    out = {"scale": population_scale_leg(card, out_dir), "spill": population_spill_leg(card),
+           "engine": population_engine_leg(card), "setup": population_setup_leg(card),
+           "deadline": population_deadline_leg(card)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 (population mode): {out['seconds']:.2f} s ({card})", flush=True)
     return out
 
 
@@ -3659,6 +4176,7 @@ def main() -> int:
     serving = REPORT["serving"] = dense_serving_phase(card, args.out)
     hybrid = REPORT["hybrid"] = hybrid_serving_phase(card, args.out)
     REPORT["resnet"] = resnet_phase(card, args.out, rows)
+    population = REPORT["population"] = population_phase(card, args.out)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):
@@ -3667,6 +4185,9 @@ def main() -> int:
 
     print(f"phase 3c (strategy family): {family['seconds']:.2f} s; phase 3d (paper tables): "
           f"{tables['seconds']:.2f} s ({card})", flush=True)
+    pop_launches = {k: v for k, v in population["scale"]["launches"].items() if v}
+    print(f"phase 11 (population, {POP_N:,} devices, 3 rounds) launches: "
+          f"{json.dumps(pop_launches)} ({card})", flush=True)
 
     kernels = []
     for name in ("quantize_int8", "dequantize_int8", "dequant_reduce", "fedavg_reduce",

@@ -7,19 +7,22 @@ from .protocol import (
 from .client import Client, TorchClient
 from .server import Server, History, RoundRecord, make_cost_model_for
 from .cost_model import (
-    CostModel, DeviceProfile, PROFILES, AvailabilityTrace, ClientCost,
+    CostModel, DeviceProfile, PROFILES, AWS_DEVICE_FARM, AvailabilityTrace,
+    ClientCost, link_time_s,
 )
 from .scheduler import (
     VirtualClock, Arrival, RoundOutcome, RoundPolicy, SyncAll, Deadline,
-    BufferedAsync,
+    BufferedAsync, deadline_feasible,
 )
 from .compression import (
     UpdateCodec, Int8Codec, NullCodec, TopKCodec, BandwidthCodecPolicy,
     CompressedPsum, fp32_collective_bytes, compress_update, decompress_update,
 )
+from .population import CohortState, LazyClientPool, Population
 from .strategy import (
     Strategy, FedAvg, FedProx, FedTau, tau_from_reference_processor, FedBuffStrategy,
     FedOpt, FedAdam, FedYogi, FedAvgM, STRATEGIES, pseudo_gradient, weighted_mean,
+    CostAwareSampling, CostAwareFedAvg,
 )
 from .rounds import (
     RoundSpec, init_collective_residual, make_client_update, make_round_step,

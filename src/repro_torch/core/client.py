@@ -63,6 +63,16 @@ class Client:
         update was delivered, leaving the residual exactly as it entered
         the round."""
 
+    def export_state(self):
+        """Round-to-round carry as one flat fp32 row, or None if there is
+        none — what ``LazyClientPool`` spills into a ``CohortState`` when it
+        evicts this client (core/population.py's eviction contract)."""
+        return None
+
+    def import_state(self, state) -> None:
+        """Rehydrate a previously ``export_state``-ed row on a freshly
+        materialized client."""
+
 
 @dataclass
 class TorchClient(Client):
@@ -103,6 +113,17 @@ class TorchClient(Client):
 
     def discard_update(self) -> None:
         self._residual = self._residual_prev
+
+    def export_state(self):
+        # the residual itself: CohortState.put_row copies it to the host
+        return self._residual
+
+    def import_state(self, state) -> None:
+        row = torch.as_tensor(state).to(self.device, torch.float32, copy=True)
+        self._residual = row
+        # the rollback point is the rehydrated row: a discard_update right
+        # after re-materialization must be a no-op, not a reset to None
+        self._residual_prev = row
 
     def steps_per_epoch(self) -> int:
         return self.dataset.steps_per_epoch(self.batch_size)

@@ -20,8 +20,19 @@ of marginal energy per client-step plus idle draw.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
+
+
+def link_time_s(up_bytes, down_bytes, uplink_mbps, downlink_mbps):
+    """The ONE link-time formula (CostModel charges it, TorchClient truncates
+    its deadline budget by it, a late report's wasted work is windowed with
+    it, and the population layer evaluates it vectorized over candidate
+    pools) — elementwise over arrays, scalar for scalars."""
+    return up_bytes * 8 / (uplink_mbps * 1e6) + down_bytes * 8 / (
+        downlink_mbps * 1e6
+    )
 
 
 @dataclass(frozen=True)
@@ -40,11 +51,9 @@ class DeviceProfile:
         return int(np.floor(tau_s / self.step_time_s))
 
     def comm_time_s(self, up_bytes: float, down_bytes: float) -> float:
-        """Transfer time on this device's links — the ONE link-time formula
-        (CostModel charges it, TorchClient truncates its deadline budget by
-        it, and a late report's wasted work is windowed with it)."""
-        return up_bytes * 8 / (self.uplink_mbps * 1e6) + down_bytes * 8 / (
-            self.downlink_mbps * 1e6
+        """Transfer time on this device's links (``link_time_s``)."""
+        return link_time_s(
+            up_bytes, down_bytes, self.uplink_mbps, self.downlink_mbps
         )
 
 
@@ -74,9 +83,38 @@ PROFILES: dict[str, DeviceProfile] = {
     )
 }
 
+# the paper's AWS Device Farm fleet (Table 1)
+AWS_DEVICE_FARM = ("pixel-4", "pixel-3", "pixel-2", "galaxy-tab-s6", "galaxy-tab-s4")
+
 # battery-powered device classes sit below this idle draw; they churn (lose
 # charge, lose WiFi, get picked up) far more than plugged-in edge boards
 _BATTERY_IDLE_W = 1.5
+
+
+def _stream_uniform(seed: int, rnd: int, stream: int, ids: np.ndarray) -> np.ndarray:
+    """Deterministic uniforms in [0, 1) per (seed, rnd, stream, client_id).
+
+    A splitmix64 finalizer over the id array: each client's draw depends
+    only on its own id and the (seed, rnd, stream) key, so streaming any
+    candidate pool — in any order, of any size — yields the same verdict
+    per client as streaming the full fleet.  O(len(ids)), never O(N).
+    The arithmetic is numpy uint64 with mod-2^64 wraparound, operation for
+    operation the JAX package's: a signed ``torch.int64`` route (no
+    unsigned shifts) would draw other bits.
+    """
+    u64 = np.uint64
+    key = (
+        seed * 0x9E3779B97F4A7C15
+        + rnd * 0xBF58476D1CE4E5B9
+        + stream * 0x94D049BB133111EB
+    ) & 0xFFFFFFFFFFFFFFFF
+    with np.errstate(over="ignore"):  # mod-2^64 wraparound is the algorithm
+        x = np.asarray(ids).astype(np.uint64) ^ u64(key)
+        x = x + u64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> u64(30))) * u64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> u64(27))) * u64(0x94D049BB133111EB)
+        x = x ^ (x >> u64(31))
+    return (x >> u64(11)).astype(np.float64) * (1.0 / (1 << 53))
 
 
 @dataclass(frozen=True)
@@ -99,6 +137,24 @@ class AvailabilityTrace:
 
     ``full(n)`` is the degenerate trace (everyone always up, no jitter) —
     by construction it reproduces the pre-scheduler lockstep fleet.
+
+    Two execution paths, one schedule each:
+
+    - the legacy **full-vector** path (``available`` / ``step_jitter``)
+      draws the whole fleet per round from ``default_rng((seed, rnd,
+      stream))`` — O(N);
+    - the **streamed** path (``available_for`` / ``step_jitter_for``)
+      evaluates only the ids handed to it, via a per-(seed, rnd, id)
+      splitmix64 hash — O(pool), pool-composition-independent, what
+      population-mode sampling uses.  A population-backed trace
+      (``from_profiles`` over packed columns) runs the streamed schedule on
+      *both* surfaces, so the two views of one trace always agree; a legacy
+      per-client-tuple trace keeps its full-vector draws, which are a
+      *different* (equally deterministic) schedule from its streamed draws.
+
+    The whole-run (R, C) schedule matrices (``available_matrix``,
+    ``step_jitter_matrix``, ``cohort_priority_matrix``) arrive with the
+    multi-round trainer, ROADMAP.md queue 1 item 11.
     """
 
     n_clients: int
@@ -106,12 +162,25 @@ class AvailabilityTrace:
     dropout: tuple[float, ...] = ()        # () = nobody drops
     join_round: tuple[int, ...] = ()       # () = everyone from round 1
     jitter_std: float = 0.0
+    # population-backed traces: one dropout per device *class*, resolved
+    # per-id through the packed profile codes — nothing here is O(N)
+    class_dropout: tuple[float, ...] = ()
+    population: Any = None
 
     def __post_init__(self):
         if self.dropout:
             assert len(self.dropout) == self.n_clients
         if self.join_round:
             assert len(self.join_round) == self.n_clients
+        if self.class_dropout:
+            assert self.population is not None and len(self.class_dropout) == (
+                self.population.n_profiles
+            )
+        if self.population is not None:
+            assert not self.dropout and not self.join_round, (
+                "population-backed traces stream per-class schedules; "
+                "per-client tuples would be the O(N) state this layer avoids"
+            )
 
     @classmethod
     def full(cls, n_clients: int) -> "AvailabilityTrace":
@@ -130,10 +199,29 @@ class AvailabilityTrace:
     ) -> "AvailabilityTrace":
         """Churn schedule from the fleet's hardware profiles.
 
-        ``profiles`` is a ``list[DeviceProfile]``, one per client.
-        ``late_join`` > 0 enrolls that many of the slowest clients only from
-        round ``late_join + 1`` (a staggered rollout).
+        ``profiles`` is either a ``list[DeviceProfile]`` (the legacy
+        per-client fleet) or a packed ``Population``: the population path
+        reads the per-*class* idle-power column directly and stores one
+        dropout rate per class — it never materializes N python objects,
+        and the resulting trace streams (``available_for``) on every
+        surface.  ``late_join`` > 0 enrolls that many of the slowest
+        clients only from round ``late_join + 1`` (a staggered rollout;
+        legacy path only — it is inherently a per-client schedule).
         """
+        if hasattr(profiles, "profile_codes"):  # a packed Population
+            if late_join:
+                raise ValueError(
+                    "late_join needs a per-client schedule; pass an explicit "
+                    "list[DeviceProfile] instead of a packed Population"
+                )
+            class_drop = tuple(
+                mobile_dropout if w < _BATTERY_IDLE_W else plugged_dropout
+                for w in profiles.idle_power_w_table
+            )
+            return cls(
+                n_clients=len(profiles), seed=seed, jitter_std=jitter_std,
+                class_dropout=class_drop, population=profiles,
+            )
         drop = tuple(
             mobile_dropout if p.idle_power_w < _BATTERY_IDLE_W else plugged_dropout
             for p in profiles
@@ -151,8 +239,52 @@ class AvailabilityTrace:
     def _rng(self, rnd: int, stream: int) -> np.random.Generator:
         return np.random.default_rng((self.seed, rnd, stream))
 
+    def _dropout_for(self, ids: np.ndarray) -> np.ndarray | None:
+        if self.population is not None and self.class_dropout:
+            codes = self.population.profile_codes[ids]
+            return np.asarray(self.class_dropout)[codes]
+        if self.dropout:
+            return np.asarray(self.dropout)[ids]
+        return None
+
+    def available_for(self, rnd: int, ids) -> np.ndarray:
+        """Streamed availability: one bool per id in ``ids``, O(len(ids)).
+
+        Each client's draw is a pure function of (seed, rnd, client_id) —
+        the verdict for client c is identical whatever candidate pool (or
+        full fleet) it is evaluated in.  Population sampling consults it
+        for the candidate pool only, never drawing an O(N) fleet vector.
+        """
+        ids = np.asarray(ids, np.int64)
+        up = np.ones(ids.shape, bool)
+        drop = self._dropout_for(ids)
+        if drop is not None:
+            up &= _stream_uniform(self.seed, rnd, 0, ids) >= drop
+        if self.join_round:
+            up &= np.asarray(self.join_round)[ids] <= rnd
+        return up
+
+    def step_jitter_for(self, rnd: int, ids) -> np.ndarray:
+        """Streamed lognormal step-time factors per id (Box-Muller over two
+        hash streams; same pool-independence contract as available_for)."""
+        ids = np.asarray(ids, np.int64)
+        if self.jitter_std <= 0.0:
+            return np.ones(ids.shape)
+        u1 = _stream_uniform(self.seed, rnd, 2, ids)
+        u2 = _stream_uniform(self.seed, rnd, 3, ids)
+        z = np.sqrt(-2.0 * np.log1p(-u1)) * np.cos(2.0 * np.pi * u2)
+        return np.exp(self.jitter_std * z)
+
     def available(self, rnd: int, client_id: int | None = None):
-        """(n_clients,) bool — who is up this round (or one client's bool)."""
+        """(n_clients,) bool — who is up this round (or one client's bool).
+
+        Population-backed traces answer from the streamed schedule (still
+        O(N) on *this* surface — prefer ``available_for`` over a pool);
+        legacy traces keep their full-vector draws.
+        """
+        if self.population is not None:
+            up = self.available_for(rnd, np.arange(self.n_clients))
+            return up if client_id is None else bool(up[client_id])
         up = np.ones(self.n_clients, bool)
         if self.join_round:
             up &= np.asarray(self.join_round) <= rnd
@@ -163,6 +295,8 @@ class AvailabilityTrace:
 
     def step_jitter(self, rnd: int) -> np.ndarray:
         """(n_clients,) multiplicative step-time factors for this round."""
+        if self.population is not None:
+            return self.step_jitter_for(rnd, np.arange(self.n_clients))
         if self.jitter_std <= 0.0:
             return np.ones(self.n_clients)
         return np.exp(
@@ -207,10 +341,15 @@ class CostModel:
     profiles: list[DeviceProfile]
     update_bytes: int                      # full-precision model payload
     comm_power_w: float = 1.2
+    # packed Population: client_id -> device class via profile codes instead
+    # of the legacy round-robin over `profiles` (which may then be empty)
+    population: Any = None
 
     def profile_for(self, client_id: int) -> DeviceProfile:
         """The device class behind a client id — the ONE id->profile map
         (every charge below and Server accounting resolve through it)."""
+        if self.population is not None:
+            return self.population.profile(client_id)
         return self.profiles[client_id % len(self.profiles)]
 
     def client_round_cost(

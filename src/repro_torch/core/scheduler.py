@@ -73,7 +73,23 @@ import math
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
+
 from .cost_model import ClientCost
+
+
+def deadline_feasible(t_total_s, tau: float | None) -> np.ndarray:
+    """Which predicted round times fit a ``Deadline`` cutoff — vectorized
+    over a candidate pool.  The scheduler owns deadline semantics, so the
+    one predicate cost-aware sampling ranks candidates by lives here: a
+    client whose compute+comm lands at exactly ``tau`` still reports
+    (``Deadline.plan`` keeps ``finish_t <= round_end``); ``tau`` of None or
+    inf means no cutoff — everyone is feasible, matching ``Deadline``
+    degenerating to ``SyncAll``."""
+    t = np.asarray(t_total_s, np.float64)
+    if tau is None or not np.isfinite(tau):
+        return np.ones(t.shape, bool)
+    return t <= tau
 
 
 @dataclass

@@ -1,6 +1,6 @@
 """The FL loop — Flower's server architecture (paper §3, Figure 1).
 
-The twin of ``repro.core.server`` in list-of-clients mode.  ``Server``
+The twin of ``repro.core.server``.  ``Server``
 orchestrates rounds and delegates all decisions to the Strategy; the
 CostModel plays the role of the physical fleet, charging wall-time and
 energy for every client's compute and communication.  History captures the
@@ -13,9 +13,18 @@ default), ``Deadline(tau)`` or ``BufferedAsync`` — decides which arrivals
 each round consumes.  An ``AvailabilityTrace`` adds seeded dropout/late-join
 churn and step-time jitter on top.
 
+**Population mode** (``population`` + ``cohort_size`` set): the same loop
+at fleet scale.  Nothing per-round is O(N): the cohort is sampled id-first
+from the packed ``Population`` (``Strategy.sample_cohort``), availability
+and jitter are *streamed* over just those ids, client objects come from a
+``LazyClientPool`` that materializes on demand, properties/eval touch only
+the round's cohort, and the uplink fallback is one scalar.  With N ==
+cohort_size, no churn, and the same strategy seed, the population round is
+bitwise the legacy round (tests/test_torch_population.py).
+
 Global parameters live on ``device`` (the CUDA card unless the caller asks
-for the CPU).  Population mode and ``run_scanned`` wait for ROADMAP.md
-queue 1 items 10-11.
+for the CPU).  ``run_scanned`` waits for ROADMAP.md queue 1 item 11, the
+``MixedCodec`` guard of population mode for item 12.
 """
 from __future__ import annotations
 
@@ -92,10 +101,22 @@ class History:
         return None
 
 
+class _UniformUplink:
+    """O(1) stand-in for the per-client uplink-fallback list in population
+    mode: every client of a server-level codec ships the same wire size, so
+    indexing by any client id answers the one scalar."""
+
+    def __init__(self, nbytes: int):
+        self.nbytes = int(nbytes)
+
+    def __getitem__(self, client_id: int) -> int:
+        return self.nbytes
+
+
 @dataclass
 class Server:
     strategy: Strategy
-    clients: list                        # list[Client]
+    clients: Any                         # list[Client] | population.LazyClientPool
     cost_model: CostModel | None = None
     eval_fn: Callable | None = None      # (params) -> dict (centralized eval)
     eval_every: int = 1
@@ -103,6 +124,10 @@ class Server:
                                          # codec.wire_bytes, not tree_bytes
     policy: RoundPolicy | None = None    # None -> SyncAll (lockstep FedAvg)
     availability: AvailabilityTrace | None = None
+    # population mode: a packed Population plus an explicit per-round cohort
+    # size; `clients` is then typically a LazyClientPool over the same ids
+    population: Any = None
+    cohort_size: int | None = None
     device: Any = None                   # None -> the CUDA card
     logger: MetricsLogger = field(default_factory=lambda: MetricsLogger("server"))
 
@@ -112,21 +137,44 @@ class Server:
         policy = self.policy if self.policy is not None else SyncAll()
         clock = VirtualClock()
         history = History()
-        client_ids = list(range(len(self.clients)))
-        client_props = {cid: self.clients[cid].properties() for cid in client_ids}
-        for c in self.clients:  # fresh trajectory: no residual carry-over
-            c.reset_state()
+        pop = self.population
+        if pop is not None:
+            # population mode: nothing O(N) per run or per round — no id
+            # list, no all-client properties dict, no all-client reset loop
+            if not self.cohort_size:
+                raise ValueError("population mode needs an explicit cohort_size")
+            client_ids = None
+            reset_all = getattr(self.clients, "reset_state", None)
+            if callable(reset_all):  # LazyClientPool: one call, not N
+                reset_all()
+            else:
+                for c in self.clients:
+                    c.reset_state()
+        else:
+            client_ids = list(range(len(self.clients)))
+            client_props = {cid: self.clients[cid].properties() for cid in client_ids}
+            for c in self.clients:  # fresh trajectory: no residual carry-over
+                c.reset_state()
         # fresh server trajectory too: server state must not leak from a
         # previous run, but DOES accumulate across this run's rounds
         self.strategy.reset_server_state()
 
         # per-client uplink fallback for raw-pytree payloads under a
-        # server-level codec (static across the run: the model shape is)
-        uplink_fallback = (
-            None if self.cost_model is None else CostModel.fleet_uplink_bytes(
+        # server-level codec (static across the run: the model shape is);
+        # population mode charges one scalar — an O(N) list would defeat
+        # the packed representation
+        if self.cost_model is None:
+            uplink_fallback = None
+        elif pop is not None:
+            uplink_fallback = (
+                None if self.codec is None else _UniformUplink(
+                    self.codec.wire_bytes(tree_size(global_params))
+                )
+            )
+        else:
+            uplink_fallback = CostModel.fleet_uplink_bytes(
                 self.codec, tree_size(global_params), len(self.clients)
             )
-        )
 
         # the cutoff rides in FitIns config ONLY when a Deadline policy will
         # actually enforce it: clients then truncate local work to make the
@@ -140,21 +188,43 @@ class Server:
         for rnd in range(1, num_rounds + 1):
             # ---- dispatch: sampled ∩ available ∩ not already in flight ----
             busy = {a.client_id for a in pending}
-            up = (
-                self.availability.available(rnd)
-                if self.availability is not None else None
-            )
-            eligible = [
-                cid for cid in client_ids
-                if cid not in busy and (up is None or up[cid])
-            ]
-            jitter = (
-                self.availability.step_jitter(rnd)
-                if self.availability is not None else None
-            )
+            if pop is not None:
+                # cohort first, availability streamed over candidates only
+                # (inside sample_cohort) — then per-cohort properties and
+                # per-dispatch streamed jitter: all O(cohort), never O(N).
+                # A short or empty cohort (heavy churn exhausting the
+                # bounded redraw) takes the legacy empty-round path below
+                eligible = self.strategy.sample_cohort(
+                    rnd, pop, self.cohort_size, exclude=busy,
+                    availability=self.availability,
+                    cost_model=self.cost_model, deadline_s=deadline_cfg,
+                )
+                client_props = {
+                    cid: self.clients[cid].properties() for cid in eligible
+                }
+                jitter = None
+            else:
+                up = (
+                    self.availability.available(rnd)
+                    if self.availability is not None else None
+                )
+                eligible = [
+                    cid for cid in client_ids
+                    if cid not in busy and (up is None or up[cid])
+                ]
+                jitter = (
+                    self.availability.step_jitter(rnd)
+                    if self.availability is not None else None
+                )
             fit_ins = self.strategy.configure_fit(
                 rnd, global_params, eligible, client_properties=client_props
             ) if eligible else []
+            jitter_by_cid = {}
+            if pop is not None and self.availability is not None and fit_ins:
+                cids = [cid for cid, _ in fit_ins]
+                jitter_by_cid = dict(zip(
+                    cids, self.availability.step_jitter_for(rnd, cids).tolist()
+                ))
 
             launch_steps = 0
             for cid, ins in fit_ins:
@@ -166,7 +236,10 @@ class Server:
                 cost = None
                 up_bytes = self._uplink_bytes_one(res, cid, uplink_fallback)
                 if self.cost_model is not None:
-                    jit_c = float(jitter[cid]) if jitter is not None else 1.0
+                    if jitter is not None:
+                        jit_c = float(jitter[cid])
+                    else:
+                        jit_c = float(jitter_by_cid.get(cid, 1.0))
                     cost = self.cost_model.client_round_cost(
                         cid, steps, uplink_bytes=up_bytes, jitter=jit_c,
                     )
@@ -236,7 +309,13 @@ class Server:
 
             eval_loss = eval_acc = None
             if rnd % self.eval_every == 0:
-                eval_loss, eval_acc = self._evaluate(global_params)
+                # population mode restricts eval_fn-less federated eval to
+                # the round's cohort: evaluating N clients would be the
+                # O(N) loop this mode exists to avoid
+                eval_loss, eval_acc = self._evaluate(
+                    global_params,
+                    eval_ids=eligible if pop is not None else None,
+                )
 
             rec = RoundRecord(
                 rnd=rnd, train_loss=train_loss, eval_loss=eval_loss,
@@ -281,7 +360,8 @@ class Server:
     def _uplink_bytes_one(res, cid: int, fallback) -> int | None:
         """One client's uplink charge: the actual serialized wire size for
         wire-format payloads, the server-level codec's size for raw pytrees
-        under a codec, else None (the full-precision default)."""
+        under a codec (a per-client list, or ``_UniformUplink`` in
+        population mode), else None (the full-precision default)."""
         p = res.parameters
         if isinstance(p, (Parameters, CompressedParameters)):
             return p.num_bytes
@@ -319,15 +399,20 @@ class Server:
             p = parameters_to_pytree(p, launch_global)
         res.parameters = tree_add(global_params, tree_sub(p, launch_global))
 
-    def _evaluate(self, global_params) -> tuple[float | None, float | None]:
+    def _evaluate(
+        self, global_params, eval_ids=None
+    ) -> tuple[float | None, float | None]:
         if self.eval_fn is not None:
             m = self.eval_fn(global_params)
             return m.get("loss"), m.get("acc")
-        # federated evaluation: the examples-weighted average of every
-        # client's evaluate()
+        # federated evaluation: the examples-weighted average of client-side
+        # evaluate() over the whole fleet (legacy), or over `eval_ids`
+        # (population mode hands the round's cohort; an empty cohort
+        # evaluates nothing)
+        ids = range(len(self.clients)) if eval_ids is None else eval_ids
         losses, accs, ns = [], [], []
-        for client in self.clients:
-            res = client.evaluate(EvaluateIns(parameters=global_params))
+        for cid in ids:
+            res = self.clients[cid].evaluate(EvaluateIns(parameters=global_params))
             losses.append(res.loss)
             accs.append(res.metrics.get("acc", np.nan))
             ns.append(res.num_examples)

@@ -4,10 +4,8 @@ from .fedbuff import FedBuffStrategy
 from .fedopt import FedAdam, FedAvgM, FedOpt, FedYogi
 from .fedprox import FedProx
 from .fedtau import FedTau, tau_from_reference_processor
+from .sampling import CostAwareFedAvg, CostAwareSampling
 
-# the JAX package's "costaware-fedavg" (strategy/sampling.py) samples a
-# packed Population: it arrives with population mode, ROADMAP.md queue 1
-# item 10
 STRATEGIES = {
     "fedavg": FedAvg,
     "fedprox": FedProx,
@@ -16,10 +14,12 @@ STRATEGIES = {
     "fedadam": FedAdam,
     "fedyogi": FedYogi,
     "fedavgm": FedAvgM,
+    "costaware-fedavg": CostAwareFedAvg,
 }
 
 __all__ = [
     "Strategy", "weighted_mean", "pseudo_gradient",
     "FedAvg", "FedProx", "FedTau", "tau_from_reference_processor",
     "FedBuffStrategy", "FedOpt", "FedAdam", "FedYogi", "FedAvgM", "STRATEGIES",
+    "CostAwareSampling", "CostAwareFedAvg",
 ]

@@ -60,11 +60,62 @@ class Strategy:
         return max(self.min_fit_clients, int(available * self.fraction_fit))
 
     def sample_clients(self, rnd: int, client_ids: Sequence[int]) -> list[int]:
+        if hasattr(client_ids, "profile_codes"):
+            # population-backed overload: a packed Population instead of an
+            # explicit id list — sample ids without instantiating clients
+            return self.sample_cohort(
+                rnd, client_ids, self.num_fit_clients(len(client_ids))
+            )
         if not client_ids:
             return []  # availability dropouts can empty the eligible pool
         n = min(self.num_fit_clients(len(client_ids)), len(client_ids))
         rng = np.random.default_rng((self.seed, rnd))
         return sorted(rng.choice(client_ids, size=n, replace=False).tolist())
+
+    def sample_cohort(
+        self,
+        rnd: int,
+        population,
+        cohort_size: int,
+        *,
+        exclude=(),
+        availability=None,
+        cost_model=None,
+        deadline_s: float | None = None,
+    ) -> list[int]:
+        """Draw a cohort of ids from a packed ``Population`` — O(cohort)
+        work and memory regardless of population size.
+
+        Candidates are drawn id-first (with replacement, deduplicated) and
+        availability is *streamed* over each candidate batch only
+        (``AvailabilityTrace.available_for``); no O(N) id list, fleet
+        vector, or client object is ever built.  Deterministic in
+        ``(self.seed, rnd)`` like ``sample_clients``.  Redraws are bounded,
+        so a mostly-unavailable fleet yields a short cohort rather than a
+        livelock.  The base strategy samples blind — ``cost_model`` and
+        ``deadline_s`` are the hooks ``CostAwareSampling`` ranks with.
+        """
+        del cost_model, deadline_s  # blind sampling: cost hooks unused
+        n = len(population)
+        want = min(int(cohort_size), n)
+        if want <= 0:
+            return []
+        rng = np.random.default_rng((self.seed, rnd))
+        chosen: list[int] = []
+        seen = {int(c) for c in exclude}
+        for _ in range(16):
+            if len(chosen) >= want:
+                break
+            cand = rng.integers(0, n, size=max(64, 4 * want))
+            if availability is not None:
+                cand = cand[availability.available_for(rnd, cand)]
+            for c in cand.tolist():
+                if c not in seen:
+                    seen.add(c)
+                    chosen.append(c)
+                    if len(chosen) >= want:
+                        break
+        return sorted(chosen)
 
     def fit_config(self, rnd: int, client_id: int) -> dict:
         """Per-round, per-client config shipped in FitIns (epochs, tau, lr...)."""

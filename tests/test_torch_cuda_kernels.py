@@ -881,3 +881,72 @@ def _to(tree, device):
     from repro_torch.utils.pytree import tree_map
 
     return tree_map(lambda t: t.to(device), tree)
+
+
+# ---------------- population mode: the cohort store on the card ----------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec_name", ["Int8Codec", "TopKCodec"])
+def test_cuda_cohort_state_gather_scatter_round_trip(cuda, codec_name):
+    """``gather`` lands one contiguous (C, N) fp32 block on the card at the
+    head model's N; ``scatter`` brings the rows back bitwise, as fp32 host
+    tensors with storage of their own, and a second gather returns the
+    same bits (never-seen ids gather zeros)."""
+    from repro_torch.core import CohortState, Int8Codec, TopKCodec
+
+    n = 1_974_303
+    codec = {"Int8Codec": Int8Codec(), "TopKCodec": TopKCodec()}[codec_name]
+    store = CohortState(codec, n, capacity=16)
+    assert store.device.type == "cuda"
+    cohort = [7, 3, 10**6 - 1, 42]
+    dense = store.gather(cohort)
+    assert dense.is_cuda and dense.dtype == torch.float32 and dense.is_contiguous()
+    assert dense.shape == (4, n) and not dense.any()
+    rows = torch.randn(4, n, device=cuda)
+    store.scatter(cohort, rows)
+    for cid, want in zip(cohort, rows):
+        row = store.get_row(cid)
+        assert row.device.type == "cpu" and row.dtype == torch.float32
+        assert row.untyped_storage().nbytes() == 4 * n and row.storage_offset() == 0
+        assert torch.equal(row, want.cpu())
+    again = store.gather([42, 5, 7])
+    assert torch.equal(again[0], rows[3]) and torch.equal(again[2], rows[0])
+    assert not again[1].any()
+
+
+@pytest.mark.cuda
+def test_cuda_int8_client_residual_survives_eviction(cuda):
+    """An Int8 ``TorchClient`` on the card: its residual, spilled to the
+    host by ``LazyClientPool`` and rehydrated, comes back to the card
+    bitwise; a ``discard_update`` right after is a no-op."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import (CohortState, FitIns, Int8Codec, LazyClientPool, Population,
+                                  TorchClient)
+    from repro_torch.data.federated import ClientDataset
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("mobilenet-head-office31"), device=cuda)
+    params = model.init(0)
+    n = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, model.cfg.feature_dim)).astype(np.float32)
+    y = rng.integers(0, 31, 64).astype(np.int32)
+
+    def factory(cid):
+        return TorchClient(client_id=cid, loss_fn=model.loss_fn, batch_size=32, device=cuda,
+                           dataset=ClientDataset(client_id=cid, x=x, y=y),
+                           trainable_mask=model.trainable_mask(params))
+
+    store = CohortState(Int8Codec(), n, capacity=4)
+    pool = LazyClientPool(Population.synthetic(10, seed=0), factory, capacity=1,
+                          state_store=store)
+    first = pool[3]
+    first.fit(FitIns(parameters=params, config={"epochs": 1, "codec": Int8Codec()}))
+    residual = first.export_state().clone()
+    assert residual.is_cuda and residual.abs().max() > 0
+    pool[4]
+    assert store.get_row(3).device.type == "cpu"
+    back = pool[3]
+    assert back is not first and back._residual.is_cuda
+    assert torch.equal(back._residual, residual)
+    back.discard_update()
+    assert torch.equal(back._residual, residual)

@@ -3,12 +3,13 @@ ablation scripts and the card tests' helpers import neither ``jax`` nor
 the JAX package ``repro``, so the port runs where JAX is not installed.
 An AST scan checks every import statement; a fresh interpreter imports
 every kernel module, the mesh launcher, the transformer, the mamba mixer,
-the serving driver, the strategies, the paper-table twin, the ResNet and
-the heterogeneous-cutoff example, runs a CPU fit (one with FedProx's
-term), a reduced ResNet's loss and a few reduced CPU decode steps of the
-dense and the hybrid stack, and checks that JAX never loaded; another
-imports the paper-table twin and the example with every CUDA query
-refused."""
+the serving driver, the strategies, the paper-table twin, the ResNet,
+the heterogeneous-cutoff example, population mode and the quickstart,
+runs a CPU fit (one with FedProx's term), a cost-aware cohort draw over a
+packed fleet with a CPU cohort store, a reduced ResNet's loss and a few
+reduced CPU decode steps of the dense and the hybrid stack, and checks
+that JAX never loaded; another imports the paper-table twin and the
+examples with every CUDA query refused."""
 import ast
 import os
 import subprocess
@@ -63,6 +64,9 @@ from repro_torch.core import CompressedPsum, init_collective_residual
 from repro_torch.core import FedAdam, FedBuffStrategy, FedProx, FedTau, STRATEGIES
 import repro_torch.benchmarks.paper_tables
 import repro_torch.examples.heterogeneous_cutoff
+import repro_torch.examples.quickstart
+from repro_torch.core import (AvailabilityTrace, CohortState, CostAwareFedAvg, CostModel,
+                              LazyClientPool, Population)
 from repro_torch.launch.serve import generate
 
 m = build_model(get_config("mobilenet-head-office31").reduced(), device="cpu")
@@ -76,6 +80,13 @@ res = c.fit(FitIns(parameters=params, config={"epochs": 1, "codec": Int8Codec()}
 assert res.num_examples == 64 and res.metrics["steps_done"] == 2
 res = c.fit(FitIns(parameters=params, config=FedProx(mu=0.01).fit_config(1, 0)))
 assert res.metrics["steps_done"] == 2
+pop = Population.synthetic(1000, seed=0)
+cohort = CostAwareFedAvg().sample_cohort(
+    1, pop, 8, availability=AvailabilityTrace.from_profiles(pop),
+    cost_model=CostModel(profiles=[], update_bytes=1000, population=pop), deadline_s=10.0)
+store = CohortState(Int8Codec(), 16, device="cpu")
+store.scatter(cohort, store.gather(cohort) + 1.0)
+assert len(cohort) == 8 and len(store) == 8
 import torch
 cnn = build_model(get_config("resnet18-cifar10").reduced(), device="cpu")
 loss, met = cnn.loss_fn(cnn.init(0), {"x": torch.zeros(2, 32, 32, 3),
@@ -117,10 +128,11 @@ def refuse(*args, **kw):
 torch.cuda.is_available = torch.cuda.init = torch.cuda.device_count = refuse
 import repro_torch.benchmarks.paper_tables as tables
 import repro_torch.examples.heterogeneous_cutoff as example
+import repro_torch.examples.quickstart as quickstart
 from repro_torch.core import FedAdam, FedAvgM, FedYogi, tau_from_reference_processor
 from repro_torch.optim import adam, adamw, yogi
 assert callable(tables.table2a) and callable(tables.table2b) and callable(tables.table3)
-assert callable(example.run)
+assert callable(example.run) and callable(quickstart.run)
 assert not torch.cuda.is_initialized()
 assert "jax" not in sys.modules and "repro" not in sys.modules
 print("ok")
