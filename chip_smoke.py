@@ -167,6 +167,23 @@ Phases (any failure exits non-zero):
    row: 60 devices, cohort 8, Deadline at 1.25x a Jetson's round, 3 rounds
    each of CostAwareFedAvg (every cohort predicted feasible) and blind
    FedAvg (no fewer drops).
+12. the scanned multi-round trainer (Server.run_scanned: the whole run as
+   one CUDA graph, captured once and replayed) on mobilenet-head-office31
+   at full width over tests/test_scan.py's mixed fleet (a TPU-class chip,
+   2 Jetsons, 3 phones) under a Deadline at 1.25x a Jetson's round with
+   the mobiles churning, 8 local steps of batch 32: parallel Null, Int8
+   and TopK (frac 0.05, a cohort of 4), sequential Int8 and parallel Null
+   under FedAdam, each at R = 8 bitwise the per-round driver
+   (reference=True) on the final globals, every stacked output and the
+   History, with the launches of the warm-up round, the capture (R times
+   a round's), the reference run and a replay (none), and a second call
+   replaying without a second capture; parallel Int8 with one batch
+   reused every round at R = 8 and 32: rounds/s of the graph and of the
+   driver (median of 5 calls after one warm-up call), capture seconds,
+   the graph's kernel nodes and its memory pool (flat in R within 5%); one
+   profiler session over a graph call and a driver call (each kernel's
+   name R times a round's launches; the card's idle share against the
+   unprofiled call) and a TopK graph call.
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
@@ -2014,12 +2031,17 @@ def device_time(prof) -> tuple[float, dict]:
         if e.device_type == DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    busy_us, end = 0.0, -math.inf
+    return union_us(spans), by_kernel
+
+
+def union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
     for a, b in sorted(spans):
         if b > end:
-            busy_us += b - max(a, end)
+            total += b - max(a, end)
             end = b
-    return busy_us, by_kernel
+    return total
 
 
 def profile_phase(card: str, out_dir: Path, fleet=PROFILE_FLEET, make_strategy=None,
@@ -3824,6 +3846,279 @@ def population_phase(card: str, out_dir: Path) -> dict:
     return out
 
 
+# ---------------- phase 12: the scanned multi-round trainer ----------------
+# tests/test_scan.py's mixed fleet (benchmarks/scan_bench.py's): one fast
+# chip, two Jetsons, three phones; a Deadline at 1.25x a Jetson's round and
+# the mobiles churning at 0.3 drop some clients in some rounds
+SCAN_FLEET = ["tpu-v5e-chip", "jetson-tx2-gpu", "jetson-tx2-gpu", "pixel-2", "pixel-2", "pixel-3"]
+SCAN_ROUNDS, SCAN_STEPS, SCAN_BATCH = 8, 8, 32
+SCAN_TIMED_ROUNDS = (8, 32)
+SCAN_CALLS = 5                # timed calls a driver, after one warm-up call
+SCAN_LAUNCHED = ("quantize_int8", "dequantize_int8", "dequant_reduce", "topk_scatter_reduce")
+# case -> (execution mode, codec, cohort size, strategy, launches a round of SCAN_LAUNCHED)
+SCAN_CASES = {
+    "parallel Null": ("parallel", "NullCodec", None, "FedAvg", (0, 0, 0, 0)),
+    "parallel Int8": ("parallel", "Int8Codec", None, "FedAvg", (1, 1, 1, 0)),
+    "parallel TopK cohort 4": ("parallel", "TopKCodec", 4, "FedAvg", (0, 0, 0, 1)),
+    "sequential Int8": ("sequential", "Int8Codec", None, "FedAvg", (6, 6, 0, 0)),
+    "parallel Null FedAdam": ("parallel", "NullCodec", None, "FedAdam", (0, 0, 0, 0)),
+}
+SCAN_POOL_SLACK = 0.05        # the graph's pool at R = 32 within 5% of R = 8's
+
+
+def graph_nodes(graph) -> tuple[int, int]:
+    """(kernel nodes, all nodes) of a captured graph, read from its kept
+    cudaGraph_t through the driver API."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(0), 0
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels, n.value
+
+
+def window_device_time(prof, window: str) -> tuple[float, float, float, dict]:
+    """(host us, card busy us, device span us, launches by name) of the
+    device activity (kernels, copies, fills) inside the profiler window
+    ``record_function(window)``, which ends synchronized.  The span runs
+    from the first device activity's start to the last one's end; the
+    window's own annotation on the device timeline is left out."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    w = next(e for e in events if e.name == window and e.device_type == DeviceType.CPU)
+    lo, hi = w.time_range.start, w.time_range.end
+    spans, names = [], {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and lo <= e.time_range.start <= hi and e.name != window:
+            spans.append((e.time_range.start, e.time_range.end))
+            names[e.name] = names.get(e.name, 0) + 1
+    span = max(b for _, b in spans) - min(a for a, _ in spans) if spans else 0.0
+    return hi - lo, union_us(spans), span, names
+
+
+def kernel_launches_in(names: dict, kernel: str) -> int:
+    """Device launches of ``kernel`` (a `__global__` name) among profiler
+    event names; dequantize_int8_kernel is not quantize_int8_kernel."""
+    import re
+
+    pat = re.compile(rf"(?<![A-Za-z0-9_]){kernel}(?![A-Za-z0-9_])")
+    return sum(n for name, n in names.items() if pat.search(name))
+
+
+def scanned_trainer_phase(card: str, out_dir: Path, dev="cuda", arch=HEAD) -> dict:
+    """Phase 12: Server.run_scanned (one CUDA graph of the whole run) on
+    ``arch`` at full width over SCAN_FLEET, a Deadline and churn, 8 local
+    steps of batch 32, each of SCAN_CASES at R = 8: the graph against the
+    per-round driver (``reference=True``) bitwise on the final globals,
+    every stacked output and the History; the launches of the warm-up
+    round, of the capture (R times the round's) and of the reference run;
+    a second call replays without a second capture, bitwise the first.
+    Then parallel Int8 with one batch reused every round
+    (``stacked_batches=False``) at R = 8 and 32: rounds/s of the graph and
+    of the reference driver (the median of SCAN_CALLS calls after one
+    warm-up call; capture apart), capture seconds, kernel nodes and the
+    graph's memory pool (flat in R); one profiler session holds a replay
+    of the Int8 and the TopK graph (each kernel's name R times a round's
+    launches) and a reference run, for the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import tree_leaves, tree_size
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    model = build_model(arch, device=dev)
+    params = model.init(0)
+    n = tree_size(params)
+    c, steps, b = len(SCAN_FLEET), SCAN_STEPS, SCAN_BATCH
+    profiles = [T.PROFILES[p] for p in SCAN_FLEET]
+    cm = T.CostModel(profiles=profiles, update_bytes=4 * n)
+    tau = 1.25 * cm.client_round_cost(1, steps).t_total_s
+    trace = T.AvailabilityTrace.from_profiles(profiles, seed=0, mobile_dropout=0.3,
+                                              jitter_std=0.1)
+    mask = trainable_mask_of(model, params)
+    opt = sgd(LOCAL_LR[model.arch.family])
+    data = model_data(model, SCAN_ROUNDS * c * steps * b, seed=5)
+    stacked_batches = {
+        "x": torch.from_numpy(data.x.reshape(SCAN_ROUNDS, c, steps, b, -1)).to(dev),
+        "y": torch.from_numpy(data.y.reshape(SCAN_ROUNDS, c, steps, b)).to(dev),
+    }
+    one_batch = {k: v[0].clone() for k, v in stacked_batches.items()}
+    weights = torch.from_numpy(
+        np.random.default_rng(6).integers(50, 400, c).astype(np.float32)).to(dev)
+
+    def server(case):
+        _, _, cohort, strategy, _ = SCAN_CASES[case]
+        srv = T.Server(strategy=getattr(T, strategy)(), clients=[], cost_model=cm,
+                       policy=T.Deadline(tau=tau), availability=trace, cohort_size=cohort,
+                       device=dev)
+        srv.logger.quiet = True
+        return srv
+
+    def spec(case):
+        mode, codec, *_ = SCAN_CASES[case]
+        kw = {"frac": 0.05} if codec == "TopKCodec" else {}
+        return T.RoundSpec(max_steps=steps, execution_mode=mode, codec=getattr(T, codec)(**kw))
+
+    def run(srv, case, rounds, batches, stacked, reference=False):
+        sync()
+        ops.reset_launch_counts()
+        out = srv.run_scanned(params, rounds, loss_fn=model.loss_fn, opt=opt, spec=spec(case),
+                              batches=batches, weights=weights, stacked_batches=stacked,
+                              trainable_mask=mask, reference=reference)
+        sync()
+        k = ops.launch_counts()
+        return out, tuple(k[name] for name in SCAN_LAUNCHED) + (k["fedavg_reduce"],)
+
+    def same(a, b) -> bool:
+        (ga, ha, sa), (gb, hb, sb) = a, b
+        return (all(torch.equal(x, y) for x, y in zip(tree_leaves(ga), tree_leaves(gb)))
+                and set(sa) == set(sb)
+                and all(sa[k].dtype == sb[k].dtype and np.array_equal(sa[k], sb[k],
+                                                                      equal_nan=True)
+                        for k in sa)
+                and repr(ha.rounds) == repr(hb.rounds))  # NaN-equal, every float exact
+
+    R = SCAN_ROUNDS
+    out = {"cases": {}, "timed": {}}
+    servers, timed = {}, {}
+    for case, (mode, codec, cohort, strategy, per_round) in SCAN_CASES.items():
+        srv = servers[case] = server(case)
+        first, counts = run(srv, case, R, stacked_batches, True)
+        (multi, _), = srv._scan_fns.values()
+        cap = multi.last_capture
+        second, counts2 = run(srv, case, R, stacked_batches, True)
+        ref, ref_counts = run(server(case), case, R, stacked_batches, True, reference=True)
+        warm = tuple(cap["warmup_launches"][k] for k in SCAN_LAUNCHED)
+        captured = tuple(cap["capture_launches"][k] for k in SCAN_LAUNCHED)
+        want = tuple(R * x for x in per_round)
+        hist = first[1]
+        check(f"scanned {case}: the graph, R = {R}, bitwise the per-round driver (globals, "
+              "every stacked output, the History)", same(first, ref),
+              participants=[r.participants for r in hist.rounds],
+              dropped=[r.dropped for r in hist.rounds])
+        check(f"scanned {case}: launches of the warm-up round {per_round}, of the capture "
+              f"R x that, of the reference run the same; none in a replay "
+              "(quantize, dequantize, dequant_reduce, topk_scatter_reduce)",
+              warm == per_round and captured == want and ref_counts[:4] == want
+              and counts[:4] == tuple(w + x for w, x in zip(warm, captured))
+              and counts2 == (0,) * 5 and counts[4] == ref_counts[4] == 0,
+              warmup=warm, capture=captured, reference=ref_counts[:4], replay=counts2)
+        check(f"scanned {case}: a second call replays the one graph (no second capture), "
+              "bitwise the first", multi.captures == 1 and same(first, second))
+        if case != "parallel Null FedAdam":
+            losses = [r.train_loss for r in hist.rounds]
+            check(f"scanned {case}: train loss finite and falling, some clients dropped and "
+                  "some reporting", all(math.isfinite(x) for x in losses)
+                  and losses[-1] < losses[0] and sum(r.dropped for r in hist.rounds) > 0
+                  and all(r.participants > 0 for r in hist.rounds), loss=losses)
+        out["cases"][case] = {
+            "capture_s": cap["seconds"], "pool_bytes": cap["pool_bytes"],
+            "launches_capture": captured, "launches_reference": ref_counts[:4],
+            "participants": [r.participants for r in hist.rounds],
+            "dropped": [r.dropped for r in hist.rounds],
+            "train_loss": [r.train_loss for r in hist.rounds],
+            "wall_s": hist.total_time_s, "energy_j": hist.total_energy_j,
+        }
+        print(f"scanned {case}: R = {R}, capture {cap['seconds']:.3f} s, pool "
+              f"{cap['pool_bytes'] / 2**20:.1f} MiB, launches captured {captured}, "
+              f"participants {out['cases'][case]['participants']} ({card})", flush=True)
+
+    # rounds/s with one batch reused every round, graph against the driver
+    case = "parallel Int8"
+    for rounds in SCAN_TIMED_ROUNDS:
+        row = {}
+        for driver, reference in (("graph", False), ("reference", True)):
+            srv = timed[(rounds, driver)] = server(case)
+            t0 = time.perf_counter()
+            run(srv, case, rounds, one_batch, False, reference=reference)
+            row[f"{driver}_first_call_s"] = time.perf_counter() - t0
+            secs = []
+            for _ in range(SCAN_CALLS):
+                t0 = time.perf_counter()
+                run(srv, case, rounds, one_batch, False, reference=reference)
+                secs.append(time.perf_counter() - t0)
+            row[f"{driver}_s"] = statistics.median(secs)
+            row[f"{driver}_calls_s"] = secs
+            row[f"{driver}_rounds_per_s"] = rounds / row[f"{driver}_s"]
+            if not reference:
+                (multi, _), = srv._scan_fns.values()
+                cap = multi.last_capture
+                row.update(capture_s=cap["seconds"], pool_bytes=cap["pool_bytes"],
+                           captures=multi.captures)
+                if dev == "cuda":
+                    row["kernel_nodes"], row["graph_nodes"] = graph_nodes(cap["graph"])
+        out["timed"][rounds] = row
+        check(f"scanned {case}, R = {rounds}, one batch reused: one capture for "
+              f"{1 + SCAN_CALLS} calls", row["captures"] == 1)
+        print(f"scanned {case}, R = {rounds}, stacked_batches=False: graph "
+              f"{row['graph_rounds_per_s']:.2f} rounds/s ({row['graph_s']:.4f} s a call), "
+              f"reference {row['reference_rounds_per_s']:.2f} rounds/s "
+              f"({row['reference_s']:.4f} s), capture {row['capture_s']:.3f} s apart, "
+              f"{row.get('kernel_nodes')} kernel nodes of {row.get('graph_nodes')}, pool "
+              f"{row['pool_bytes'] / 2**20:.2f} MiB ({card})", flush=True)
+    lo, hi = (out["timed"][r] for r in SCAN_TIMED_ROUNDS)
+    # what the longer run keeps beyond the shorter: its per-round outputs,
+    # each a small block of the allocator (512 B), ten a round at most
+    stacked_allowance = (SCAN_TIMED_ROUNDS[1] - SCAN_TIMED_ROUNDS[0]) * 10 * 512
+    check(f"scanned {case}: the graph's memory pool flat in R (R = {SCAN_TIMED_ROUNDS[1]} "
+          f"within {SCAN_POOL_SLACK:.0%} of R = {SCAN_TIMED_ROUNDS[0]}, apart from the "
+          "stacked outputs)",
+          hi["pool_bytes"] <= (1 + SCAN_POOL_SLACK) * lo["pool_bytes"] + stacked_allowance,
+          pool_bytes={r: out["timed"][r]["pool_bytes"] for r in SCAN_TIMED_ROUNDS})
+
+    # one profiler session: a call of the Int8 graph and of the reference
+    # driver as timed above (R = 8), and a call of the TopK graph; the idle
+    # share is the card's busy time against the unprofiled median call
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    windows = {
+        "graph parallel Int8": (timed[(R, "graph")], case, one_batch, False, False),
+        "reference parallel Int8": (timed[(R, "reference")], case, one_batch, False, True),
+        "graph parallel TopK cohort 4": (servers["parallel TopK cohort 4"],
+                                         "parallel TopK cohort 4", stacked_batches, True, False),
+    }
+    prof.start()
+    for window, (srv, name, batches, stacked, reference) in windows.items():
+        with record_function(window):
+            run(srv, name, R, batches, stacked, reference=reference)
+    prof.stop()
+    export_gzipped_trace(prof, out_dir / "scanned_trace.json")
+    prof_out = {}
+    for window, (_, name, _, _, reference) in windows.items():
+        host_us, busy_us, span_us, names = window_device_time(prof, window)
+        got = tuple(kernel_launches_in(names, f"{k}_kernel") for k in SCAN_LAUNCHED)
+        want = tuple(R * x for x in SCAN_CASES[name][4])
+        check(f"scanned {window}: the profiled call shows each kernel R x a round's "
+              "launches", got == want, launches=got)
+        prof_out[window] = {"host_us": host_us, "busy_us": busy_us, "span_us": span_us,
+                            "device_kernels": sum(names.values()), "launches": got}
+        if name == case:
+            call_us = lo["reference_s" if reference else "graph_s"] * 1e6
+            prof_out[window]["idle"] = 1.0 - busy_us / call_us
+        print(f"scanned profile, {window}, R = {R}: card busy {busy_us / 1e3:.3f} ms of a "
+              f"{span_us / 1e3:.3f} ms device span, {sum(names.values())} device activities"
+              + (f", idle {prof_out[window]['idle']:.4f} of the unprofiled call"
+                 if "idle" in prof_out[window] else "") + f" ({card})", flush=True)
+    out["profile"] = prof_out
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12 (scanned trainer): {out['seconds']:.2f} s ({card})", flush=True)
+    return out
+
+
 # ---------------- phases 8-9: the transformer serving paths ----------------
 QWEN3_PARAMS = 596_049_920    # qwen3-0.6b, embeddings tied
 # one 8-layer period of jamba-1.5-large-398b without its experts (phase 9),
@@ -4177,6 +4472,7 @@ def main() -> int:
     hybrid = REPORT["hybrid"] = hybrid_serving_phase(card, args.out)
     REPORT["resnet"] = resnet_phase(card, args.out, rows)
     population = REPORT["population"] = population_phase(card, args.out)
+    REPORT["scanned"] = scanned_trainer_phase(card, args.out)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):

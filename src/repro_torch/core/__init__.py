@@ -25,5 +25,6 @@ from .strategy import (
     CostAwareSampling, CostAwareFedAvg,
 )
 from .rounds import (
-    RoundSpec, init_collective_residual, make_client_update, make_round_step,
+    MultiRoundStep, RoundSpec, cohort_dispatch_mask, init_collective_residual,
+    make_client_update, make_multi_round_step, make_round_step,
 )

@@ -153,8 +153,8 @@ class AvailabilityTrace:
       *different* (equally deterministic) schedule from its streamed draws.
 
     The whole-run (R, C) schedule matrices (``available_matrix``,
-    ``step_jitter_matrix``, ``cohort_priority_matrix``) arrive with the
-    multi-round trainer, ROADMAP.md queue 1 item 11.
+    ``step_jitter_matrix``, ``cohort_priority_matrix``) stack those
+    per-round draws for the multi-round trainer (``Server.run_scanned``).
     """
 
     n_clients: int
@@ -303,6 +303,33 @@ class AvailabilityTrace:
             self._rng(rnd, 1).normal(0.0, self.jitter_std, self.n_clients)
         )
 
+    # ---- the whole run's schedule, for the multi-round trainer ----
+    #
+    # Rows are the SAME per-round draws Server.run makes (same hash streams
+    # and tuple-seeded generators), stacked, so the scanned and the
+    # per-round drivers see one schedule.
+
+    def available_matrix(self, rounds) -> np.ndarray:
+        """(R, C) float32 0/1 — ``available(r)`` stacked over ``rounds``."""
+        return np.stack(
+            [self.available(int(r)) for r in rounds]
+        ).astype(np.float32)
+
+    def step_jitter_matrix(self, rounds) -> np.ndarray:
+        """(R, C) float64 — ``step_jitter(r)`` stacked over ``rounds``."""
+        return np.stack([self.step_jitter(int(r)) for r in rounds])
+
+    def cohort_priority_matrix(self, rounds) -> np.ndarray:
+        """(R, C) float32 uniforms on hash stream 4 — per-round sampling
+        priorities for on-device cohort selection (the lowest-k available
+        priorities win; ``rounds.cohort_dispatch_mask``).  Stream 4 is
+        unused by dropout (0) and jitter (2, 3), so cohort draws never
+        perturb the churn schedule."""
+        ids = np.arange(self.n_clients)
+        return np.stack(
+            [_stream_uniform(self.seed, int(r), 4, ids) for r in rounds]
+        ).astype(np.float32)
+
 
 @dataclass
 class ClientCost:
@@ -401,6 +428,63 @@ class CostModel:
             (min(window, t_down) + t_up_used) * self.comm_power_w
             + t_active * p.active_power_w
         )
+
+    @staticmethod
+    def _per_client(uplink_bytes, n_clients: int) -> list[int | None]:
+        if uplink_bytes is None or isinstance(uplink_bytes, (int, np.integer)):
+            return [uplink_bytes] * n_clients
+        assert len(uplink_bytes) == n_clients, (
+            f"per-client uplink vector ({len(uplink_bytes)}) != clients ({n_clients})"
+        )
+        return [int(u) for u in uplink_bytes]
+
+    # ---- vectorized fleet accounting (the multi-round trainer) ----
+
+    def fleet_columns(
+        self, n_clients: int, *, uplink_bytes=None
+    ) -> dict[str, np.ndarray]:
+        """Static per-client cost columns as (C,) float64 arrays.
+
+        The id->profile map (``profile_for``) and the per-leg comm-time
+        rule, resolved once for the whole fleet: ``step_time_s``,
+        ``active_power_w``, ``idle_power_w``, ``up_bytes``, ``t_comm_s``
+        (uplink of the codec wire + downlink of the full global) and
+        ``t_down_s`` (downlink alone — the first phase of
+        ``wasted_energy``'s split).  Everything per-round is
+        availability/jitter (the trace's matrices) and the policy verdict.
+        """
+        profs = [self.profile_for(c) for c in range(n_clients)]
+        ups = self._per_client(uplink_bytes, n_clients)
+        up = np.asarray(
+            [self.update_bytes if u is None else u for u in ups], np.float64
+        )
+        return {
+            "step_time_s": np.asarray([p.step_time_s for p in profs]),
+            "active_power_w": np.asarray([p.active_power_w for p in profs]),
+            "idle_power_w": np.asarray([p.idle_power_w for p in profs]),
+            "up_bytes": up,
+            "t_comm_s": np.asarray(
+                [p.comm_time_s(u, self.update_bytes) for p, u in zip(profs, up)]
+            ),
+            "t_down_s": np.asarray(
+                [p.comm_time_s(0, self.update_bytes) for p in profs]
+            ),
+        }
+
+    def fleet_time_matrix(
+        self, step_budgets, jitter_matrix, *, uplink_bytes=None
+    ) -> np.ndarray:
+        """(R, C) finish-time offsets: ``steps*step_time*jitter + t_comm``.
+
+        The arithmetic (and evaluation order) of ``client_round_cost``,
+        vectorized over the round axis: entry [r, c] equals
+        ``client_round_cost(c, steps[c], jitter=jitter_matrix[r, c])
+        .t_total_s`` bitwise.
+        """
+        cols = self.fleet_columns(jitter_matrix.shape[1], uplink_bytes=uplink_bytes)
+        steps = np.asarray(step_budgets, np.float64)
+        t_compute = (steps * cols["step_time_s"])[None, :] * jitter_matrix
+        return t_compute + cols["t_comm_s"][None, :]
 
     @staticmethod
     def fleet_uplink_bytes(

@@ -48,19 +48,33 @@ Modes:
   rank, and the metrics, computed from the per-client scalars gathered
   over the world group, are the same on every rank.
 
+**The scanned trainer** (``make_multi_round_step``): R rounds as one
+program, each round's dispatch mask (availability, on-device cohort
+sampling), the policy's tensor verdict (``RoundPolicy.plan_arrays``) and
+``round_step`` with that mask, over precomputed (R, C) schedule matrices.
+Where the JAX package compiles one ``lax.scan``, the port captures the
+whole run, unrolled, as one ``torch.cuda.CUDAGraph`` on the card and
+replays it; on the CPU it runs the same body eagerly.  Unrolled, every
+round is captured with its own Python ``rnd``, so what a strategy or an
+optimizer computes from it on the host (FedAdam's bias corrections, a
+``Schedule``'s learning rate) is baked in per round, bitwise the eager
+run's.
+
 Not ported yet (ROADMAP.md): model axes inside a client (auto-sharded
-params), ``execution_mode="fsdp"``, the sequential mode on a mesh and the
-param-dim sharding of client state (queue 1 item 13), ``MixedCodec`` and
-segmented codecs (item 12), and ``make_multi_round_step`` (item 11).
+params), ``execution_mode="fsdp"``, the sequential mode on a mesh, the
+param-dim sharding of client state and the scanned trainer on a mesh
+(queue 1 item 13), ``MixedCodec`` and segmented codecs (item 12).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import _cuda
 from repro_torch.optim import Optimizer
 from repro_torch.utils.pytree import (
     safe_weight_sum, tree_leaves, tree_map, tree_sq_norm, tree_sub, tree_unflatten,
@@ -478,8 +492,217 @@ def _make_mesh_round_step(client_update, codec, strategy, spec, mesh, client_axe
     return round_step
 
 
-def make_multi_round_step(*args, **kwargs):
-    """Rounds-as-scan (``repro.core.rounds.make_multi_round_step``)."""
-    raise NotImplementedError(
-        "make_multi_round_step is not ported yet: ROADMAP.md queue 1 item 11"
-    )
+def cohort_dispatch_mask(priorities, avail_mask, cohort_size: int):
+    """On-device cohort sampling: the ``cohort_size`` available clients
+    with the LOWEST priorities win (uniform priorities == a uniform draw
+    without replacement).
+
+    Tensor code with no host sync, so it runs alike inside the captured
+    graph and in the per-round driver.  Unavailable clients rank at +inf,
+    so a round with fewer than ``cohort_size`` available clients
+    dispatches only whoever is up (including nobody).  The double stable
+    argsort turns priorities into dense ranks; exactly equal priorities
+    break by client id.
+    """
+    pri = torch.where(avail_mask > 0, priorities, torch.inf)
+    order = torch.argsort(pri, stable=True)
+    ranks = torch.argsort(order, stable=True)
+    return torch.where((ranks < cohort_size) & (avail_mask > 0), 1.0, 0.0)
+
+
+def make_scheduled_round(round_step: Callable, policy, tau: float | None,
+                         cohort_size: int | None) -> Callable:
+    """One round of the scanned trainer, shared by the graph and by
+    ``Server.run_scanned(reference=True)`` so both run the same ops::
+
+        scheduled_round(g, ss, cs, batch, weights, step_budgets, rnd,
+                        avail_r, t_r, pri_r) -> (g, ss, cs, outputs)
+
+    ``outputs`` holds the round's metrics plus ``participation_mask``,
+    ``dispatch_mask``, ``round_wall_s``, ``participants`` and
+    ``dispatched``."""
+
+    def scheduled_round(g, ss, cs, batch, weights, step_budgets, rnd, avail_r, t_r, pri_r):
+        if cohort_size is None:
+            dispatch = avail_r
+        else:
+            dispatch = cohort_dispatch_mask(pri_r, avail_r, cohort_size)
+        mask, round_end = policy.plan_arrays(dispatch, t_r, tau=tau)
+        g, ss, cs, met = round_step(g, ss, cs, batch, weights, step_budgets, rnd, mask)
+        return g, ss, cs, {
+            **met,
+            "participation_mask": mask,
+            "dispatch_mask": dispatch,
+            "round_wall_s": round_end,
+            "participants": torch.sum(torch.where(mask > 0, 1.0, 0.0)),
+            "dispatched": torch.sum(torch.where(dispatch > 0, 1.0, 0.0)),
+        }
+
+    return scheduled_round
+
+
+@dataclass
+class _Captured:
+    graph: Any            # torch.cuda.CUDAGraph of the whole run
+    inputs: list          # the graph's own input buffers, in tree_leaves order
+    outputs: tuple        # (g, ss, cs, stacked), written by every replay
+
+
+class MultiRoundStep:
+    """The multi-round trainer ``make_multi_round_step`` returns (its
+    docstring has the contract).
+
+    Routes by the params' device alone: on a CPU it runs the R rounds
+    eagerly; on a CUDA card it captures them, unrolled, as one
+    ``torch.cuda.CUDAGraph`` at the first call with a given input
+    signature (shapes, dtypes, device) and replays it at every call.  A
+    capture copies the inputs into the graph's own buffers first, so the
+    caller's tensors stay valid; before it, one eager round runs on copies,
+    on a side stream, with its results discarded, so the kernels' build
+    and first-call queries and cuBLAS' setup stay out of the graph.  A
+    failed capture raises: nothing runs the rounds eagerly instead.
+
+    ``captures`` counts the captures; ``last_capture`` describes the
+    latest: its ``seconds``, the private memory ``pool_bytes`` it took,
+    the kernel launches of its warm-up round and of the capture itself
+    (``warmup_launches``, ``capture_launches``: a replay counts none) and
+    the ``graph``, whose ``cudaGraph_t`` is kept (``raw_cuda_graph``).
+    """
+
+    def __init__(self, scheduled_round: Callable, num_rounds: int, stacked_batches: bool):
+        self._round = scheduled_round
+        self.num_rounds = num_rounds
+        self.stacked_batches = stacked_batches
+        self.captures = 0
+        self.last_capture: dict | None = None
+        self._graphs: dict[tuple, _Captured] = {}
+
+    def __call__(self, global_params, server_state, client_state, batches, weights,
+                 step_budgets, avail, t_total, priorities):
+        inputs = (global_params, server_state, client_state, batches, weights,
+                  step_budgets, avail, t_total, priorities)
+        dev = tree_leaves(global_params)[0].device
+        if dev.type == "cpu":
+            return self._rounds(*inputs)
+        if dev.type != "cuda":
+            raise ValueError(f"make_multi_round_step runs on a CUDA card or the CPU, not {dev}")
+        leaves = tree_leaves(inputs)
+        key = tuple((tuple(x.shape), x.dtype, x.device) for x in leaves)
+        cap = self._graphs.get(key)
+        if cap is None:
+            cap = self._graphs[key] = self._capture(inputs, dev)
+        else:
+            for dst, src in zip(cap.inputs, leaves):
+                dst.copy_(src)
+        cap.graph.replay()
+        # the graph's outputs are rewritten by its next replay
+        return tree_map(torch.clone, cap.outputs)
+
+    def _rounds(self, g, ss, cs, batches, weights, step_budgets, avail, t_total, priorities,
+                n_rounds: int | None = None):
+        outs = []
+        for i in range(self.num_rounds if n_rounds is None else n_rounds):
+            batch = tree_map(lambda x: x[i], batches) if self.stacked_batches else batches
+            g, ss, cs, out = self._round(g, ss, cs, batch, weights, step_budgets, i + 1,
+                                         avail[i], t_total[i], priorities[i])
+            outs.append(out)
+        stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return g, ss, cs, stacked
+
+    def _capture(self, inputs, dev) -> _Captured:
+        static = tree_map(torch.clone, inputs)
+        before = dict(_cuda.LAUNCHES)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._rounds(*tree_map(torch.clone, static), n_rounds=1)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        warm = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()}
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = dict(_cuda.LAUNCHES)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with torch.cuda.device(dev), torch.cuda.graph(graph):
+            outputs = self._rounds(*static)
+        graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.captures += 1
+        self.last_capture = {
+            "seconds": time.perf_counter() - t0,
+            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+            "warmup_launches": warm,
+            "capture_launches": {k: v - before[k] for k, v in _cuda.LAUNCHES.items()},
+            "graph": graph,
+        }
+        return _Captured(graph, tree_leaves(static), outputs)
+
+
+def make_multi_round_step(
+    loss_fn: Callable,
+    opt: Optimizer,
+    strategy: Strategy,
+    spec: RoundSpec,
+    num_rounds: int,
+    *,
+    policy=None,
+    tau: float | None = None,
+    cohort_size: int | None = None,
+    trainable_mask: PyTree | None = None,
+    mesh=None,
+    client_axes: tuple[str, ...] = ("data",),
+    param_shardings: PyTree | None = None,
+    stacked_batches: bool = True,
+) -> MultiRoundStep:
+    """``num_rounds`` FL rounds as one program over the uniform
+    ``round_step`` (module docstring: "the scanned trainer").
+
+    Returns a ``MultiRoundStep``::
+
+        multi_round_step(global_params, server_state, client_state,
+                         batches, weights, step_budgets,
+                         avail, t_total, priorities)
+            -> (new_global, new_server_state, new_client_state, stacked)
+
+    where ``avail`` / ``t_total`` / ``priorities`` are the precomputed
+    (R, C) schedule matrices (``AvailabilityTrace.available_matrix``,
+    ``CostModel.fleet_time_matrix`` as float32,
+    ``cohort_priority_matrix``) on the params' device, and ``stacked`` is
+    a dict of (R,)- and (R, C)-shaped per-round outputs (the round_step
+    metrics plus ``participation_mask``, ``dispatch_mask``,
+    ``round_wall_s``, ``participants``, ``dispatched``), decoded to a
+    ``History`` once, after the run.
+
+    ``batches``: leaves lead with (R, C, max_steps, ...) when
+    ``stacked_batches`` (each round gets its own slice) or (C, max_steps,
+    ...) when not: the same batch every round, so device memory stays
+    flat in R.
+
+    Scheduling is the ``policy``'s tensor verdict (``plan_arrays``): each
+    round computes a dispatch mask (availability, and the on-device cohort
+    when ``cohort_size`` is set), asks the policy who reports and how long
+    the round ran, and feeds the reporter mask to ``round_step``.  ``tau``
+    is a host float resolved beforehand (``Deadline.resolve_tau``); only
+    ``traceable`` policies are taken (``SyncAll``, ``Deadline``:
+    ``BufferedAsync`` carries a cross-round pending set).
+    """
+    from .scheduler import SyncAll
+
+    if mesh is not None or param_shardings is not None:
+        raise NotImplementedError(
+            "make_multi_round_step on a mesh is not ported yet: ROADMAP.md queue 1 "
+            "item 13 (a captured round needs collectives that stream capture takes, "
+            "and gloo's are not)"
+        )
+    round_step = make_round_step(loss_fn, opt, strategy, spec, trainable_mask)
+    policy = SyncAll() if policy is None else policy
+    if not getattr(policy, "traceable", False):
+        raise NotImplementedError(
+            f"{type(policy).__name__} cannot run in the multi-round trainer: its "
+            "verdict depends on cross-round pending-arrival state (see "
+            "core/scheduler.py); use Server.run, or a traceable policy "
+            "(SyncAll, Deadline)"
+        )
+    return MultiRoundStep(make_scheduled_round(round_step, policy, tau, cohort_size),
+                          int(num_rounds), stacked_batches)

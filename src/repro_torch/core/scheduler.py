@@ -74,6 +74,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
 from .cost_model import ClientCost
 
@@ -150,10 +151,16 @@ def _by_arrival(pending: list[Arrival]) -> list[Arrival]:
 class RoundPolicy:
     """Decides which pending arrivals a round consumes (module docstring).
 
-    The array form of the verdict (``plan_arrays``), which the scanned
-    trainer traces, arrives with the round engine (ROADMAP.md queue 1
-    item 9).
+    Policies whose verdict is a pure function of *this round's* dispatch
+    set and finish times also expose ``plan_arrays``: the same decision as
+    tensor code with no host sync, which the multi-round trainer
+    (``make_multi_round_step``) runs inside its captured CUDA graph.  A
+    policy is ``traceable`` iff its verdict carries no cross-round state:
+    ``SyncAll`` and ``Deadline`` qualify; ``BufferedAsync`` does not (its
+    pending set is data-dependent-size state threaded *between* rounds).
     """
+
+    traceable: bool = False
 
     def plan(
         self, clock: VirtualClock, pending: list[Arrival], rnd: int,
@@ -161,10 +168,31 @@ class RoundPolicy:
     ) -> RoundOutcome:
         raise NotImplementedError
 
+    def plan_arrays(self, dispatch_mask, t_total, *, tau: float | None = None):
+        """Tensor round verdict: ``(participation_mask, round_end)``.
+
+        ``dispatch_mask`` is the float ``(C,)`` 0/1 mask of clients
+        launched this round; ``t_total`` their float32 ``(C,)`` finish
+        offsets (compute + comm, seconds from round start).  Returns the
+        float ``(C,)`` mask of *reporters* (a subset of the dispatch mask)
+        and the round's wall-clock duration as a 0-d float32 tensor, on
+        the inputs' device and without a host sync, consistent with
+        ``plan`` on the same inputs.  ``tau`` is a host float the caller
+        resolved first (``Deadline.resolve_tau``, which is host code); it
+        enters the float32 comparisons rounded to float32, as the JAX
+        package's weakly typed scalar does.
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} has no tensor form (traceable=False); "
+            "use the event-driven Server.run driver"
+        )
+
 
 @dataclass(frozen=True)
 class SyncAll(RoundPolicy):
     """Lockstep FedAvg: wait for everyone; the slowest client ends the round."""
+
+    traceable = True
 
     def plan(self, clock, pending, rnd, strategy=None):
         order = _by_arrival(pending)
@@ -173,6 +201,13 @@ class SyncAll(RoundPolicy):
             rnd=rnd, round_start=clock.now, round_end=max(end, clock.now),
             reported=order,
         )
+
+    def plan_arrays(self, dispatch_mask, t_total, *, tau=None):
+        mask = dispatch_mask
+        # empty dispatch -> all-zero where -> end 0.0, matching plan's
+        # `default=clock.now` (round_end - round_start == 0)
+        end = torch.max(torch.where(mask > 0, t_total, 0.0))
+        return mask, end
 
 
 @dataclass(frozen=True)
@@ -185,6 +220,7 @@ class Deadline(RoundPolicy):
     """
 
     tau: float | None = None
+    traceable = True
 
     def resolve_tau(self, strategy=None) -> float:
         tau = self.tau
@@ -208,6 +244,23 @@ class Deadline(RoundPolicy):
             rnd=rnd, round_start=clock.now, round_end=max(end, clock.now),
             reported=reported, dropped=dropped,
         )
+
+    def plan_arrays(self, dispatch_mask, t_total, *, tau=None):
+        # a strategy-deferred tau (self.tau=None + Strategy.round_deadline_s)
+        # is resolved by the caller through resolve_tau, on the host
+        if tau is None:
+            tau = math.inf if self.tau is None or self.tau <= 0 else self.tau
+        if not math.isfinite(tau):
+            return SyncAll.plan_arrays(self, dispatch_mask, t_total)
+        sent = dispatch_mask > 0
+        mask = torch.where(sent & (t_total <= tau), 1.0, 0.0)
+        missed = torch.max(torch.where(sent & (t_total > tau), 1.0, 0.0))
+        # plan's wall rule: any straggler -> the server idles out the full
+        # tau; none -> the round ends with the last reporter
+        end = torch.where(
+            missed > 0, tau, torch.max(torch.where(mask > 0, t_total, 0.0))
+        )
+        return mask, end
 
 
 @dataclass(frozen=True)

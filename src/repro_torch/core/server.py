@@ -22,9 +22,17 @@ the round's cohort, and the uplink fallback is one scalar.  With N ==
 cohort_size, no churn, and the same strategy seed, the population round is
 bitwise the legacy round (tests/test_torch_population.py).
 
+**The scanned trainer** (``run_scanned``): the whole run's schedule is
+precomputed on the host as (R, C) matrices from the same seeded draws
+``run`` makes, and the R rounds run as one program
+(``rounds.make_multi_round_step``): one CUDA graph, captured once and
+replayed, on the card; the same rounds eagerly on the CPU
+(``device="cpu"``).  ``reference=True`` is the per-round driver with one
+host pull a round, the bitwise reference and the baseline.
+
 Global parameters live on ``device`` (the CUDA card unless the caller asks
-for the CPU).  ``run_scanned`` waits for ROADMAP.md queue 1 item 11, the
-``MixedCodec`` guard of population mode for item 12.
+for the CPU).  The ``MixedCodec`` guard of population mode waits for
+ROADMAP.md queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -32,11 +40,12 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import MetricsLogger
 from repro_torch.utils.pytree import (
-    tree_add, tree_bytes, tree_map, tree_size, tree_sub,
+    tree_add, tree_bytes, tree_leaves, tree_map, tree_size, tree_sub,
 )
 
 from .cost_model import AvailabilityTrace, CostModel
@@ -130,6 +139,9 @@ class Server:
     cohort_size: int | None = None
     device: Any = None                   # None -> the CUDA card
     logger: MetricsLogger = field(default_factory=lambda: MetricsLogger("server"))
+    # run_scanned's built programs: without the memo every call would build
+    # a fresh closure and capture the whole R-round graph again
+    _scan_fns: dict = field(default_factory=dict, repr=False, compare=False)
 
     def run(self, global_params: PyTree, num_rounds: int) -> tuple[PyTree, History]:
         device = resolve_device(self.device)
@@ -337,6 +349,231 @@ class Server:
         # clients roll back, and the wasted work is charged to the final round
         self._abandon_pending(pending, clock, history)
         return global_params, history
+
+    # ---- the scanned trainer ----
+
+    def run_scanned(
+        self,
+        global_params: PyTree,
+        num_rounds: int,
+        *,
+        loss_fn: Callable,
+        opt,
+        spec,
+        batches,
+        weights=None,
+        step_budgets=None,
+        stacked_batches: bool = True,
+        trainable_mask: PyTree | None = None,
+        reference: bool = False,
+        donate: bool = True,
+    ) -> tuple[PyTree, History, dict]:
+        """Run ``num_rounds`` rounds as one program
+        (``rounds.make_multi_round_step``) instead of re-entering Python
+        every round: one captured CUDA graph on the card, the same rounds
+        eagerly on the CPU.
+
+        The whole run's schedule (availability churn, step jitter, cohort
+        priorities, per-client finish times) is precomputed on the host as
+        (R, C) matrices from the same seeded draws ``run`` makes and sent
+        to the device once; each round's dispatch mask, the policy's
+        tensor verdict and the round step run on the device, and the
+        per-round outputs decode to a ``History`` once, at the end.  Cost
+        accounting (energy, comm, steps) replays the CostModel's
+        arithmetic over the returned masks.  Differences from ``run``, by
+        construction: evaluation happens once, on the final global
+        (``eval_fn`` only), ``train_loss`` is the engine's weights-weighted
+        ``client_loss_mean``, and deadline stragglers are dropped rather
+        than offered a truncated step budget.
+
+        ``reference=True`` runs the same schedule, verdict and round step
+        through a per-round Python loop with one host pull a round: the
+        bitwise reference, and the rounds/s baseline.
+
+        ``batches`` (tensors or numpy arrays) lead with (R, C, max_steps,
+        ...) when ``stacked_batches``, else (C, max_steps, ...) reused
+        every round.  ``donate`` keeps the JAX package's meaning for the
+        caller: the caller's tensors stay valid, since the graph reads
+        copies in its own input buffers (and the CPU rounds write no
+        input); it is part of the memo key.
+
+        Returns ``(final_global, history, stacked)``, ``stacked`` the numpy
+        dict of per-round outputs (metrics plus ``participation_mask`` /
+        ``dispatch_mask`` / ``round_wall_s`` / ``participants`` /
+        ``dispatched``).
+        """
+        from .rounds import make_multi_round_step, make_round_step, make_scheduled_round
+
+        if self.population is not None:
+            raise NotImplementedError(
+                "run_scanned needs a static client axis; population-mode "
+                "cohort gather/scatter is host-side — use Server.run"
+            )
+        device = resolve_device(self.device)
+        global_params = tree_map(lambda t: t.to(device), global_params)
+        policy = self.policy if self.policy is not None else SyncAll()
+        tau = policy.resolve_tau(self.strategy) if isinstance(policy, Deadline) else None
+
+        R = int(num_rounds)
+        batches = tree_map(lambda x: torch.as_tensor(x, device=device), batches)
+        leaf = tree_leaves(batches)[0]
+        C = int(leaf.shape[1] if stacked_batches else leaf.shape[0])
+        if stacked_batches and int(leaf.shape[0]) != R:
+            raise ValueError(
+                f"stacked batches carry {int(leaf.shape[0])} rounds, run asked for {R}"
+            )
+        w = (torch.ones((C,), dtype=torch.float32, device=device) if weights is None
+             else torch.as_tensor(weights, device=device))
+        bud = (torch.full((C,), spec.max_steps, dtype=torch.int32, device=device)
+               if step_budgets is None
+               else torch.as_tensor(step_budgets, dtype=torch.int32, device=device))
+        budgets = bud.cpu().numpy()
+        n_params = tree_size(global_params)
+        sched = self._scan_schedule(spec, R, C, budgets, n_params)
+        avail, t_verdict, pri = (torch.from_numpy(sched[k]).to(device)
+                                 for k in ("avail", "t_verdict", "pri"))
+
+        self.strategy.reset_server_state()
+        server_state = self.strategy.init_state(global_params)
+        client_state = spec.codec.init_client_state(C, n_params, device=device)
+
+        # the memo: the reference's key plus the input signature and device
+        key = (
+            "ref" if reference else "scan", R, C, stacked_batches, donate,
+            repr(spec), repr(policy), tau, self.cohort_size,
+            id(loss_fn), id(opt), id(trainable_mask), str(device),
+            tuple((tuple(x.shape), x.dtype) for x in tree_leaves((global_params, batches, w))),
+        )
+        cached = self._scan_fns.get(key)
+        if not reference:
+            if cached is None:
+                multi = make_multi_round_step(
+                    loss_fn, opt, self.strategy, spec, R, policy=policy, tau=tau,
+                    cohort_size=self.cohort_size, trainable_mask=trainable_mask,
+                    stacked_batches=stacked_batches,
+                )
+                # the value keeps the id()s of the key alive
+                self._scan_fns[key] = (multi, (loss_fn, opt, trainable_mask))
+            else:
+                multi = cached[0]
+            g, _, _, stacked = multi(global_params, server_state, client_state, batches, w,
+                                     bud, avail, t_verdict, pri)
+            stacked = {k: v.cpu().numpy() for k, v in stacked.items()}  # one host pull
+        else:
+            if cached is None:
+                scheduled = make_scheduled_round(
+                    make_round_step(loss_fn, opt, self.strategy, spec, trainable_mask),
+                    policy, tau, self.cohort_size,
+                )
+                self._scan_fns[key] = (scheduled, (loss_fn, opt, trainable_mask))
+            else:
+                scheduled = cached[0]
+            g, ss, cs = global_params, server_state, client_state
+            rows = []
+            for r in range(R):
+                batch_r = tree_map(lambda x: x[r], batches) if stacked_batches else batches
+                g, ss, cs, out = scheduled(g, ss, cs, batch_r, w, bud, r + 1,
+                                           avail[r], t_verdict[r], pri[r])
+                # the per-round driver's defining cost: one host pull a round
+                rows.append({k: v.cpu().numpy() for k, v in out.items()})
+            stacked = {k: np.stack([row[k] for row in rows]) for k in rows[0]}
+
+        eval_final = self._evaluate(g) if self.eval_fn is not None else None
+        history = self._decode_scan_history(stacked, sched, budgets, eval_final)
+        self.logger.log(
+            "scanned", rounds=R, driver="python" if reference else "graph",
+            loss=history.rounds[-1].train_loss if history.rounds else -1.0,
+            wall_s=history.total_time_s,
+        )
+        return g, history, stacked
+
+    def _scan_schedule(self, spec, R: int, C: int, budgets: np.ndarray, n_params: int) -> dict:
+        """Host-side precompute of the whole run's (R, C) schedule.
+
+        Rows reuse the per-round seeded draws ``run`` makes
+        (``available`` / ``step_jitter`` stacked), plus stream-4 cohort
+        priorities; finish times follow ``CostModel.fleet_time_matrix``
+        (``client_round_cost``'s arithmetic).  ``t_verdict`` is the float32
+        copy both drivers schedule against: the verdict is taken at ONE
+        precision, or the two could disagree on a client landing exactly
+        at tau.
+        """
+        rounds = range(1, R + 1)
+        trace = self.availability
+        if trace is None:
+            avail = np.ones((R, C), np.float32)
+            jitter = np.ones((R, C), np.float64)
+        else:
+            avail = trace.available_matrix(rounds)
+            jitter = trace.step_jitter_matrix(rounds)
+        if self.cohort_size is not None:
+            pri_trace = trace if trace is not None else AvailabilityTrace.full(C)
+            pri = pri_trace.cohort_priority_matrix(rounds)
+        else:
+            pri = np.zeros((R, C), np.float32)
+        out = {"avail": avail, "pri": pri, "cols": None, "t_compute": None}
+        if self.cost_model is None:
+            out["t_verdict"] = np.zeros((R, C), np.float32)
+            return out
+        up = CostModel.fleet_uplink_bytes(spec.codec, n_params, C)
+        cols = self.cost_model.fleet_columns(C, uplink_bytes=up)
+        t_compute = (np.asarray(budgets, np.float64) * cols["step_time_s"])[None, :] * jitter
+        out["cols"] = cols
+        out["t_compute"] = t_compute
+        out["t_verdict"] = np.asarray(t_compute + cols["t_comm_s"][None, :], np.float32)
+        return out
+
+    def _decode_scan_history(self, stacked: dict, sched: dict, budgets: np.ndarray,
+                             eval_final) -> History:
+        """Stacked per-round outputs -> History, once, after the run.
+
+        Energy replays ``_outcome_energy``'s rules vectorized: reporters
+        charge full compute+comm plus idle burn until round end; deadline-
+        dropped dispatches charge ``wasted_energy``'s phase split
+        (downlink radio, then compute, then uplink radio) within the round
+        window; comm charges the downlink per dispatch and the codec wire
+        uplink per reporter.
+        """
+        R, C = stacked["participation_mask"].shape
+        cm = self.cost_model
+        cols = sched["cols"]
+        history = History()
+        for r in range(R):
+            reported = stacked["participation_mask"][r] > 0
+            dispatched = stacked["dispatch_mask"][r] > 0
+            wall = float(stacked["round_wall_s"][r])
+            energy, comm = 0.0, 0
+            if cm is not None:
+                t_compute = sched["t_compute"][r]
+                t_total = t_compute + cols["t_comm_s"]
+                e_total = (t_compute * cols["active_power_w"]
+                           + cols["t_comm_s"] * cm.comm_power_w)
+                idle = np.clip(wall - t_total, 0.0, None) * cols["idle_power_w"]
+                t_down = cols["t_down_s"]
+                wasted = np.where(
+                    wall >= t_total,
+                    e_total,
+                    np.minimum(wall, t_down) * cm.comm_power_w
+                    + np.clip(wall - t_down, 0.0, t_compute) * cols["active_power_w"]
+                    + np.clip(wall - t_down - t_compute, 0.0, None) * cm.comm_power_w,
+                )
+                per_client = np.where(reported, e_total + idle, wasted)
+                energy = float(np.sum(per_client[dispatched]))
+                comm = int(cm.update_bytes * int(dispatched.sum())
+                           + np.sum(cols["up_bytes"][reported]))
+            eval_loss = eval_acc = None
+            if r == R - 1 and eval_final is not None:
+                eval_loss, eval_acc = eval_final
+            history.add(RoundRecord(
+                rnd=r + 1,
+                train_loss=float(stacked["client_loss_mean"][r]),
+                eval_loss=eval_loss, eval_acc=eval_acc, wall_time_s=wall,
+                energy_j=energy, comm_bytes=comm,
+                steps=int(np.sum(budgets[dispatched])),
+                participants=int(reported.sum()),
+                dropped=int(dispatched.sum() - reported.sum()),
+            ))
+        return history
 
     def _abandon_pending(self, pending, clock, history) -> None:
         for a in pending:

@@ -950,3 +950,97 @@ def test_cuda_int8_client_residual_survives_eviction(cuda):
     assert torch.equal(back._residual, residual)
     back.discard_update()
     assert torch.equal(back._residual, residual)
+
+
+# ---------------- the scanned trainer: one CUDA graph of the whole run ----------------
+SCAN_FLEET = ["tpu-v5e-chip", "jetson-tx2-gpu", "jetson-tx2-gpu", "pixel-2", "pixel-2", "pixel-3"]
+
+
+def _scan_setup(cuda, rounds):
+    """The reduced head model over tests/test_scan.py's fleet, Deadline and
+    churn: (model, params, server factory, batches (R, C, 2, 4, ...))."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import AvailabilityTrace, CostModel, Deadline, FedAvg, PROFILES, Server
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("mobilenet-head-office31").reduced(), device=cuda)
+    params = model.init(0)
+    c = len(SCAN_FLEET)
+    profiles = [PROFILES[p] for p in SCAN_FLEET]
+    cm = CostModel(profiles=profiles, update_bytes=4 * sum(t.numel() for t in tree_leaves(params)))
+    tau = 1.25 * cm.client_round_cost(1, 2).t_total_s
+    trace = AvailabilityTrace.from_profiles(profiles, seed=0, mobile_dropout=0.3, jitter_std=0.1)
+
+    def server(cohort=None):
+        srv = Server(strategy=FedAvg(), clients=[], cost_model=cm, policy=Deadline(tau=tau),
+                     availability=trace, cohort_size=cohort, device=cuda)
+        srv.logger.quiet = True
+        return srv
+
+    rng = np.random.default_rng(0)
+    batches = {
+        "x": _t(rng.normal(size=(rounds, c, 2, 4, model.cfg.feature_dim)).astype(np.float32)).to(cuda),
+        "y": _t(rng.integers(0, 31, (rounds, c, 2, 4)).astype(np.int32)).to(cuda),
+    }
+    return model, params, server, batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec_name,cohort", [("Int8Codec", None), ("TopKCodec", 4)],
+                         ids=["int8", "topk-cohort"])
+def test_cuda_scanned_graph_is_the_per_round_driver(cuda, codec_name, cohort):
+    """run_scanned on the card captures the 6 rounds as one CUDA graph:
+    its final globals, stacked outputs and History are bitwise the
+    per-round driver's; the capture launched R times the warm-up round's
+    kernels; a second call replays the same graph (no second capture),
+    launches nothing from the host and gives the same bits."""
+    from repro_torch.core import RoundSpec, TopKCodec, Int8Codec
+    from repro_torch.optim import sgd
+
+    model, params, server, batches = _scan_setup(cuda, 6)
+    codec = Int8Codec() if codec_name == "Int8Codec" else TopKCodec(frac=0.05)
+    kw = dict(loss_fn=model.loss_fn, opt=sgd(0.1), batches=batches,
+              spec=RoundSpec(max_steps=2, execution_mode="parallel", codec=codec))
+    srv = server(cohort)
+    g, hist, st = srv.run_scanned(params, 6, **kw)
+    (multi, _), = srv._scan_fns.values()
+    cap = multi.last_capture
+    assert multi.captures == 1
+    warm = {k: v for k, v in cap["warmup_launches"].items() if v}
+    assert warm and cap["capture_launches"] == {k: 6 * cap["warmup_launches"][k]
+                                                for k in cap["warmup_launches"]}
+    g_ref, hist_ref, st_ref = server(cohort).run_scanned(params, 6, reference=True, **kw)
+    for a, b in zip(tree_leaves(g), tree_leaves(g_ref)):
+        assert a.is_cuda and torch.equal(a, b)
+    assert set(st) == set(st_ref)
+    for k in st:
+        np.testing.assert_array_equal(st[k], st_ref[k], err_msg=k)
+    assert repr(hist.rounds) == repr(hist_ref.rounds)  # NaN-equal, every float exact
+    assert sum(r.dropped for r in hist.rounds) > 0
+    ops.reset_launch_counts()
+    g2, hist2, _ = srv.run_scanned(params, 6, **kw)
+    assert multi.captures == 1 and not any(ops.launch_counts().values())
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g), tree_leaves(g2)))
+    assert repr(hist2.rounds) == repr(hist.rounds)
+
+
+@pytest.mark.cuda
+def test_cuda_scanned_graph_pool_is_flat_in_rounds(cuda):
+    """With one batch reused every round, the graph's private memory pool
+    at R = 32 is within 5% of R = 8's (apart from the per-round outputs):
+    each round's intermediates are freed inside the capture and reused."""
+    from repro_torch.core import Int8Codec, RoundSpec
+    from repro_torch.optim import sgd
+
+    model, params, server, batches = _scan_setup(cuda, 1)
+    one = {k: v[0].clone() for k, v in batches.items()}
+    pool = {}
+    for rounds in (8, 32):
+        srv = server()
+        srv.run_scanned(params, rounds, loss_fn=model.loss_fn, opt=sgd(0.1), batches=one,
+                        stacked_batches=False,
+                        spec=RoundSpec(max_steps=2, execution_mode="parallel", codec=Int8Codec()))
+        (multi, _), = srv._scan_fns.values()
+        pool[rounds] = multi.last_capture["pool_bytes"]
+    assert pool[8] > 0
+    assert pool[32] <= 1.05 * pool[8] + (32 - 8) * 10 * 512, pool
