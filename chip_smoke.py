@@ -15,7 +15,10 @@ Phases (any failure exits non-zero):
    blocks and the round engine's 8 x Np, quantize at the unpadded N = 1,
    255, 257 and 1,974,303 and through Int8Codec().encode against the
    plain version of x padded with zeros, a NaN and an inf in a ragged
-   tail block, ptxas' registers and spills (none), each timed beside a
+   tail block, quantize at head.w1's and head.w2's 4-byte starts (slices
+   of the flat delta, 12 bytes past a 16-byte boundary) against the plain
+   version and the aligned kernel on a copy, head.w1 timed beside that
+   copy, ptxas' registers and spills (none), each timed beside a
    device copy moving the same bytes at Np and 8 x Np, the encode beside
    F.pad then the kernel, and the encode and dequantize_int8 as one
    device kernel a call in the profiler,
@@ -184,6 +187,32 @@ Phases (any failure exits non-zero):
    profiler session over a graph call and a driver call (each kernel's
    name R times a round's launches; the card's idle share against the
    unprofiled call) and a TopK graph call.
+13. the segmented and mixed wire on mobilenet-head-office31 at full width,
+   N = 1,974,303 in the 5 segments of SegmentMap.from_tree (head.w1 and
+   head.w2 at unaligned starts): (a) Server.run on the mixed fleet with
+   BandwidthCodecPolicy's three codecs on the map, 3 rounds: 20 quantize,
+   20 dequantize and one reduce a codec group and segment (5 each) a
+   round, nothing else; every wire's num_bytes its codec's wire_bytes; the
+   grouped per-segment reduce against the per-client dense decode on the
+   CPU (float64) within 1e-6 of its largest value; round 3 profiled; then
+   2 rounds with the flat codecs and 2 with SegmentMap.flat, bitwise;
+   (b) LoRACodec(rank=4, factor_codec=Int8Codec()) on the smoke fleet, 3
+   rounds: 18,103 B a client against 2,005,155 for Int8, the frozen base
+   decoding to exact zeros, 64 quantize and 128 dequantize a round, the
+   loss falling; (c) make_round_step on the mixed fleet (C = 10, 8 steps
+   of batch 32), parallel and sequential, with the policy's MixedCodec and
+   a segmented bank of LoRA phones and Int8: launches a round, a masked
+   client with NaN data leaving the global and every row bitwise (its own
+   row carried), host s a round, a profiled round's busy time; (d)
+   population mode with Int8 on the map: Server.run over 10^6 devices,
+   cohort 16, a pool of 8 spilling leafwise rows, 2 rounds; the store's
+   leafwise gather / scatter bitwise, an evicted device back as zeros;
+   gather / scatter of the (8, N) block and a round setup at 10^6 devices
+   against the flat store in turns; (e) run_scanned on the scan fleet at
+   R = 8 with the policy's MixedCodec, Int8 on the map and a bank of LoRA
+   phones on the map: the graph bitwise the per-round driver, the
+   launches of the warm-up round, the capture (R times) and a replay
+   (none), rounds/s of both drivers, capture s, kernel nodes, pool bytes.
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
@@ -363,12 +392,13 @@ def no_spill(ptxas: dict) -> bool:
 
 
 def codec_build_checks() -> dict:
-    """ptxas' registers and spills of the two codec kernels: no spill in
-    either."""
+    """ptxas' registers and spills of the codec kernels (quantize at an
+    aligned and at any 4-byte start, dequantize): no spill in any."""
     ptxas = ptxas_report("quantize", lambda line: next(
-        (k for k in ("dequantize_int8_kernel", "quantize_int8_kernel") if k in line), None))
-    check("ptxas reports both codec kernels, and no spill in either",
-          len(ptxas) == 2 and no_spill(ptxas), kernels=ptxas)
+        (k for k in ("dequantize_int8_kernel", "quantize_int8_unaligned_kernel",
+                     "quantize_int8_kernel") if k in line), None))
+    check("ptxas reports the three codec kernels, and no spill in any",
+          len(ptxas) == 3 and no_spill(ptxas), kernels=ptxas)
     return ptxas
 
 
@@ -488,6 +518,46 @@ def codec_kernel_checks(rng, dev, launch) -> dict:
           f"[N={n}]",
           bool(torch.isnan(s[4]) and torch.isnan(sr[4]))
           and torch.equal(s[:4], sr[:4]) and torch.equal(q[:4 * BLOCK], qr[:4 * BLOCK]))
+
+    # a segment's slice of the flat delta: head.w1 and head.w2 start 12
+    # bytes past a 16-byte boundary (the segmented wire's Int8 encode);
+    # one launch of the 4-byte-start kernel, bitwise the plain version and
+    # the aligned kernel on a copy; timed at head.w1 beside that copy
+    delta = delta_like(rng, (N_PARAMS,))
+    for name, off, size in (("head.w1", 1_638_687, 327_680), ("head.w2", 1_966_367, 7_936)):
+        x = delta[off:off + size]
+        before = ops.launch_counts()["quantize_int8"]
+        q, s = ops.quantize_int8(x)
+        err, _, _ = codes_agree(f"{name} at its offset {off}", x, q, s)
+        qa, sa = ops.quantize_int8(x.clone())
+        check(f"quantize_int8 at {name}'s 4-byte start ({x.data_ptr() % 16} bytes past 16): one "
+              "launch, bitwise the aligned kernel on a copy",
+              ops.launch_counts()["quantize_int8"] == before + 2 and x.data_ptr() % 16 == 12
+              and torch.equal(q, qa) and torch.equal(s, sa))
+        if name != "head.w1":
+            continue
+        aligned = x.clone()
+        n_blocks = -(-size // BLOCK)
+        qo, so = torch.empty_like(q), torch.empty_like(s)
+        moved = nbytes(x, q, s)
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        b_ms, b_by = bound(moved, 6 * size)
+        REPORT["timings"].append(dict(
+            name="quantize_int8", case="head.w1 at its 4-byte start", max_abs_err=err,
+            ms=time_ms(lambda: ops.quantize_int8(x)),
+            launch_ms=time_ms(launch("quantize", "repro_quantize_int8", "quantize_int8",
+                                     x.data_ptr(), qo.data_ptr(), so.data_ptr(), size, n_blocks)),
+            aligned_ms=time_ms(lambda: ops.quantize_int8(aligned)),
+            aligned_launch_ms=time_ms(launch("quantize", "repro_quantize_int8", "quantize_int8",
+                                             aligned.data_ptr(), qo.data_ptr(), so.data_ptr(),
+                                             size, n_blocks)),
+            plain_ms=time_ms(lambda: ref.quantize_int8(padded(x))),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            copy_ms=time_ms(lambda: dst.copy_(src)),
+            shape=f"x ({size},) fp32 at float {off}", bytes=moved,
+            ptxas=ptxas["quantize_int8_unaligned_kernel"]))
+        del src, dst
     return rows
 
 
@@ -2001,7 +2071,7 @@ def reduced_parity_phase(fleet=PROFILE_FLEET, loop=None, name: str | None = None
           max_abs_err=err, atol=atol, codes_differing=flipped, replay_max_abs_err=replay_err)
 
 
-PORT_KERNELS = ("quantize_int8_kernel", "dequant_reduce_kernel", "fedavg_reduce_kernel",
+PORT_KERNELS = ("quantize_int8_kernel", "quantize_int8_unaligned_kernel", "dequant_reduce_kernel", "fedavg_reduce_kernel",
                 "topk_scatter_reduce_kernel", "collective_absmax_kernel",
                 "collective_pack_kernel", "collective_unpack_kernel")
 # the serving paths' kernels by wrapper, as the profiler names them
@@ -3410,13 +3480,16 @@ def codec_group(name: str) -> str:
 def population_loop(arch, device, n_rounds: int, *, n_devices: int, pool_capacity: int = 64,
                     store_capacity: int = 4096, n_shards: int = 5,
                     n_examples: int = 2000, churn: bool = True, legacy: bool = False,
-                    stage_s: dict | None = None, dispatched: list | None = None, **probe):
+                    stage_s: dict | None = None, dispatched: list | None = None,
+                    codec_policy=None, store_codec=None, **probe):
     """Population mode on ``arch``: ``Population.synthetic(n_devices,
     POP_MIX, seed=0)``, FedAvg under BandwidthCodecPolicy at the family's
     ``LOCAL_LR``, cohort ``POP_COHORT``, the ``from_profiles`` churn trace (with
     ``churn``), and a ``LazyClientPool`` whose clients share ``n_shards``
     shards of ``n_examples`` examples by ``cid % n_shards`` (as the
-    quickstart's do) and spill their residuals into a ``CohortState``.
+    quickstart's do) and spill their residuals into a ``CohortState`` (of
+    TopK rows, or of ``store_codec``'s; ``codec_policy`` in place of
+    BandwidthCodecPolicy).
     With ``legacy`` the same clients run as a list on the list-of-clients
     path.  With ``stage_s`` every pool materialization, ``sample_cohort``
     and client ``properties`` add their host seconds to it too; the rest of
@@ -3437,7 +3510,7 @@ def population_loop(arch, device, n_rounds: int, *, n_devices: int, pool_capacit
     mask = trainable_mask_of(model, params)
     pop = Population.synthetic(n_devices, mix=POP_MIX, seed=0)
     strategy = FedAvg(local_epochs=2, local_lr=LOCAL_LR[model.arch.family],
-                      codec_policy=BandwidthCodecPolicy())
+                      codec_policy=BandwidthCodecPolicy() if codec_policy is None else codec_policy)
 
     def factory(cid):
         shard = shards[cid % n_shards]
@@ -3460,7 +3533,8 @@ def population_loop(arch, device, n_rounds: int, *, n_devices: int, pool_capacit
     if stage_s is not None:
         strategy.sample_cohort = stage_timed(strategy.sample_cohort, "sample_cohort", stage_s)
         factory = stage_timed(factory, "materialize", stage_s)
-    store = CohortState(TopKCodec(), tree_size(params), capacity=store_capacity, device=device)
+    store = CohortState(TopKCodec() if store_codec is None else store_codec, tree_size(params),
+                        capacity=store_capacity, device=device)
     pool = LazyClientPool(pop, factory, capacity=pool_capacity, state_store=store)
     server = Server(strategy=strategy, clients=pool, population=pop, cohort_size=POP_COHORT,
                     cost_model=CostModel(profiles=[], update_bytes=tree_bytes(params),
@@ -4119,6 +4193,572 @@ def scanned_trainer_phase(card: str, out_dir: Path, dev="cuda", arch=HEAD) -> di
     return out
 
 
+# ---------------- phase 13: the segmented and mixed wire ----------------
+# the head model's leaves as SegmentMap.from_tree names them: (name, offset)
+HEAD_SEGMENTS = (("['base']['w']", 0), ("['head']['b1']", 1_638_400),
+                 ("['head']['b2']", 1_638_656), ("['head']['w1']", 1_638_687),
+                 ("['head']['w2']", 1_966_367))
+LORA_WIRE = 18_103            # LoRACodec(rank=4, factor_codec=Int8Codec()) on the head map
+LORA_SEGMENT_WIRE = (10_400, 260, 35, 6_240, 1_168)   # base.w a+b, the biases on Int8, w1, w2
+INT8_WIRE = 2_005_155         # Int8Codec(), flat and on the head map alike
+SEG_DROP = 4                  # leg c's masked client: the first Jetson, row 0 of the Int8 group
+SEG_LAUNCHED = ("quantize_int8", "dequantize_int8", "dequant_reduce", "topk_scatter_reduce",
+                "fedavg_reduce")
+# launches a round of SEG_LAUNCHED, each derived from the codecs' structure:
+# (a) Server.run on MIXED_FLEET, every codec on the 5-segment map: a
+#     quantize and a dequantize an Int8 client and segment (4 x 5), one
+#     reduce a codec group and segment (5 each);
+SEG_SERVER_LAUNCHES = (20, 20, 5, 5, 5)
+# (b) LoRA (Int8 factors) on the smoke fleet's 8 clients: a client encodes 3
+#     LoRA segments as 2 factors each and the 2 biases on Int8 (8 quantize,
+#     8 dequantize for its residual); the server densifies every client (8
+#     dequantize each), no reduce
+SEG_LORA_LAUNCHES = (64, 128, 0, 0, 0)
+# (c) the round engine on MIXED_FLEET: the policy's bank (TopK, Int8, Null
+#     groups) and a segmented bank of LoRA phones and Int8 for the rest
+SEG_ENGINE_BANKS = {
+    "policy bank": {"parallel": (1, 1, 1, 1, 0), "sequential": (4, 4, 0, 0, 0)},
+    # parallel: LoRA's 3 segments x 2 factors + 2 fallback biases (8, 8, 2),
+    # the Int8 group's 5 segments (5, 5, 5); sequential: 4 phones x 8, 6 x 5
+    "LoRA + Int8 on the map": {"parallel": (13, 13, 7, 0, 0), "sequential": (62, 62, 0, 0, 0)},
+}
+# (e) the scanned trainer on SCAN_FLEET (a TPU-class chip, 2 Jetsons, 3 phones)
+SEG_SCAN_CASES = {
+    "mixed": (1, 1, 1, 1, 0),
+    "Int8 on the map": (5, 5, 5, 0, 0),
+    "mixed with LoRA phones, on the map": (13, 13, 7, 0, 0),
+}
+SEG_SCAN_CALLS = 3            # timed calls a driver, after the first
+
+
+class OneCodec:
+    """A codec policy that gives every client the same codec."""
+
+    def __init__(self, codec):
+        self.codec = codec
+
+    def codec_for(self, properties):
+        return self.codec
+
+
+def launch_tuple(counts: dict) -> tuple:
+    return tuple(counts[k] for k in SEG_LAUNCHED)
+
+
+def only_these(counts: dict) -> bool:
+    """No kernel outside SEG_LAUNCHED launched."""
+    return not any(v for k, v in counts.items() if k not in SEG_LAUNCHED)
+
+
+def head_segments(arch=HEAD, dev="cuda"):
+    from repro_torch.core import SegmentMap
+    from repro_torch.models import build_model
+
+    return SegmentMap.from_tree(build_model(arch, device=dev).init(0))
+
+
+def segmented_policy(segs):
+    """BandwidthCodecPolicy with every codec on ``segs`` (None: flat)."""
+    from repro_torch.core import BandwidthCodecPolicy
+
+    base = BandwidthCodecPolicy()
+    if segs is None:
+        return base
+    return BandwidthCodecPolicy(topk=base.topk.with_segments(segs),
+                                int8=base.int8.with_segments(segs),
+                                null=base.null.with_segments(segs))
+
+
+def seg_flower_loop(arch, dev, n_rounds, fleet, codec_policy, **probe):
+    from repro_torch.core import FedAvg
+
+    return flower_loop(arch, dev, n_rounds, fleet=fleet, make_strategy=lambda cm, clients: FedAvg(
+        local_epochs=2, local_lr=LOCAL_LR["head"], codec_policy=codec_policy), **probe)
+
+
+def round_probe(prof=None, profiled_round: int = 3):
+    """(on_round, stamps, by_round): the launch counts read and set to 0 at
+    the end of every round, synchronized; with ``prof`` the profiler on for
+    round ``profiled_round``."""
+    from repro_torch.kernels import ops
+
+    stamps, by_round = [], []
+
+    def on_round():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        by_round.append(ops.launch_counts())
+        ops.reset_launch_counts()
+        if prof is not None and len(stamps) == profiled_round - 1:
+            prof.start()
+        elif prof is not None and len(stamps) == profiled_round:
+            prof.stop()
+
+    return on_round, stamps, by_round
+
+
+def segmented_server_leg(card: str, segs, dev="cuda", arch=HEAD) -> dict:
+    """Leg (a): Server.run on MIXED_FLEET with BandwidthCodecPolicy's three
+    codecs on the head model's map, 3 rounds: SEG_SERVER_LAUNCHES a round;
+    every wire's num_bytes its codec's wire_bytes; each round's grouped
+    reduce against the per-client dense decode (on the CPU, float64); round 3
+    profiled.  Then 2 rounds with the flat codecs and 2 with SegmentMap.flat:
+    bitwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import SegmentMap
+    from repro_torch.core.strategy.base import Strategy
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import tree_flatten_to_vector, tree_leaves
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    on_round, stamps, by_round = round_probe(prof)
+    agg_log: list = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, cm, (final, hist) = seg_flower_loop(arch, dev, 3, MIXED_FLEET, segmented_policy(segs),
+                                                on_round=on_round, agg_log=agg_log)
+    n = segs.n_params
+    got = [launch_tuple(c) for c in by_round]
+    check("segmented wire, Server.run on the mixed fleet: launches a round "
+          f"{SEG_SERVER_LAUNCHES} (quantize, dequantize, dequant_reduce, topk_scatter_reduce, "
+          "fedavg_reduce: one reduce a codec group and segment), nothing else",
+          all(g == SEG_SERVER_LAUNCHES for g in got) and all(only_these(c) for c in by_round),
+          launches=got)
+    wires = [(type(r.parameters.codec).__name__, r.parameters.num_bytes,
+              r.parameters.codec.wire_bytes(n), r.parameters.codec.segments == segs)
+             for _, results, *_ in agg_log for _, r in results]
+    check("segmented wire: every CompressedParameters.num_bytes is its codec's wire_bytes, "
+          "every codec on the head map",
+          all(b == w and on_map for _, b, w, on_map in wires),
+          wires=sorted({(k, b) for k, b, _, _ in wires}))
+    errs = []
+    for _, results, g_in, g_out, _ in agg_log:
+        flat_in = tree_flatten_to_vector(g_in).double()
+        rows = torch.stack([tree_flatten_to_vector(Strategy.fitres_parameters(r, g_in)).double()
+                            for _, r in results]) - flat_in
+        w = torch.tensor([float(r.num_examples) for _, r in results], dtype=torch.float64)
+        want = (w[:, None] * rows).sum(0) / w.sum()
+        out = tree_flatten_to_vector(g_out)
+        gap = ((out.double() - flat_in) - want).abs()
+        # 1e-6 of the largest averaged delta, plus the final fp32 add's rounding
+        allowed = 1e-6 * float(want.abs().max()) + out.abs().double() * 2.0 ** -24
+        errs.append((float(gap.max()), float(want.abs().max()), bool((gap <= allowed).all())))
+    check("segmented wire: each round's grouped per-segment reduce is the per-client dense "
+          "decode's weighted mean (float64, CPU) within 1e-6 of its largest value",
+          all(ok for *_, ok in errs), max_abs_err=[e for e, _, _ in errs],
+          largest=[m for _, m, _ in errs])
+    accs = [r.eval_acc for r in hist.rounds]
+    check("segmented wire: accuracy finite and rising", all(math.isfinite(a) for a in accs)
+          and accs[-1] > accs[0], eval_acc=accs)
+    round_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    busy_us, by_kernel = device_time(prof)
+    ours_us = sum(us for k, us in by_kernel.items() if any(p in k for p in PORT_KERNELS))
+
+    finals = {}
+    for label, pol in (("flat", segmented_policy(None)),
+                       ("SegmentMap.flat", segmented_policy(SegmentMap.flat(n)))):
+        _, _, (g, h) = seg_flower_loop(arch, dev, 2, MIXED_FLEET, pol)
+        finals[label] = (g, h)
+    (ga, ha), (gb, hb) = finals.values()
+    check("segmented wire: Server.run with SegmentMap.flat bitwise the flat codecs (TopK, "
+          "Int8, Null), 2 rounds: the global and History",
+          all(torch.equal(a, b) for a, b in zip(tree_leaves(ga), tree_leaves(gb)))
+          and repr(ha.rounds) == repr(hb.rounds))
+    print(f"segmented wire, Server.run on the mixed fleet (5 segments): host s per round "
+          f"{[round(x, 4) for x in round_s]}; round 3 profiled: card busy {busy_us / 1e3:.3f} ms, "
+          f"the port's kernels {ours_us:.1f} us, idle {1 - busy_us / 1e6 / round_s[1]:.4f} of "
+          f"round 2 ({card})", flush=True)
+    return {"launches": got, "round_wall_s": round_s, "device_busy_ms": busy_us / 1e3,
+            "port_kernels_us": ours_us, "idle_share_vs_round2": 1 - busy_us / 1e6 / round_s[1],
+            "dense_decode_max_abs_err": [e for e, _, _ in errs], "eval_acc": accs,
+            "train_loss": [r.train_loss for r in hist.rounds]}
+
+
+def lora_server_leg(card: str, segs, dev="cuda", arch=HEAD) -> dict:
+    """Leg (b): LoRACodec(rank=4, factor_codec=Int8Codec()) on the head map
+    for the smoke fleet's 8 clients, 3 rounds of Server.run: LORA_WIRE bytes
+    a client, by segment LORA_SEGMENT_WIRE, against INT8_WIRE; the frozen
+    base decodes to exact zeros; SEG_LORA_LAUNCHES a round; the loss falls."""
+    from repro_torch.core import Int8Codec, LoRACodec
+    from repro_torch.core.protocol import wire_to_enc
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import tree_leaves
+
+    lora = LoRACodec(rank=4, factor_codec=Int8Codec()).with_segments(segs)
+    n = segs.n_params
+    on_round, stamps, by_round = round_probe()
+    agg_log: list = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, cm, (final, hist) = seg_flower_loop(arch, dev, 3, PROFILE_FLEET, OneCodec(lora),
+                                                on_round=on_round, agg_log=agg_log)
+    got = [launch_tuple(c) for c in by_round]
+    sizes = {r.parameters.num_bytes for _, results, *_ in agg_log for _, r in results}
+    by_seg = tuple(lora.segment_wire_bytes(s) for s in segs)
+    check(f"LoRA wire: {LORA_WIRE:,} B a client (by segment {LORA_SEGMENT_WIRE}) against "
+          f"{INT8_WIRE:,} for Int8, flat and on the map",
+          sizes == {LORA_WIRE} == {lora.wire_bytes(n)} and by_seg == LORA_SEGMENT_WIRE
+          and Int8Codec().wire_bytes(n) == Int8Codec().with_segments(segs).wire_bytes(n)
+          == INT8_WIRE, sizes=sorted(sizes), by_segment=by_seg)
+    base_zero = [bool((lora.decode_segment(wire_to_enc(r.parameters, dev).payloads[0], segs[0])
+                       == 0).all())
+                 for _, results, *_ in agg_log for _, r in results]
+    check("LoRA wire: the frozen base.w decodes to exact zeros from every client's wire",
+          all(base_zero), wires=len(base_zero))
+    check(f"LoRA wire: launches a round {SEG_LORA_LAUNCHES} (Int8 factors and biases; the "
+          "LoRA group densifies client by client, no reduce)",
+          all(g == SEG_LORA_LAUNCHES for g in got) and all(only_these(c) for c in by_round),
+          launches=got)
+    losses = [r.train_loss for r in hist.rounds]
+    check("LoRA wire: the train loss finite and falling", all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], loss=losses)
+    check(f"LoRA wire: global params finite on {dev}",
+          all(t.device.type == torch.device(dev).type and bool(torch.isfinite(t).all())
+              for t in tree_leaves(final)))
+    round_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    print(f"LoRA wire (rank 4, Int8 factors) on the smoke fleet: {LORA_WIRE:,} B a client "
+          f"against {INT8_WIRE:,}; host s per round {[round(x, 4) for x in round_s]}; loss "
+          f"{[round(x, 4) for x in losses]} ({card})", flush=True)
+    return {"launches": got, "round_wall_s": round_s, "train_loss": losses,
+            "eval_acc": [r.eval_acc for r in hist.rounds], "wire_bytes": LORA_WIRE}
+
+
+def segmented_engine_leg(card: str, segs, dev="cuda", arch=HEAD) -> dict:
+    """Leg (c): make_round_step on MIXED_FLEET (C = 10, 8 local steps of
+    batch 32), parallel and sequential, for each of SEG_ENGINE_BANKS: round
+    1, round 2 with SEG_DROP masked (and again with its data NaN: the
+    global and every row bitwise, its own row carried unchanged), round 3,
+    and a fourth round profiled (idle share against round 3)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import tree_flatten_to_vector, tree_leaves
+
+    c, steps, b = len(MIXED_FLEET), 8, 32
+    model = build_model(arch, device=dev)
+    params = model.init(0)
+    n = segs.n_params
+    data = model_data(model, c * steps * b, seed=1)
+    batches = {
+        "x": torch.from_numpy(data.x.reshape(c, steps, b, *data.x.shape[1:])).to(dev),
+        "y": torch.from_numpy(data.y.reshape(c, steps, b)).to(dev),
+    }
+    garbled = {"x": batches["x"].clone(), "y": batches["y"]}
+    garbled["x"][SEG_DROP] = float("nan")
+    weights = torch.from_numpy(np.random.default_rng(2).integers(50, 400, c)
+                               .astype(np.float32)).to(dev)
+    budgets = torch.full((c,), steps, dtype=torch.int32, device=dev)
+    drop = torch.ones(c, device=dev)
+    drop[SEG_DROP] = 0.0
+    phones = tuple(0 if p.startswith(("pixel", "galaxy")) else 1 for p in MIXED_FLEET)
+    banks = {
+        "policy bank": T.MixedCodec.from_policy(T.BandwidthCodecPolicy(),
+                                                [T.PROFILES[p] for p in MIXED_FLEET]),
+        "LoRA + Int8 on the map": T.MixedCodec(
+            codecs=(T.LoRACodec(rank=4, factor_codec=T.Int8Codec()), T.Int8Codec()),
+            assignment=phones).with_segments(segs),
+    }
+    out = {}
+    for bank, codec in banks.items():
+        g_drop = codec.assignment[SEG_DROP]
+        row = codec.assignment[:SEG_DROP].count(g_drop)
+        for mode, want in SEG_ENGINE_BANKS[bank].items():
+            step = T.make_round_step(model.loss_fn, sgd(LOCAL_LR["head"]), T.FedAvg(),
+                                     T.RoundSpec(max_steps=steps, execution_mode=mode, codec=codec),
+                                     trainable_mask=trainable_mask_of(model, params))
+            g, state = params, codec.init_client_state(c, n, device=dev)
+            host_s, counts, losses = [], [], []
+            for rnd in range(3):
+                mask = drop if rnd == 1 else None
+                state_in = state
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                g_new, _, state, met = step(g, (), state, batches, weights, budgets, rnd, mask)
+                torch.cuda.synchronize()
+                host_s.append(time.perf_counter() - t0)
+                counts.append(ops.launch_counts())
+                losses.append(float(met["client_loss_mean"]))
+                if rnd == 1:
+                    g_nan, _, s_nan, _ = step(g, (), state_in, garbled, weights, budgets, rnd, mask)
+                    check(f"segmented engine {bank} {mode}: client {SEG_DROP} masked with NaN "
+                          "data leaves the global and every residual row bitwise, its own "
+                          "row carried unchanged",
+                          all(torch.equal(x, y) for x, y in zip(tree_leaves(g_new),
+                                                                tree_leaves(g_nan)))
+                          and all(torch.equal(x, y) for x, y in zip(tree_leaves(state),
+                                                                    tree_leaves(s_nan)))
+                          and all(torch.equal(x[row], y[row])
+                                  for x, y in zip(tree_leaves(state[g_drop]),
+                                                  tree_leaves(state_in[g_drop]))))
+                g = g_new
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            step(g, (), state, batches, weights, budgets, 3, None)
+            torch.cuda.synchronize()
+            prof.stop()
+            busy_us, _ = device_time(prof)
+            got = [launch_tuple(k) for k in counts]
+            check(f"segmented engine {bank} {mode}: launches a round {want} (quantize, "
+                  "dequantize, dequant_reduce, topk_scatter_reduce, fedavg_reduce), nothing else",
+                  all(x == want for x in got) and all(only_these(k) for k in counts),
+                  launches=got)
+            check(f"segmented engine {bank} {mode}: the loss finite and falling over 3 rounds, "
+                  "the global finite",
+                  all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                  and bool(torch.isfinite(tree_flatten_to_vector(g)).all()), loss=losses)
+            idle = 1.0 - busy_us / 1e6 / host_s[2]
+            print(f"segmented engine {bank} {mode}: host s per round "
+                  f"{[round(x, 4) for x in host_s]}; launches a round {want}; profiled round: "
+                  f"card busy {busy_us / 1e3:.3f} ms, idle {idle:.4f} of round 3 ({card})",
+                  flush=True)
+            out[f"{bank}/{mode}"] = {"host_s": host_s, "loss": losses, "launches": got,
+                                     "device_busy_ms": busy_us / 1e3,
+                                     "idle_share_vs_round3": idle}
+    return out
+
+
+def segmented_population_leg(card: str, segs, dev="cuda", arch=HEAD) -> dict:
+    """Leg (d): population mode with Int8Codec on the head map: Server.run
+    over 10^6 devices, cohort 16, a pool of 8 spilling into a segmented
+    CohortState, 2 rounds (5 quantize and 5 dequantize a dispatched client,
+    5 dequant_reduce a round); the store's leafwise gather and scatter
+    bitwise, an evicted device back as zeros; gather / scatter of the (8, N)
+    block and a round setup at 10^6 devices (C = 16), against the flat
+    store in turns."""
+    from repro_torch.core import (AvailabilityTrace, CohortState, CostAwareFedAvg, CostModel,
+                                  Int8Codec, Population)
+    from repro_torch.kernels import ops
+
+    int8s = Int8Codec().with_segments(segs)
+    n = segs.n_params
+    dispatched, marks = [], []
+    count_round, stamps, by_round = round_probe()
+
+    def on_round():
+        count_round()
+        marks.append(len(dispatched))
+
+    ops.reset_launch_counts()
+    _, _, (final, hist), pool, _ = population_loop(
+        arch, dev, 2, n_devices=POP_N, pool_capacity=8, codec_policy=OneCodec(int8s),
+        store_codec=int8s, dispatched=dispatched, on_round=on_round)
+    fits = [b - a for a, b in zip([0] + marks[:-1], marks)]
+    got = [launch_tuple(c) for c in by_round]
+    reported = [r.participants for r in hist.rounds]
+    want = [(5 * f, 5 * f, 5 if p else 0, 0, 0) for f, p in zip(fits, reported)]
+    store = pool.state_store
+    rows_ok = all(isinstance(r, tuple) and len(r) == len(segs)
+                  and all(x.shape == (s.size,) for x, s in zip(r, segs))
+                  for r in store._rows.values())
+    check("segmented population: launches a round 5 quantize and 5 dequantize a fit, 5 "
+          "dequant_reduce with reporters, nothing else; the pool spilled leafwise rows",
+          got == want and all(only_these(c) for c in by_round) and len(store) > 0 and rows_ok,
+          launches=got, fits=fits, reported=reported, spilled_rows=len(store))
+
+    cohort = POP_ENGINE_COHORT
+    rng = np.random.default_rng(7)
+    seg_store = CohortState(int8s, n, capacity=len(cohort), device=dev)
+    put = {cid: tuple(torch.from_numpy(rng.normal(size=s.size).astype(np.float32)) for s in segs)
+           for cid in cohort}
+    for cid, r in put.items():
+        seg_store.put_row(cid, r)
+    block = seg_store.gather(cohort)
+    ok_gather = all(torch.equal(block[i][j].cpu(), put[cid][i])
+                    for i in range(len(segs)) for j, cid in enumerate(cohort))
+    seg_store.scatter(cohort, block)
+    again = seg_store.gather(cohort)
+    ok_scatter = all(torch.equal(a, b) for a, b in zip(block, again))
+    seg_store.put_row(10**6 - 1, put[cohort[0]])  # one row past capacity: the oldest goes
+    evicted = seg_store.gather([cohort[0]])
+    check("segmented population store: leafwise gather bitwise the rows put in, scatter then "
+          "gather bitwise, an evicted device back as zeros",
+          ok_gather and ok_scatter and seg_store.evictions == 1
+          and all(not bool(e.any()) for e in evicted))
+
+    def host_ms(fn, iters=7):
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    flat_store = CohortState(Int8Codec(), n, capacity=16, device=dev)
+    flat_store.scatter(cohort, torch.randn(len(cohort), n, device=dev))
+    seg_block = tuple(torch.randn(len(cohort), s.size, device=dev) for s in segs)
+    flat_block = torch.randn(len(cohort), n, device=dev)
+    copies = {}
+    for turn in ("flat", "segmented", "segmented", "flat"):
+        st, blk = (flat_store, flat_block) if turn == "flat" else (seg_store, seg_block)
+        copies.setdefault(turn, []).append((host_ms(lambda: st.gather(cohort)),
+                                            host_ms(lambda: st.scatter(cohort, blk))))
+    pop = Population.synthetic(POP_N, seed=0)
+    trace = AvailabilityTrace.from_profiles(pop, seed=0, jitter_std=0.1)
+    cm = CostModel(profiles=[], update_bytes=4 * n, population=pop)
+    strategy = CostAwareFedAvg(expected_steps=20)
+    setup = {}
+    for turn in ("flat", "segmented", "segmented", "flat"):
+        st = CohortState(Int8Codec() if turn == "flat" else int8s, n, capacity=64, device=dev)
+        times = []
+        for rnd in range(1, 11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = strategy.sample_cohort(rnd, pop, POP_COHORT, availability=trace, cost_model=cm,
+                                         deadline_s=30.0)
+            trace.step_jitter_for(rnd, ids)
+            dense = st.gather(ids)
+            st.scatter(ids, dense)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        setup.setdefault(turn, []).append(statistics.median(times))
+    print(f"segmented population: (8, N) gather / scatter ms, segmented "
+          f"{[tuple(round(x, 3) for x in t) for t in copies['segmented']]}, flat "
+          f"{[tuple(round(x, 3) for x in t) for t in copies['flat']]}; round setup at "
+          f"{POP_N:,} devices (C = {POP_COHORT}) segmented "
+          f"{[round(x, 3) for x in setup['segmented']]} ms, flat "
+          f"{[round(x, 3) for x in setup['flat']]} ({card})", flush=True)
+    return {"launches": got, "fits": fits, "reported": reported,
+            "gather_scatter_ms": copies, "round_setup_ms": setup,
+            "train_loss": [r.train_loss for r in hist.rounds]}
+
+
+def segmented_scan_leg(card: str, segs, dev="cuda", arch=HEAD) -> dict:
+    """Leg (e): Server.run_scanned (one CUDA graph) on SCAN_FLEET with phase
+    12's Deadline, churn and shape at R = 8, for each of SEG_SCAN_CASES: the
+    graph bitwise the per-round driver (globals, stacked outputs, History),
+    the warm-up round's launches and R times them in the capture, none in a
+    replay; rounds/s of both drivers (the median of SEG_SCAN_CALLS calls
+    after the first), capture seconds, kernel nodes, the graph's pool."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import tree_leaves
+
+    model = build_model(arch, device=dev)
+    params = model.init(0)
+    n = segs.n_params
+    c, steps, b, R = len(SCAN_FLEET), SCAN_STEPS, SCAN_BATCH, SCAN_ROUNDS
+    profiles = [T.PROFILES[p] for p in SCAN_FLEET]
+    cm = T.CostModel(profiles=profiles, update_bytes=4 * n)
+    tau = 1.25 * cm.client_round_cost(1, steps).t_total_s
+    trace = T.AvailabilityTrace.from_profiles(profiles, seed=0, mobile_dropout=0.3, jitter_std=0.1)
+    data = model_data(model, R * c * steps * b, seed=5)
+    batches = {"x": torch.from_numpy(data.x.reshape(R, c, steps, b, -1)).to(dev),
+               "y": torch.from_numpy(data.y.reshape(R, c, steps, b)).to(dev)}
+    weights = torch.from_numpy(np.random.default_rng(6).integers(50, 400, c)
+                               .astype(np.float32)).to(dev)
+    # one optimizer and mask for every call: run_scanned's memo keys on their ids
+    opt, mask = sgd(LOCAL_LR["head"]), trainable_mask_of(model, params)
+    policy_bank = T.MixedCodec.from_policy(T.BandwidthCodecPolicy(), profiles)
+    lora_bank = T.MixedCodec(
+        codecs=(T.NullCodec(), T.Int8Codec(), T.LoRACodec(rank=4, factor_codec=T.Int8Codec())),
+        assignment=policy_bank.assignment).with_segments(segs)
+    codecs = {"mixed": policy_bank, "Int8 on the map": T.Int8Codec().with_segments(segs),
+              "mixed with LoRA phones, on the map": lora_bank}
+    check("segmented scan: the policy bank on SCAN_FLEET is Null, Int8, TopK by class",
+          [type(policy_bank.codecs[g]).__name__ for g in policy_bank.assignment]
+          == ["NullCodec", "Int8Codec", "Int8Codec", "TopKCodec", "TopKCodec", "TopKCodec"])
+
+    def server():
+        srv = T.Server(strategy=T.FedAvg(), clients=[], cost_model=cm, policy=T.Deadline(tau=tau),
+                       availability=trace, device=dev)
+        srv.logger.quiet = True
+        return srv
+
+    def run(srv, codec, reference=False):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = srv.run_scanned(params, R, loss_fn=model.loss_fn, opt=opt,
+                              spec=T.RoundSpec(max_steps=steps, execution_mode="parallel",
+                                               codec=codec),
+                              batches=batches, weights=weights, trainable_mask=mask,
+                              reference=reference)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, ops.launch_counts()
+
+    def same(a, b) -> bool:
+        (ga, ha, sa), (gb, hb, sb) = a, b
+        return (all(torch.equal(x, y) for x, y in zip(tree_leaves(ga), tree_leaves(gb)))
+                and set(sa) == set(sb)
+                and all(np.array_equal(sa[k], sb[k], equal_nan=True) for k in sa)
+                and repr(ha.rounds) == repr(hb.rounds))
+
+    out = {}
+    for case, per_round in SEG_SCAN_CASES.items():
+        codec = codecs[case]
+        srv = server()
+        first, first_s, counts = run(srv, codec)
+        (multi, _), = srv._scan_fns.values()
+        cap = multi.last_capture
+        graph_s, replay_counts = [], []
+        for _ in range(SEG_SCAN_CALLS):
+            again, secs, k = run(srv, codec)
+            graph_s.append(secs)
+            replay_counts.append(k)
+        ref_srv = server()
+        ref, _, ref_counts = run(ref_srv, codec, reference=True)
+        ref_s = [run(ref_srv, codec, reference=True)[1] for _ in range(SEG_SCAN_CALLS)]
+        warm = launch_tuple(cap["warmup_launches"])
+        captured = launch_tuple(cap["capture_launches"])
+        check(f"segmented scan {case}: the graph, R = {R}, bitwise the per-round driver and a "
+              "replay bitwise the first call, one capture for all the calls",
+              same(first, ref) and same(first, again) and multi.captures == 1
+              and len(srv._scan_fns) == 1)
+        check(f"segmented scan {case}: launches of the warm-up round {per_round}, of the "
+              "capture R x that, of the reference run the same, none in a replay",
+              warm == per_round and captured == tuple(R * x for x in per_round)
+              and launch_tuple(ref_counts) == captured
+              and not any(v for k in replay_counts for v in k.values()),
+              warmup=warm, capture=captured, reference=launch_tuple(ref_counts))
+        losses = [r.train_loss for r in first[1].rounds]
+        check(f"segmented scan {case}: train loss finite and falling",
+              all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], loss=losses)
+        nodes = graph_nodes(cap["graph"])
+        row = {"capture_s": cap["seconds"], "pool_bytes": cap["pool_bytes"],
+               "kernel_nodes": nodes[0], "graph_nodes": nodes[1],
+               "graph_rounds_per_s": R / statistics.median(graph_s), "graph_calls_s": graph_s,
+               "reference_rounds_per_s": R / statistics.median(ref_s), "reference_calls_s": ref_s,
+               "first_call_s": first_s, "launches_capture": captured,
+               "dropped": [r.dropped for r in first[1].rounds], "train_loss": losses}
+        out[case] = row
+        print(f"segmented scan {case}: R = {R}, graph {row['graph_rounds_per_s']:.2f} rounds/s, "
+              f"driver {row['reference_rounds_per_s']:.2f} rounds/s, capture "
+              f"{cap['seconds']:.3f} s, {nodes[0]} kernel nodes of {nodes[1]}, pool "
+              f"{cap['pool_bytes'] / 2**20:.1f} MiB ({card})", flush=True)
+    return out
+
+
+def segmented_wire_phase(card: str, out_dir: Path) -> dict:
+    """Phase 13: the segmented and mixed wire on the head model at full
+    width (N = 1,974,303 in 5 segments), legs (a) Server.run on the mixed
+    fleet, every codec on the map, (b) LoRA on Server.run, (c) the round
+    engine with two MixedCodec banks, (d) population mode with Int8 on the
+    map, (e) the scanned trainer with MixedCodec, Int8 on the map and LoRA
+    phones in the graph."""
+    t0 = time.perf_counter()
+    segs = head_segments()
+    check("segmented wire: the head model's map is 5 segments at "
+          + ", ".join(f"{name} {off:,}" for name, off in HEAD_SEGMENTS),
+          tuple((s.name, s.offset) for s in segs) == HEAD_SEGMENTS
+          and segs.n_params == N_PARAMS)
+    out = {"server": segmented_server_leg(card, segs), "lora": lora_server_leg(card, segs),
+           "engine": segmented_engine_leg(card, segs),
+           "population": segmented_population_leg(card, segs),
+           "scan": segmented_scan_leg(card, segs)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13 (the segmented and mixed wire): {out['seconds']:.2f} s ({card})", flush=True)
+    return out
+
+
 # ---------------- phases 8-9: the transformer serving paths ----------------
 QWEN3_PARAMS = 596_049_920    # qwen3-0.6b, embeddings tied
 # one 8-layer period of jamba-1.5-large-398b without its experts (phase 9),
@@ -4415,6 +5055,9 @@ def aside(r: dict) -> str:
     if "encode_ms" in r:
         out += (f"; Int8Codec().encode of a {r['encode_shape']} {r['encode_ms'] * 1e3:.2f} us, "
                 f"F.pad then the kernel {r['pad_then_kernel_ms'] * 1e3:.2f} us")
+    if "aligned_ms" in r:
+        out += (f"; the aligned kernel on a copy {r['aligned_ms'] * 1e3:.2f} us (bare "
+                f"{r['aligned_launch_ms'] * 1e3:.2f} us)")
     if "ptxas" in r:
         out += f"; ptxas {r['ptxas']}"
     if "ms_4_ctas_per_sm" in r:
@@ -4473,6 +5116,7 @@ def main() -> int:
     REPORT["resnet"] = resnet_phase(card, args.out, rows)
     population = REPORT["population"] = population_phase(card, args.out)
     REPORT["scanned"] = scanned_trainer_phase(card, args.out)
+    REPORT["segmented"] = segmented_wire_phase(card, args.out)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):

@@ -15,7 +15,8 @@ from .scheduler import (
     BufferedAsync, deadline_feasible,
 )
 from .compression import (
-    UpdateCodec, Int8Codec, NullCodec, TopKCodec, BandwidthCodecPolicy,
+    UpdateCodec, Int8Codec, NullCodec, TopKCodec, LoRACodec, MixedCodec,
+    BandwidthCodecPolicy, Segment, SegmentMap, StructuredUpdate,
     CompressedPsum, fp32_collective_bytes, compress_update, decompress_update,
 )
 from .population import CohortState, LazyClientPool, Population

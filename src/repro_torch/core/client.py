@@ -64,9 +64,11 @@ class Client:
         the round."""
 
     def export_state(self):
-        """Round-to-round carry as one flat fp32 row, or None if there is
-        none — what ``LazyClientPool`` spills into a ``CohortState`` when it
-        evicts this client (core/population.py's eviction contract)."""
+        """Round-to-round carry as one flat fp32 row (for a segmented codec,
+        a tuple of per-segment rows, ``()`` for a stateless segment), or
+        None if there is none — what ``LazyClientPool`` spills into a
+        ``CohortState`` when it evicts this client (core/population.py's
+        eviction contract)."""
         return None
 
     def import_state(self, state) -> None:
@@ -119,7 +121,13 @@ class TorchClient(Client):
         return self._residual
 
     def import_state(self, state) -> None:
-        row = torch.as_tensor(state).to(self.device, torch.float32, copy=True)
+        def on_device(r):
+            return torch.as_tensor(r).to(self.device, torch.float32, copy=True)
+
+        if isinstance(state, (tuple, list)):  # segmented: leafwise rows
+            row = tuple(r if isinstance(r, tuple) else on_device(r) for r in state)
+        else:
+            row = on_device(state)
         self._residual = row
         # the rollback point is the rehydrated row: a discard_update right
         # after re-materialization must be a no-op, not a reset to None
@@ -220,7 +228,14 @@ class TorchClient(Client):
             # feedback residual) and ship the actual wire payload
             n_params = tree_size(params)
             residual = self._residual
-            if residual is None or residual.shape != (n_params,):
+            if codec.segments is not None:
+                # the segmented carry is a tuple of per-segment rows; anything
+                # else (a fresh client, a codec switch) starts at zeros
+                # inside compress_update
+                if not isinstance(residual, tuple) or len(residual) != len(codec.segments):
+                    residual = None
+            elif (residual is None or isinstance(residual, tuple)
+                  or residual.shape != (n_params,)):
                 residual = torch.zeros(n_params, dtype=torch.float32, device=self.device)
             enc, self._residual = compress_update(
                 codec, params, global_params, residual=residual

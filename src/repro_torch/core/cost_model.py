@@ -490,12 +490,19 @@ class CostModel:
     def fleet_uplink_bytes(
         codec, n_params: int, n_clients: int
     ) -> list[int] | None:
-        """Per-client uplink charge under a server-level codec: its wire size
-        for every client.  None codec -> None (the cost model's
+        """Per-client uplink charge under a server-level codec: a plain
+        codec's wire size for every client, a ``MixedCodec``'s one size a
+        client (its group's codec).  None codec -> None (the cost model's
         full-precision default applies)."""
         if codec is None:
             return None
-        return [int(codec.wire_bytes(n_params))] * n_clients
+        wb = codec.wire_bytes(n_params)
+        if isinstance(wb, list):
+            assert len(wb) == n_clients, (
+                f"codec charges {len(wb)} clients, round has {n_clients}"
+            )
+            return wb
+        return [int(wb)] * n_clients
 
     # ---- the paper's tau mechanism (§5, Table 3) ----
     def tau_for_profile(self, reference: str, *, epochs: int, steps_per_epoch: int) -> float:

@@ -57,8 +57,14 @@ too.  Keep ``capacity`` above cohort size + in-flight arrivals: evicting a
 client with an undelivered fit spills its optimistically-committed
 residual, so a later scheduler drop can no longer roll it back.
 
-Not ported yet (ROADMAP.md queue 1): segmented codecs' leafwise rows and
-the ``MixedCodec`` guard (item 12), and sharded cohort blocks (item 13).
+A segmented codec's rows are leafwise: a stored row is a tuple of
+per-segment fp32 host tensors (``()`` for a stateless segment), and
+``gather`` returns one (C, seg.size) block a stateful segment, the shape
+``init_client_state`` gives.  A ``MixedCodec`` is refused (``TypeError``):
+its static assignment binds codecs to client slots, which a cohort
+resamples every round.
+
+Not ported yet (ROADMAP.md queue 1): sharded cohort blocks (item 13).
 """
 from __future__ import annotations
 
@@ -70,8 +76,9 @@ import numpy as np
 import torch
 
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import tree_leaves
 
-from .compression import Int8Codec, NullCodec, TopKCodec
+from .compression import MixedCodec
 from .cost_model import AWS_DEVICE_FARM, PROFILES, DeviceProfile, link_time_s
 
 # the packed per-class columns, in DeviceProfile field order
@@ -186,22 +193,22 @@ class CohortState:
     copies the engine's updated rows back into the host LRU spill store.
     ``get_row``/``put_row`` are the single-row surface ``LazyClientPool``
     spills python-path clients through: a stored row is an ``(n_params,)``
-    fp32 CPU tensor with storage of its own.
+    fp32 CPU tensor with storage of its own, or for a segmented codec a
+    tuple of per-segment ones (``()`` for a stateless segment).
     """
 
     def __init__(self, codec, n_params: int, *, capacity: int = 4096,
                  device=None, shardings=None):
+        if isinstance(codec, MixedCodec):
+            raise TypeError(
+                "MixedCodec assigns codecs to static client-axis slots; a "
+                "population cohort is resampled every round, so per-client "
+                "codec choice must come from BandwidthCodecPolicy instead"
+            )
         if shardings is not None:
             raise NotImplementedError(
                 "sharded cohort blocks (the fsdp archs' param-dim split) are "
                 "ROADMAP.md queue 1 item 13"
-            )
-        if getattr(codec, "segments", None) is not None or not (
-            codec is None or isinstance(codec, (NullCodec, Int8Codec, TopKCodec))
-        ):
-            raise NotImplementedError(
-                f"{type(codec).__name__}: segmented rows and codecs other than "
-                "Null/Int8/TopK are ROADMAP.md queue 1 item 12"
             )
         assert capacity >= 1
         self.codec = codec
@@ -211,21 +218,48 @@ class CohortState:
         self.stateless = (
             codec is None or not codec.carries_client_state(self.n_params)
         )
-        self._rows: OrderedDict[int, torch.Tensor] = OrderedDict()
+        self.segments = getattr(codec, "segments", None)
+        if self.segments is not None:
+            assert self.segments.n_params == self.n_params, (
+                f"codec segment map covers {self.segments.n_params} params, "
+                f"store built for {self.n_params}"
+            )
+            self._seg_stateful = tuple(codec.segment_stateful(seg) for seg in self.segments)
+        self._rows: OrderedDict[int, Any] = OrderedDict()
         self.evictions = 0
 
-    def _pack_row(self, row) -> torch.Tensor:
-        """A fresh (n_params,) fp32 host tensor holding ``row`` (a tensor on
-        any device, or array-like).  The copy is synchronous: a row from
-        the card has fully landed when this returns."""
+    @staticmethod
+    def _host_copy(row, n: int) -> torch.Tensor:
+        """A fresh (n,) fp32 host tensor holding ``row`` (a tensor on any
+        device, or array-like).  The copy is synchronous: a row from the
+        card has fully landed when this returns."""
         if not isinstance(row, torch.Tensor):
             row = torch.from_numpy(np.asarray(row, np.float32))
-        out = torch.empty(self.n_params, dtype=torch.float32)
-        out.copy_(row.detach().reshape(self.n_params))
+        out = torch.empty(n, dtype=torch.float32)
+        out.copy_(row.detach().reshape(n))
         return out
 
+    def _pack_row(self, row):
+        """The spill form of a row: one (n_params,) host tensor for a flat
+        codec; for a segmented one a tuple of per-segment host tensors
+        (``()`` for a stateless segment), a flat row being split."""
+        if self.segments is None:
+            return self._host_copy(row, self.n_params)
+        segs = self.segments
+        if isinstance(row, (tuple, list)):
+            assert len(row) == len(segs), (
+                f"segmented row has {len(row)} entries, map has {len(segs)}"
+            )
+            parts = row
+        else:
+            parts = segs.split(self._host_copy(row, self.n_params))
+        return tuple(
+            self._host_copy(r, seg.size) if sf else ()
+            for r, seg, sf in zip(parts, segs, self._seg_stateful)
+        )
+
     # ------------------------------------------------------- row-level API
-    def get_row(self, client_id: int) -> torch.Tensor | None:
+    def get_row(self, client_id: int):
         row = self._rows.get(int(client_id))
         if row is not None:
             self._rows.move_to_end(int(client_id))
@@ -246,24 +280,50 @@ class CohortState:
         would build, so the round engine is oblivious to the store."""
         if self.stateless:
             return ()
-        out = torch.zeros(len(cohort_ids), self.n_params, dtype=torch.float32,
-                          device=self.device)
+        if self.segments is None:
+            out = torch.zeros(len(cohort_ids), self.n_params, dtype=torch.float32,
+                              device=self.device)
+            for i, cid in enumerate(cohort_ids):
+                row = self.get_row(cid)
+                if row is not None:
+                    out[i].copy_(row)
+            return out
+        cols = [
+            torch.zeros(len(cohort_ids), seg.size, dtype=torch.float32, device=self.device)
+            if sf else ()
+            for seg, sf in zip(self.segments, self._seg_stateful)
+        ]
         for i, cid in enumerate(cohort_ids):
             row = self.get_row(cid)
             if row is not None:
-                out[i].copy_(row)
-        return out
+                for col, r in zip(cols, row):
+                    if not isinstance(col, tuple):
+                        col[i].copy_(r)
+        return tuple(cols)
 
     def scatter(self, cohort_ids, state) -> None:
         """Return the engine's updated rows to the spill store (same order
         as the ``gather`` that produced them)."""
         if self.stateless:
             return
-        assert tuple(state.shape) == (len(cohort_ids), self.n_params), (
-            f"scatter shape {tuple(state.shape)} != ({len(cohort_ids)}, {self.n_params})"
+        if self.segments is None:
+            assert tuple(state.shape) == (len(cohort_ids), self.n_params), (
+                f"scatter shape {tuple(state.shape)} != ({len(cohort_ids)}, {self.n_params})"
+            )
+            for cid, row in zip(cohort_ids, state):
+                self.put_row(cid, row)
+            return
+        state = tuple(state)
+        assert len(state) == len(self.segments), (
+            f"segmented scatter has {len(state)} entries, map has {len(self.segments)}"
         )
-        for cid, row in zip(cohort_ids, state):
-            self.put_row(cid, row)
+        for st, seg, sf in zip(state, self.segments, self._seg_stateful):
+            assert not sf or tuple(st.shape) == (len(cohort_ids), seg.size), (
+                f"segment {seg.name!r} scatter shape {tuple(st.shape)} != "
+                f"({len(cohort_ids)}, {seg.size})"
+            )
+        for i, cid in enumerate(cohort_ids):
+            self.put_row(cid, tuple(st[i] if sf else () for st, sf in zip(state, self._seg_stateful)))
 
     # ---------------------------------------------------------- accounting
     def __len__(self) -> int:
@@ -271,7 +331,8 @@ class CohortState:
 
     @property
     def nbytes(self) -> int:
-        return sum(r.numel() * r.element_size() for r in self._rows.values())
+        return sum(r.numel() * r.element_size()
+                   for row in self._rows.values() for r in tree_leaves(row))
 
     def reset(self) -> None:
         self._rows.clear()

@@ -8,8 +8,9 @@ parameter wire formats, byte for byte:
   dtype/shape manifest) — what FitIns downlinks carry.
 - ``CompressedParameters``: a codec-encoded *delta* payload (the serialized
   output of ``codec.encode`` via ``codec.wire_payload``, so e.g. Int8
-  encoder padding never crosses the wire).  ``num_bytes`` equals
-  ``codec.wire_bytes(n_params)`` by construction.
+  encoder padding never crosses the wire; a segmented codec's
+  ``StructuredUpdate`` with segment i's fields named ``s{i}.<key>``).
+  ``num_bytes`` equals ``codec.wire_bytes(n_params)`` by construction.
 
 The wire is host bytes: tensors leave the card through ``numpy.tobytes``
 and arrive on the decoding side's device.  Leaves serialize in JAX leaf
@@ -105,10 +106,23 @@ class CompressedParameters:
         return sum(len(t) for t in self.tensors)
 
 
-def compress_to_wire(codec, enc: dict, n_params: int) -> CompressedParameters:
-    """Serialize a flat ``codec.encode`` payload into the uplink wire object."""
+def compress_to_wire(codec, enc, n_params: int) -> CompressedParameters:
+    """Serialize a codec payload into the uplink wire object: a flat
+    ``codec.encode`` payload dict, or a ``StructuredUpdate`` whose segment
+    i's ``codec.segment_wire_payload`` fields are named ``s{i}.<key>`` (one
+    flat field list, so tensors, aux and ``num_bytes`` are shared)."""
+    from .compression import StructuredUpdate
+
+    if isinstance(enc, StructuredUpdate):
+        items = [
+            (f"s{i}.{key}", value)
+            for i, (seg, p) in enumerate(zip(enc.segments, enc.payloads))
+            for key, value in codec.segment_wire_payload(p, seg).items()
+        ]
+    else:
+        items = list(codec.wire_payload(enc).items())
     tensors, manifest, fields, aux = [], [], [], {}
-    for key, value in codec.wire_payload(enc).items():
+    for key, value in items:
         if isinstance(value, (int, float)):
             aux[key] = value
             continue
@@ -122,16 +136,29 @@ def compress_to_wire(codec, enc: dict, n_params: int) -> CompressedParameters:
     )
 
 
-def wire_to_enc(cp: CompressedParameters, device) -> dict:
+def wire_to_enc(cp: CompressedParameters, device):
     """Rebuild the decodable codec payload on ``device`` from the wire
-    object: aux scalars + deserialized tensors through ``codec.from_wire``.
-    The ONE place the CompressedParameters deserialization lives — both the
-    per-client dense decode and the Strategy's grouped kernel reduce use
-    it."""
+    object: aux scalars + deserialized tensors through ``codec.from_wire``,
+    or for a segmented codec a ``StructuredUpdate`` through
+    ``codec.segment_from_wire`` per segment.  The ONE place the
+    CompressedParameters deserialization lives — both the per-client dense
+    decode and the Strategy's grouped kernel reduce use it."""
+    from .compression import StructuredUpdate
+
     payload = dict(cp.aux)
     for key, buf, (dtype, shape) in zip(cp.fields, cp.tensors, cp.manifest):
         payload[key] = _decode_array(buf, dtype, shape, device)
-    return cp.codec.from_wire(payload)
+    codec = cp.codec
+    segs = getattr(codec, "segments", None)
+    if segs is None:
+        return codec.from_wire(payload)
+    per: list[dict] = [{} for _ in segs]
+    for key, value in payload.items():
+        si, sub = key.split(".", 1)
+        per[int(si[1:])][sub] = value
+    return StructuredUpdate(segs, tuple(
+        codec.segment_from_wire(fields, seg) for fields, seg in zip(per, segs)
+    ))
 
 
 def wire_to_pytree(cp: CompressedParameters, global_params: PyTree) -> PyTree:

@@ -13,7 +13,9 @@ Both execution modes share one contract::
   paper's tau cutoff as a per-client step budget (a client steps while
   ``i < budget`` and freezes its params and optimizer state after).
 - ``client_state``: codec-owned (``codec.init_client_state``): one
-  (C, N) fp32 residual block for Int8/TopK, ``()`` for Null.
+  (C, N) fp32 residual block for Int8/TopK, ``()`` for Null; a tuple with
+  one entry a segment for a segmented codec, and one entry a bank codec
+  for a ``MixedCodec``.
 - ``mask``: the scheduler's (C,) 0/1 participation mask.  A masked client
   still runs its local work but contributes zero weight under the one
   ``safe_weight_sum`` denominator, its delta is pinned to zero before the
@@ -29,7 +31,13 @@ Modes:
   straight off the encoded payload (one ``quantize_int8`` +
   ``dequantize_int8`` + ``dequant_reduce``, or one ``topk_scatter_reduce``).
 - **sequential**: one client at a time; each client's delta goes through
-  ``codec.transmit_tree`` (encode -> decode) into a bf16 accumulator.
+  ``codec.transmit_tree`` (encode -> decode) into a bf16 accumulator.  A
+  ``MixedCodec`` runs one loop a group, in bank order, through the group's
+  codec, with one accumulator across the groups.
+
+Both modes take a ``MixedCodec`` (each group on its codec's own kernels,
+one fleet-wide denominator) and segmented codecs (per-segment rows and
+kernels, core/compression.py).
 
 - **parallel + mesh** (``mesh=`` a ``launch.mesh.ClientMesh``): one
   client per rank, as shard_map's ``per_client`` sees it.  Every rank calls
@@ -63,7 +71,8 @@ run's.
 Not ported yet (ROADMAP.md): model axes inside a client (auto-sharded
 params), ``execution_mode="fsdp"``, the sequential mode on a mesh, the
 param-dim sharding of client state and the scanned trainer on a mesh
-(queue 1 item 13), ``MixedCodec`` and segmented codecs (item 12).
+(queue 1 item 13).  The mesh refuses a ``MixedCodec``, as the JAX
+package's does: one SPMD program runs one wire format on every rank.
 """
 from __future__ import annotations
 
@@ -81,7 +90,7 @@ from repro_torch.utils.pytree import (
     tree_where,
 )
 
-from .compression import CompressedPsum, Int8Codec, NullCodec, TopKCodec
+from .compression import CompressedPsum, MixedCodec, NullCodec, _rows_on
 from .strategy.base import Strategy
 
 PyTree = Any
@@ -171,7 +180,9 @@ def init_collective_residual(global_params: PyTree, n_clients: int) -> PyTree:
 
 
 def _state_metrics(new_client_state) -> dict:
-    """Residual-norm telemetry when the codec carries per-client state."""
+    """Residual-norm telemetry when the codec carries per-client state: the
+    mean over every residual row of every leaf, so a segmented or mixed
+    codec's tuple state counts all its rows (stateless entries none)."""
     rows = [
         torch.linalg.vector_norm(leaf.reshape(leaf.shape[0], -1), dim=-1)
         for leaf in tree_leaves(new_client_state)
@@ -182,17 +193,28 @@ def _state_metrics(new_client_state) -> dict:
     return {"residual_norm_mean": torch.mean(torch.cat(rows))}
 
 
-def _carry_masked_state(mask, old_state, new_state):
+def _carry_masked_state(codec, mask, old_state, new_state):
     """Masked (non-participating) clients' codec state rows carry
     unchanged: a dropped client never transmitted, so its residual must not
-    absorb this round's untransmitted delta."""
+    absorb this round's untransmitted delta.  A ``MixedCodec``'s per-group
+    state takes the fleet mask sliced by each group's rows."""
+
+    def keep_rows(m):
+        def leaf(o, n):
+            return torch.where(m.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o)
+
+        return leaf
+
+    if isinstance(codec, MixedCodec):
+        out = list(new_state)
+        for g, _, idx in codec.groups():
+            if tree_leaves(new_state[g]):  # a stateless group has nothing to carry
+                out[g] = tree_map(keep_rows(mask[_rows_on(idx, mask.device)]),
+                                  old_state[g], new_state[g])
+        return tuple(out)
     if not tree_leaves(new_state):
         return new_state
-
-    def keep_rows(o, n):
-        return torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o)
-
-    return tree_map(keep_rows, old_state, new_state)
+    return tree_map(keep_rows(mask), old_state, new_state)
 
 
 def _masked_metrics(losses, steps, weights, mask):
@@ -256,14 +278,15 @@ def make_round_step(
         raise ValueError(
             f"RoundSpec.execution_mode={spec.execution_mode!r}: expected parallel | sequential"
         )
-    if type(codec) not in (NullCodec, Int8Codec, TopKCodec):
-        raise NotImplementedError(
-            f"{type(codec).__name__}: MixedCodec, LoRACodec and segmented codecs "
-            "are not ported yet (ROADMAP.md queue 1 item 12)"
-        )
     client_update = make_client_update(loss_fn, opt, spec, trainable_mask)
 
     if mesh is not None:
+        if isinstance(codec, MixedCodec):
+            raise NotImplementedError(
+                "MixedCodec is not supported on the mesh shard_map path: an "
+                "SPMD program runs ONE wire format per device; use the "
+                "vmap-parallel or sequential execution mode for mixed fleets"
+            )
         return _make_mesh_round_step(client_update, codec, strategy, spec, mesh, client_axes)
 
     if spec.execution_mode == "parallel":
@@ -286,7 +309,8 @@ def make_round_step(
                 new_params, global_params, w_agg, client_state
             )
             if mask is not None:
-                new_client_state = _carry_masked_state(mask, client_state, new_client_state)
+                new_client_state = _carry_masked_state(codec, mask, client_state,
+                                                       new_client_state)
             new_global, new_state = strategy.server_update(
                 avg_params, global_params, server_state, rnd
             )
@@ -312,40 +336,56 @@ def make_round_step(
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
         loss_max = torch.full((), -torch.inf, dtype=torch.float32, device=dev)
         steps_acc = torch.zeros((), dtype=step_budgets.dtype, device=dev)
-        rows = []
-        for c in range(wf.shape[0]):
-            w = wf[c]
-            state_row = tree_map(lambda x: x[c], client_state)
-            new_params, loss, steps = client_update(
-                global_params, tree_map(lambda x: x[c], batches), step_budgets[c]
-            )
-            delta = tree_sub(new_params, global_params)
-            # codec round-trip: only what survives the wire is accumulated
-            dec_delta, new_row = codec.transmit_tree(delta, state_row)
-            if mf is not None:
-                # masked: zero weight AND a zeroed delta, the residual row
-                # carried unchanged, out of the metrics
-                live = mf[c] > 0
-                w = w * mf[c]
-                dec_delta = tree_map(lambda d: torch.where(live, d, torch.zeros_like(d)), dec_delta)
-                new_row = tree_map(lambda n, o: torch.where(live, n, o), new_row, state_row)
-                loss = torch.where(live, loss, torch.zeros_like(loss))
-                loss_for_max = torch.where(live, loss, torch.full_like(loss, -torch.inf))
-                steps = torch.where(live, steps, torch.zeros_like(steps))
-            else:
-                loss_for_max = loss
-            scale = (w / wsum).to(torch.bfloat16)
-            delta_acc = tree_map(
-                lambda acc, d: acc + scale * d.to(torch.bfloat16), delta_acc, dec_delta
-            )
-            loss_acc = loss_acc + loss * w / wsum
-            loss_max = torch.maximum(loss_max, loss_for_max)
-            steps_acc = steps_acc + steps
-            rows.append(new_row)
-        if tree_leaves(client_state):
-            new_client_state = tree_map(lambda *xs: torch.stack(xs), rows[0], *rows[1:])
+        # (codec, this state, its clients): a MixedCodec loops once a group,
+        # in bank order, with the accumulators carried across the groups
+        if isinstance(codec, MixedCodec):
+            passes = [(codec_g, client_state[g], idx) for g, codec_g, idx in codec.groups()]
         else:
-            new_client_state = client_state
+            passes = [(codec, client_state, range(wf.shape[0]))]
+        new_states = []
+        for codec_g, state_g, idx in passes:
+            rows = []
+            for j, c in enumerate(idx):
+                w = wf[c]
+                state_row = tree_map(lambda x: x[j], state_g)
+                new_params, loss, steps = client_update(
+                    global_params, tree_map(lambda x: x[c], batches), step_budgets[c]
+                )
+                delta = tree_sub(new_params, global_params)
+                # codec round-trip: only what survives the wire is accumulated
+                dec_delta, new_row = codec_g.transmit_tree(delta, state_row)
+                if mf is not None:
+                    # masked: zero weight AND a zeroed delta, the residual row
+                    # carried unchanged, out of the metrics
+                    live = mf[c] > 0
+                    w = w * mf[c]
+                    dec_delta = tree_map(lambda d: torch.where(live, d, torch.zeros_like(d)),
+                                         dec_delta)
+                    new_row = tree_map(lambda n, o: torch.where(live, n, o), new_row, state_row)
+                    loss = torch.where(live, loss, torch.zeros_like(loss))
+                    loss_for_max = torch.where(live, loss, torch.full_like(loss, -torch.inf))
+                    steps = torch.where(live, steps, torch.zeros_like(steps))
+                else:
+                    loss_for_max = loss
+                scale = (w / wsum).to(torch.bfloat16)
+                delta_acc = tree_map(
+                    lambda acc, d: acc + scale * d.to(torch.bfloat16), delta_acc, dec_delta
+                )
+                loss_acc = loss_acc + loss * w / wsum
+                loss_max = torch.maximum(loss_max, loss_for_max)
+                steps_acc = steps_acc + steps
+                rows.append(new_row)
+            if tree_leaves(state_g):
+                new_states.append(tree_map(lambda *xs: torch.stack(xs), rows[0], *rows[1:]))
+            else:
+                new_states.append(state_g)
+        if isinstance(codec, MixedCodec):
+            new_client_state = list(client_state)
+            for (g, _, _), st in zip(codec.groups(), new_states):
+                new_client_state[g] = st
+            new_client_state = tuple(new_client_state)
+        else:
+            new_client_state = new_states[0]
         if mf is not None:
             any_live = torch.any(mf > 0)
             nan = torch.full_like(loss_acc, float("nan"))

@@ -31,8 +31,9 @@ replayed, on the card; the same rounds eagerly on the CPU
 host pull a round, the bitwise reference and the baseline.
 
 Global parameters live on ``device`` (the CUDA card unless the caller asks
-for the CPU).  The ``MixedCodec`` guard of population mode waits for
-ROADMAP.md queue 1 item 12.
+for the CPU).  Population mode refuses a server-level ``MixedCodec``
+(``TypeError``): it binds codecs to static client slots, which a cohort
+resamples every round.
 """
 from __future__ import annotations
 
@@ -155,6 +156,14 @@ class Server:
             # list, no all-client properties dict, no all-client reset loop
             if not self.cohort_size:
                 raise ValueError("population mode needs an explicit cohort_size")
+            from .compression import MixedCodec
+
+            if isinstance(self.codec, MixedCodec):
+                raise TypeError(
+                    "MixedCodec binds codecs to static client slots; a "
+                    "population cohort is resampled every round — use "
+                    "BandwidthCodecPolicy for per-device codec choice"
+                )
             client_ids = None
             reset_all = getattr(self.clients, "reset_state", None)
             if callable(reset_all):  # LazyClientPool: one call, not N

@@ -246,9 +246,11 @@ class Strategy:
         stacked decoded params for every strategy ``_grouped_fit_compatible``
         admits.  A TopK-only pseudo-gradient stays EXACTLY zero at
         untransmitted coordinates, so FedOpt leaves them untouched (no
-        fp-noise Adam drift).
+        fp-noise Adam drift).  Segmented Null/Int8/TopK groups reduce
+        segment by segment on the same kernels; a structure-changing codec
+        (LoRA) densifies per client instead.
         """
-        from ..compression import Int8Codec, NullCodec, TopKCodec
+        from ..compression import Int8Codec, NullCodec, StructuredUpdate, TopKCodec
 
         if not results or not self._grouped_fit_compatible():
             return None
@@ -268,7 +270,8 @@ class Strategy:
                 else {"q", "scale"} if type(cp.codec) is Int8Codec
                 else {"delta"}
             )
-            if not required <= set(enc):
+            payloads = enc.payloads if isinstance(enc, StructuredUpdate) else (enc,)
+            if not all(required <= set(p) for p in payloads):
                 return None
             cps.append(cp)
             encs.append(enc)
@@ -283,7 +286,7 @@ class Strategy:
         wf = weights.to(torch.float32)
         total = torch.zeros(n_params, dtype=torch.float32, device=device)
         for codec, rows in groups.items():
-            total = total + self._flat_wire_sum(
+            total = total + self._group_wire_sum(
                 codec, [encs[i] for i in rows], wf[rows], n_params
             )
         avg_delta = total / safe_weight_sum(wf)
@@ -292,10 +295,22 @@ class Strategy:
         return self.server_update(avg_params, global_params, server_state, rnd)
 
     @staticmethod
-    def _flat_wire_sum(codec, encs: list[dict], w_g: torch.Tensor, n_params: int):
+    def _group_wire_sum(codec, encs: list, w_g: torch.Tensor, n_params: int):
         """One codec group's partial weighted delta sum (N,), on the group's
         own kernel (``normalize=False``: the caller owns the ONE fleet-wide
-        denominator)."""
+        denominator).  A segmented group reduces segment by segment, one
+        launch a segment, and concatenates the partial sums."""
+        if getattr(codec, "segments", None) is not None:
+            return torch.cat([
+                Strategy._flat_wire_sum(codec, [su.payloads[i] for su in encs], w_g, seg.size)
+                for i, seg in enumerate(codec.segments)
+            ])
+        return Strategy._flat_wire_sum(codec, encs, w_g, n_params)
+
+    @staticmethod
+    def _flat_wire_sum(codec, encs: list[dict], w_g: torch.Tensor, n_params: int):
+        """The flat-format partial sum of ONE segment (or of the whole
+        update for an unsegmented codec)."""
         from ..compression import Int8Codec, TopKCodec
 
         if type(codec) is TopKCodec:
@@ -303,6 +318,8 @@ class Strategy:
             # pad rows to the group's k_max with index 0 / value 0: a zero
             # value scatters nothing
             k_max = max(int(i.shape[0]) for i, _ in rows)
+            if k_max == 0:
+                return torch.zeros(n_params, dtype=torch.float32, device=w_g.device)
             idx = torch.stack([
                 torch.nn.functional.pad(i.to(torch.int32), (0, k_max - i.shape[0]))
                 for i, _ in rows

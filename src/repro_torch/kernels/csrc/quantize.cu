@@ -41,6 +41,14 @@
 //   the last block can be partial; the piece that straddles n copies the
 //   values before n and zero-fills the rest, and nothing reads at or past
 //   n.
+// - quantize takes x at any 4-byte start: a model leaf's slice of the flat
+//   update starts where the leaves before it end (head.w1 of the head
+//   model at float 1,638,687, 12 bytes past a 16-byte boundary).  The
+//   entry point picks the kernel by x's alignment: a 16-byte start takes
+//   the kernel above, unchanged; any other takes
+//   quantize_int8_unaligned_kernel, the same ring, reduction and stores
+//   with each lane's piece copied as four 4-byte cp.async (each value at or
+//   past n zero-filled) in place of one 16-byte copy.
 // - dequantize: a warp takes two blocks at a time, 16 codes a lane as four
 //   4-byte loads laid out so that each of the lane's four float4 stores is
 //   part of one coalesced 512 B warp store (16 codes a lane as one 16 B
@@ -86,6 +94,13 @@ __device__ __forceinline__ char4 codes4(float4 v, float scale) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(gmem), "r"(bytes));
+}
+
+// 4-byte asynchronous copy: `bytes` (0 or 4) of gmem, zero-filled otherwise
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                ::"r"(dst), "l"(gmem), "r"(bytes));
 }
 
@@ -135,6 +150,41 @@ quantize_int8_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   for (int blk = first; blk < n_blocks; blk += stride) {
     issue(blk + (kStages - 1) * stride, (slot + kStages - 1) % kStages);
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));  // block blk's copies landed
+    quantize_block(ring[warp][slot][lane], ring[warp][slot][32 + lane], blk, lane, q, scales);
+    slot = slot + 1 == kStages ? 0 : slot + 1;
+  }
+}
+
+// quantize_int8_kernel at any 4-byte start of x: each lane's piece lands
+// in its ring slot as four 4-byte copies, each zero-filled at or past n.
+__global__ void __launch_bounds__(kThreads)
+quantize_int8_unaligned_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                               float* __restrict__ scales, int64_t n, int n_blocks) {
+  __shared__ float4 ring[kWarps][kStages][64];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int stride = gridDim.x * kWarps;
+  const int first = blockIdx.x * kWarps + warp;
+  auto issue = [&](int blk, int slot) {
+    if (blk < n_blocks) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t i = static_cast<int64_t>(blk) * kBlock + 128 * h + 4 * lane;
+        float* dst = reinterpret_cast<float*>(&ring[warp][slot][32 * h + lane]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = i + e < n;
+          cp_async4(dst + e, in ? x + i + e : x, in ? 4 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) issue(first + k * stride, k);
+  int slot = 0;
+  for (int blk = first; blk < n_blocks; blk += stride) {
+    issue(blk + (kStages - 1) * stride, (slot + kStages - 1) % kStages);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
     quantize_block(ring[warp][slot][lane], ring[warp][slot][32 + lane], blk, lane, q, scales);
     slot = slot + 1 == kStages ? 0 : slot + 1;
   }
@@ -228,15 +278,24 @@ int64_t grid_for(int64_t warp_steps, int64_t resident) {
 
 // x: (n,) fp32 -> q: (n_blocks * 256,) int8, scales: (n_blocks,) fp32, with
 // n_blocks = ceil(n / 256): the codes and scales of x padded with zeros,
-// the pad's codes written too.  x and q are 16-byte aligned (the wrapper
-// checks).
+// the pad's codes written too.  x is 4-byte aligned, q 16-byte aligned
+// (the wrapper checks); x's alignment picks the kernel.
 extern "C" int repro_quantize_int8(const float* x, int8_t* q, float* scales, int64_t n,
                                    int64_t n_blocks, cudaStream_t stream) {
   if (n < 0 || n_blocks != (n + kBlock - 1) / kBlock || n_blocks >= (int64_t{1} << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks > 0) {
-    static int64_t resident[64] = {};
     cudaError_t err;
+    if (reinterpret_cast<uintptr_t>(x) % 16) {
+      static int64_t resident_u[64] = {};
+      const int64_t cap_u = resident_ctas(quantize_int8_unaligned_kernel, resident_u, &err);
+      if (cap_u < 0) return static_cast<int>(err);
+      quantize_int8_unaligned_kernel<<<static_cast<unsigned>(grid_for(n_blocks, cap_u)),
+                                       kThreads, 0, stream>>>(x, q, scales, n,
+                                                              static_cast<int>(n_blocks));
+      return static_cast<int>(cudaGetLastError());
+    }
+    static int64_t resident[64] = {};
     const int64_t cap = resident_ctas(quantize_int8_kernel, resident, &err);
     if (cap < 0) return static_cast<int>(err);
     quantize_int8_kernel<<<static_cast<unsigned>(grid_for(n_blocks, cap)), kThreads, 0,

@@ -3,8 +3,9 @@
 The twin of ``repro.kernels.quantize``: symmetric per-256-block scaling,
 scale = absmax/127 (0 -> 1), q = clip(round_half_even(x/scale), +-127).
 These wrappers take CUDA tensors only; ``ops`` routes CPU tensors to
-``ref``.  ``quantize_int8`` takes any N and quantizes x padded with zeros
-to Np = a multiple of 256 inside its one launch (the codec's pad);
+``ref``.  ``quantize_int8`` takes any N at any 4-byte start and quantizes
+x padded with zeros to Np = a multiple of 256 inside its one launch (the
+codec's pad);
 ``dequantize_int8`` takes Np % 256 == 0 (the JAX dispatch's extra
 ``N % 1024`` gate, ``repro/kernels/ops.py:185``, is a TPU tiling quirk).
 """
@@ -18,10 +19,11 @@ BLOCK = 256
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (N,) fp32 CUDA, any N -> (q int8 (Np,), scales fp32 (Np/256,)),
-    Np = N rounded up to a multiple of 256: the codes and scales of x
-    padded with zeros (the pad's codes are 0)."""
-    check_tensor(x, "x", device=x.device, dtypes=(torch.float32,), ndim=1, align=16)
+    """x: (N,) fp32 CUDA, any N, any 4-byte start (a segment's slice of
+    a flat update) -> (q int8 (Np,), scales fp32 (Np/256,)), Np = N
+    rounded up to a multiple of 256: the codes and scales of x padded with
+    zeros (the pad's codes are 0)."""
+    check_tensor(x, "x", device=x.device, dtypes=(torch.float32,), ndim=1, align=4)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_int8 takes a CUDA tensor, got one on {x.device}")
     n = x.shape[0]

@@ -34,6 +34,16 @@ def tree_leaves(tree: PyTree) -> list:
     return [tree]
 
 
+def tree_leaves_with_path(tree: PyTree, path: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in ``tree_leaves`` order, each path spelled as
+    ``jax.tree_util.keystr`` spells it: ``['head']['w1']``, ``[0]``."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in tree_leaves_with_path(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, sub in enumerate(tree) for pl in tree_leaves_with_path(sub, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
 def tree_unflatten(like: PyTree, leaves) -> PyTree:
     """Rebuild ``like``'s structure from leaves in ``tree_leaves`` order."""
     it = iter(leaves)

@@ -1044,3 +1044,91 @@ def test_cuda_scanned_graph_pool_is_flat_in_rounds(cuda):
         pool[rounds] = multi.last_capture["pool_bytes"]
     assert pool[8] > 0
     assert pool[32] <= 1.05 * pool[8] + (32 - 8) * 10 * 512, pool
+
+
+# ---------------- the segmented wire: kernels at per-segment shapes ----------------
+HEAD_SEGMENTS = ((1_638_687, 327_680), (1_966_367, 7_936))  # head.w1, head.w2 (offset, size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,size", HEAD_SEGMENTS, ids=["head.w1", "head.w2"])
+def test_cuda_quantize_at_an_unaligned_segment_start(cuda, offset, size):
+    """A head-model leaf's slice of the flat delta starts 12 bytes past a
+    16-byte boundary: the card's quantize takes it in one launch, bitwise
+    its plain version on the padded slice and the kernel on an aligned
+    copy of the slice."""
+    rng = np.random.default_rng(offset)
+    flat = _t(_delta(rng, (1_974_303,))).to(cuda)
+    x = flat[offset:offset + size]
+    assert x.data_ptr() % 16 == 12
+    before = ops.launch_counts()["quantize_int8"]
+    q, s = ops.quantize_int8(x)
+    assert ops.launch_counts()["quantize_int8"] == before + 1
+    pad = (-size) % 256
+    q_ref, s_ref = ref.quantize_int8(torch.nn.functional.pad(x.cpu(), (0, pad)))
+    assert torch.equal(q.cpu(), q_ref) and torch.equal(s.cpu(), s_ref)
+    q_al, s_al = ops.quantize_int8(x.clone())
+    assert torch.equal(q, q_al) and torch.equal(s, s_al)
+
+
+def _head_map_and_deltas(cuda, c=4, seed=0):
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import SegmentMap
+    from repro_torch.models import build_model
+
+    segs = SegmentMap.from_tree(build_model(get_config("mobilenet-head-office31"),
+                                            device="cpu").init(0))
+    rng = np.random.default_rng(seed)
+    return segs, _t(_delta(rng, (c, segs.n_params))).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec_name", ["Int8Codec", "TopKCodec"])
+def test_cuda_segmented_aggregate_batch_is_the_per_segment_composition(cuda, codec_name):
+    """The head model's 5-segment map: a segmented aggregate_batch on the
+    card is bitwise the flat codec run on each segment's column block
+    alone, and launches each reduce once a segment."""
+    from repro_torch.core import Int8Codec, TopKCodec
+
+    segs, deltas = _head_map_and_deltas(cuda)
+    flat = Int8Codec() if codec_name == "Int8Codec" else TopKCodec(frac=0.01)
+    seg = flat.with_segments(segs)
+    w = torch.tensor([1.0, 3.0, 2.0, 5.0], device=cuda)
+    reduce = "dequant_reduce" if codec_name == "Int8Codec" else "topk_scatter_reduce"
+    before = ops.launch_counts()[reduce]
+    out, new = seg.aggregate_batch(deltas, w, seg.init_client_state(4, segs.n_params, device=cuda))
+    assert ops.launch_counts()[reduce] == before + len(segs)
+    for s, part, row in zip(segs, out.split([s.size for s in segs]), new):
+        block = deltas[:, s.offset:s.offset + s.size].contiguous()
+        p_ref, r_ref = flat.aggregate_batch(block, w, flat.init_client_state(4, s.size, device=cuda))
+        assert torch.equal(part, p_ref) and torch.equal(row, r_ref), s.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented", [False, True], ids=["mixed", "mixed-segmented"])
+def test_cuda_scanned_graph_with_a_mixed_codec_is_the_per_round_driver(cuda, segmented):
+    """run_scanned with MixedCodec.from_policy on the scan fleet (Null,
+    Int8, TopK groups), flat or carrying the model's segment map: the one
+    CUDA graph is bitwise the per-round driver, and the capture launched
+    R times the warm-up round's kernels."""
+    from repro_torch.core import BandwidthCodecPolicy, MixedCodec, PROFILES, RoundSpec, SegmentMap
+    from repro_torch.optim import sgd
+
+    model, params, server, batches = _scan_setup(cuda, 6)
+    codec = MixedCodec.from_policy(BandwidthCodecPolicy(), [PROFILES[p] for p in SCAN_FLEET])
+    if segmented:
+        codec = codec.with_segments(SegmentMap.from_tree(params))
+    kw = dict(loss_fn=model.loss_fn, opt=sgd(0.1), batches=batches,
+              spec=RoundSpec(max_steps=2, execution_mode="parallel", codec=codec))
+    srv = server()
+    g, hist, st = srv.run_scanned(params, 6, **kw)
+    (multi, _), = srv._scan_fns.values()
+    cap = multi.last_capture
+    assert multi.captures == 1
+    assert cap["capture_launches"] == {k: 6 * v for k, v in cap["warmup_launches"].items()}
+    g_ref, hist_ref, st_ref = server().run_scanned(params, 6, reference=True, **kw)
+    for a, b in zip(tree_leaves(g), tree_leaves(g_ref)):
+        assert a.is_cuda and torch.equal(a, b)
+    for k in st:
+        np.testing.assert_array_equal(st[k], st_ref[k], err_msg=k)
+    assert repr(hist.rounds) == repr(hist_ref.rounds)

@@ -291,8 +291,11 @@ def test_cohort_state_stateless_and_unported():
     class Foreign(T.UpdateCodec):
         pass
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.CohortState(Foreign(), 8, device="cpu")
+    # a foreign codec is stateful through the base flat state, as in JAX's
+    # CohortState; a MixedCodec is refused
+    assert not T.CohortState(Foreign(), 8, device="cpu").stateless
+    with pytest.raises(TypeError, match="MixedCodec"):
+        T.CohortState(T.MixedCodec(codecs=(T.Int8Codec(),), assignment=(0,)), 8, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         T.CohortState(T.Int8Codec(), 8, device="cpu", shardings=("fsdp",))
 

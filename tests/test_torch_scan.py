@@ -43,6 +43,7 @@ CASES = {  # name -> (codec class, codec kwargs, cohort size)
     "null": ("NullCodec", {}, None),
     "int8": ("Int8Codec", {}, None),
     "topk-cohort": ("TopKCodec", {"frac": 0.05}, 4),
+    "mixed": ("MixedCodec", {}, None),  # the fleet's codecs from BandwidthCodecPolicy
 }
 SHAPE_KEYS = ("participation_mask", "dispatch_mask", "round_wall_s", "participants", "dispatched")
 
@@ -89,7 +90,12 @@ def _server(pkg, *, cohort_size=None, strategy=None, **kw):
 
 def _spec(pkg, name, mode="parallel"):
     codec, kw, _ = CASES[name]
-    return pkg.RoundSpec(max_steps=STEPS, execution_mode=mode, codec=getattr(pkg, codec)(**kw))
+    if codec == "MixedCodec":
+        codec = pkg.MixedCodec.from_policy(pkg.BandwidthCodecPolicy(),
+                                           [pkg.PROFILES[n] for n in FLEET])
+    else:
+        codec = getattr(pkg, codec)(**kw)
+    return pkg.RoundSpec(max_steps=STEPS, execution_mode=mode, codec=codec)
 
 
 @functools.cache
@@ -397,7 +403,19 @@ def test_multi_round_step_routes_by_device_and_rejects_unported_paths():
         build(spec, 2, mesh=flat)
     with pytest.raises(NotImplementedError, match="item 13"):
         build(spec, 2, param_shardings={})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build(T.RoundSpec(max_steps=1, execution_mode="parallel",
-                          codec=J.MixedCodec(codecs=(J.NullCodec(),), assignment=(0,))), 2)
+    # a MixedCodec builds, and its scanned run is the per-round driver's
+    # bitwise and JAX's: masks and costs equal, the globals within the
+    # rounding-edge allowance, the losses within 1e-5 (an Int8 code or TopK
+    # selection that flips in one round moves the next rounds' losses)
+    assert isinstance(build(_spec(T, "mixed"), 2), T.MultiRoundStep)
+    test_scanned_matches_reference_driver_bitwise("mixed", "parallel", "FedAvg")
+    gj, hj, sj = _jax_run("mixed")
+    gt, ht, st = _torch_run("mixed")
+    for k in SHAPE_KEYS + ("steps_total",):
+        np.testing.assert_array_equal(st[k], np.asarray(sj[k]), err_msg=k)
+    _assert_history_costs_equal(hj, ht, loss_atol=1e-5)
+    fj, ft = _flat(gj, True), _flat(gt, False)
+    d = np.abs(fj - ft)
+    step = np.abs(ft - _flat(_models()[1], True)).max() / 127
+    assert (d > 1e-6).mean() <= MAX_FLIP_SHARE and d.max() <= 1e-6 + step
     assert multi.captures == 0  # the CPU never captures
