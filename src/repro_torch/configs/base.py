@@ -197,13 +197,17 @@ def get_config(name: str) -> ArchConfig:
     return _REGISTRY[name]
 
 
-# the port carries the configs of the models it runs (Jamba's without its
-# experts until MoE is ported; ROADMAP.md queue 1 item 15 adds the rest)
+# the port carries the configs of the models it runs (ROADMAP.md queue 1
+# item 15 adds the rest: MLA, xLSTM, the frontends)
 _ARCH_MODULES = (
+    "deepseek_moe_16b",
+    "granite_8b",
     "jamba_1_5_large_398b",
+    "mixtral_8x7b",
     "mobilenet_head_office31",
     "qwen3_0_6b",
     "resnet18_cifar10",
+    "stablelm_3b",
 )
 
 _loaded = False

@@ -10,9 +10,9 @@ methods are plain functions on nested dicts of tensors:
 
 The port runs the ``head`` and ``cnn`` (ResNet-18) families and the
 serving path (prefill + decode) of the transformers whose layers it has:
-attention, mamba and the gated MLP, so the dense family and the hybrid one
-without experts.  What is not ported raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+attention, mamba, the gated MLP and the MoE feed-forward, so the dense,
+MoE and hybrid families.  What is not ported raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -30,7 +30,6 @@ PyTree = Any
 # the families none of whose models the port can run yet, and what they need
 _NOT_PORTED = {
     "ssm": "the mLSTM/sLSTM mixers (xLSTM) are ROADMAP.md queue 1 item 15",
-    "moe": "the MoE feed-forward is ROADMAP.md queue 1 item 15",
     "vlm": "the frontend tokens are ROADMAP.md queue 1 item 15",
     "audio": "the frontend tokens are ROADMAP.md queue 1 item 15",
 }
@@ -84,9 +83,9 @@ def build_model(arch, *, device=None) -> Model:
             loss_fn=lambda p, b: resnet.loss_fn(cfg, p, b),
         )
 
-    if arch_cfg.family in ("dense", "hybrid"):
+    if arch_cfg.family in ("dense", "moe", "hybrid"):
         # what a transformer needs is read from its layers: check_ported
-        # raises for a layer kind, MoE, MLA or frontend not ported yet
+        # raises for a layer kind, MLA or frontend not ported yet
         from . import transformer as tfm
 
         cfg = arch_cfg

@@ -1,6 +1,7 @@
 """Decoder-only stack, the twin of ``repro.models.transformer`` for the
-dense and hybrid families: pre-norm mixer (attention or mamba, by the
-layer plan) + pre-norm gated MLP blocks.
+dense, MoE and hybrid families: pre-norm mixer (attention or mamba, by the
+layer plan) + pre-norm feed-forward (the gated MLP, or the MoE layer where
+the plan marks it) blocks.
 
 Params and caches keep the JAX trees exactly, so one ``params_from_numpy``
 carries either across: ``blocks`` (and a cache's ``layers``) is a tuple of
@@ -12,9 +13,14 @@ and indexes views of them: nothing is unstacked or copied.  A cache's
 ``pos`` is a host-side int32 scalar, so a decode step reads it once and no
 layer waits on the card.
 
-Not ported yet (each raises ``NotImplementedError``): MLA, MoE,
-mLSTM/sLSTM, frontend tokens, and training (``loss_fn`` /
-``cross_entropy``); all are ROADMAP.md queue 1 item 15.
+The MoE layers' aux terms (``AUX_KEYS``) are summed over the stack as
+JAX's ``_run_stack`` sums them: ``forward`` returns them beside the
+logits; prefill and decode drop them, as JAX's do.  The capacity factor
+is JAX's: 1.25 in ``block_forward`` and prefill, 2.0 in ``block_decode``.
+
+Not ported yet (each raises ``NotImplementedError``): MLA, mLSTM/sLSTM,
+frontend tokens, and training (``loss_fn`` / ``cross_entropy``); all are
+ROADMAP.md queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -27,12 +33,14 @@ from repro_torch.utils.pytree import tree_map
 
 from .layers import attention as attn_lib
 from .layers import mamba as mamba_lib
+from .layers import moe as moe_lib
 from .layers.embeddings import embed, init_embedding, normal
 from .layers.mlp import init_mlp, mlp_forward
 from .layers.norms import apply_norm, init_norm
 
 PyTree = Any
 _ITEM = "ROADMAP.md queue 1 item 15"
+AUX_KEYS = ("moe_aux", "moe_z", "moe_drop_frac")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -43,8 +51,6 @@ def check_ported(cfg: ArchConfig) -> None:
     """Raise for what the port's transformer does not run yet."""
     if cfg.mla is not None:
         raise NotImplementedError(f"{cfg.name}: MLA attention is not ported yet ({_ITEM})")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE feed-forward is not ported yet ({_ITEM})")
     if cfg.frontend_tokens:
         raise NotImplementedError(f"{cfg.name}: frontend tokens are not ported yet ({_ITEM})")
     for spec in cfg.layer_plan():
@@ -69,22 +75,30 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, *, lead=(
     }
     if cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg, cfg.d_model, lead=lead, device=device)
-        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, lead=lead, device=device)
+        p["ffn"] = (moe_lib.init_moe(gen, cfg, dt, lead=lead, device=device) if spec.moe
+                    else init_mlp(gen, cfg.d_model, cfg.d_ff, dt, lead=lead, device=device))
     return p
 
 
-def _ffn(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    if cfg.d_ff > 0:
-        x = x + mlp_forward(params["ffn"], apply_norm(cfg, params["norm2"], x), cfg.act)
-    return x
+def _ffn(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor,
+         capacity_factor: float) -> tuple[torch.Tensor, dict | None]:
+    """x plus the block's feed-forward; the MoE layer's aux dict (None
+    for the MLP or a block without one)."""
+    if cfg.d_ff == 0:
+        return x, None
+    h = apply_norm(cfg, params["norm2"], x)
+    if spec.moe:
+        out, aux = moe_lib.moe_forward(cfg, params["ffn"], h, capacity_factor=capacity_factor)
+        return x + out, aux
+    return x + mlp_forward(params["ffn"], h, cfg.act), None
 
 
 def block_forward(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor, *,
-                  window=None, cache: dict | None = None, ring: bool = False) -> torch.Tensor:
-    """Full-sequence pass of one block (JAX also returns the MoE aux dict,
-    which is zero without experts).  Given this layer's ``cache`` (prefill),
-    what its mixer leaves for decode is written into it: the K and V its
-    attention projected, or the mamba layer's final (conv, ssm) state."""
+                  window=None, cache: dict | None = None, ring: bool = False):
+    """Full-sequence pass of one block -> (x, the MoE aux dict or None).
+    Given this layer's ``cache`` (prefill), what its mixer leaves for
+    decode is written into it: the K and V its attention projected, or the
+    mamba layer's final (conv, ssm) state."""
     h = apply_norm(cfg, params["norm1"], x)
     if spec.kind == "attn":
         out, k, v = attn_lib.attention_forward(cfg, params["mixer"], h, window=window)
@@ -95,7 +109,7 @@ def block_forward(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tenso
         if cache is not None:
             cache["conv"].copy_(state["conv"])
             cache["ssm"].copy_(state["ssm"])
-    return _ffn(cfg, params, x + out)
+    return _ffn(cfg, spec, params, x + out, 1.25)
 
 
 def block_decode(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor,
@@ -109,7 +123,7 @@ def block_decode(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor
                                                valid=valid)
     else:
         out, cache = mamba_lib.mamba_decode(cfg, params["mixer"], h, cache)
-    return _ffn(cfg, params, x + out), cache
+    return _ffn(cfg, spec, params, x + out, 2.0)[0], cache
 
 
 # ============================ full model ============================
@@ -172,10 +186,15 @@ def _embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     return x.to(_dtype(cfg))
 
 
-def _run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, window=None) -> torch.Tensor:
+def _run_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *, window=None):
+    """All blocks -> (x, the aux terms summed over the MoE layers; fp32
+    zeros where the stack has none)."""
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
     for spec, p in _layers(cfg, params["blocks"]):
-        x = block_forward(cfg, spec, p, x, window=window)
-    return x
+        x, a = block_forward(cfg, spec, p, x, window=window)
+        if a is not None:
+            aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+    return x, aux
 
 
 def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -184,11 +203,11 @@ def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, params["lm_head"]["w"])
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, *, window=None) -> torch.Tensor:
-    """Full-sequence logits (B, S, V).  JAX returns (logits, aux); aux is the
-    MoE load-balance terms, which a dense stack does not have."""
-    x = _run_stack(cfg, params, _embed_inputs(cfg, params, batch), window=window)
-    return _logits(cfg, params, apply_norm(cfg, params["final_norm"], x))
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, window=None):
+    """Full-sequence (logits (B, S, V), aux): aux is ``AUX_KEYS``' MoE terms
+    summed over the layers, as JAX's."""
+    x, aux = _run_stack(cfg, params, _embed_inputs(cfg, params, batch), window=window)
+    return _logits(cfg, params, apply_norm(cfg, params["final_norm"], x)), aux
 
 
 def cross_entropy(*args, **kwargs):
@@ -263,7 +282,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *, context_len: int):
     cache = init_cache(cfg, b, context_len, device=x.device)
     for (spec, p), c in zip(_layers(cfg, params["blocks"]),
                             _layer_caches(cfg, cache["layers"]), strict=True):
-        x = block_forward(cfg, spec, p, x, cache=c, ring=ring)
+        x, _ = block_forward(cfg, spec, p, x, cache=c, ring=ring)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = _logits(cfg, params, x[:, -1:])  # next-token logits only
     return logits, {"layers": cache["layers"], "pos": torch.tensor(s, dtype=torch.int32)}

@@ -632,6 +632,9 @@ def _attn_inputs(cuda, seed, shapes, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,kv,d,dtype,window,q_offset,causal", [
     (8, 1024, 1024, 16, 8, 128, torch.bfloat16, None, 0, True),   # qwen3-0.6b's prefill
+    (8, 1024, 1024, 32, 32, 80, torch.bfloat16, None, 0, True),   # stablelm-3b's: D 80 -> 128
+    (8, 1024, 1024, 16, 16, 128, torch.bfloat16, None, 0, True),  # deepseek-moe-16b's (MHA)
+    (8, 1024, 1024, 32, 8, 128, torch.bfloat16, None, 0, True),   # granite-8b's, mixtral's
     (2, 256, 256, 4, 2, 32, torch.float32, None, 0, True),
     (2, 256, 256, 4, 2, 64, torch.float32, None, 0, True),
     (2, 256, 256, 4, 2, 128, torch.float32, None, 0, True),
@@ -671,6 +674,9 @@ def test_cuda_flash_attention(cuda, b, sq, skv, h, kv, d, dtype, window, q_offse
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,d,dtype,mask", [
     (8, 2048, 16, 8, 128, torch.bfloat16, "linear"),         # qwen3-0.6b's decode
+    (8, 2048, 32, 32, 80, torch.bfloat16, "linear"),         # stablelm-3b's (D = 80)
+    (8, 2048, 16, 16, 128, torch.bfloat16, "linear"),        # deepseek-moe-16b's (MHA)
+    (8, 2048, 32, 8, 128, torch.bfloat16, "linear"),         # granite-8b's, mixtral's
     (8, 2048, 64, 8, 128, torch.bfloat16, "linear"),         # the Jamba slice's (G = 8)
     (8, 2048, 16, 8, 128, torch.bfloat16, "first"),          # position 0: most splits empty
     (8, 1, 16, 8, 128, torch.bfloat16, "linear"),            # S = 1
@@ -848,6 +854,58 @@ def test_cuda_hybrid_stack_matches_the_cpu(cuda):
             assert ops.launch_counts()["decode_attention"] == cfg.n_layers - n_mamba
             want, cache = cpu.decode_step(params, {"tokens": tok}, cache, 128)
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x7b"])
+def test_cuda_moe_forward_matches_the_cpu_without_a_host_sync(cuda, arch):
+    """The MoE layer at width 256 with the config's experts (64 top-6 + 2
+    shared; 8 top-2), bf16, on the card under
+    ``set_sync_debug_mode("error")`` (a host sync raises) against the
+    plain path on the CPU on identical inputs, at a prefill (S = 64, cf
+    1.25) and a decode step (S = 1, cf 2.0): the chosen experts equal
+    wherever the router-logit gap exceeds 1e-3 (the fp32 logits differ
+    only in summation order), the output within chip_smoke.py's a-priori
+    bound 2**-8 * sqrt(roundings) relative L2 over the tokens routed alike
+    (the gated FFN 8, the scale's cast and product 2, k fold steps, the
+    shared MLP and its add 9)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import moe
+    from repro_torch.utils.pytree import tree_map
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full.reduced(d_model=256), d_ff=512, dtype="bfloat16",
+                              moe=dataclasses.replace(full.moe, d_expert=512 if
+                                                      full.moe.d_expert else 0))
+    mc, d = cfg.moe, cfg.d_model
+    bound = 2 ** -8 * (8 + 2 + mc.top_k + (9 if mc.n_shared_experts else 0)) ** 0.5
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe(gen, cfg, torch.bfloat16)
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    for s, cf in ((64, 1.25), (1, 2.0)):
+        x = torch.randn((4, s, d), generator=gen).to(torch.bfloat16)
+        xc = x.to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, aux = moe.moe_forward(cfg, card_params, xc, capacity_factor=cf)
+            _, got_i, _ = moe.router_topk(cfg, card_params, xc.reshape(-1, d))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want, want_aux = moe.moe_forward(cfg, params, x, capacity_factor=cf)
+        _, want_i, _ = moe.router_topk(cfg, params, x.reshape(-1, d))
+        top = torch.sort(x.reshape(-1, d).float() @ params["router"], -1, descending=True).values
+        gap = top[:, mc.top_k - 1] - top[:, mc.top_k]
+        differ = (torch.sort(got_i.cpu(), -1).values != torch.sort(want_i, -1).values).any(-1)
+        assert not bool((differ & (gap > 1e-3)).any()), f"cf {cf}"
+        alike = ~differ.view(4, s)
+        a, b = got.cpu().float()[alike], want.float()[alike]
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        assert float((a - b).norm() / b.norm()) <= bound, f"cf {cf}"
+        if not bool(differ.any()):
+            assert float(aux["moe_drop_frac"]) == float(want_aux["moe_drop_frac"])
 
 
 # ---------------- the ResNet's convs (the TF32 guard) ----------------

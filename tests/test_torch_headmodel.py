@@ -100,7 +100,7 @@ def test_build_model_runs_on_the_card_unless_asked():
             build_model("mobilenet-head-office31")
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # a family not ported yet
         build_model(dataclasses.replace(
-            get_config("mobilenet-head-office31"), name="moe", family="moe"
+            get_config("mobilenet-head-office31"), name="ssm", family="ssm"
         ), device="cpu")
 
 

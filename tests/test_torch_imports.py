@@ -3,13 +3,14 @@ ablation scripts and the card tests' helpers import neither ``jax`` nor
 the JAX package ``repro``, so the port runs where JAX is not installed.
 An AST scan checks every import statement; a fresh interpreter imports
 every kernel module, the mesh launcher, the transformer, the mamba mixer,
-the serving driver, the strategies, the paper-table twin, the ResNet,
-the heterogeneous-cutoff example, population mode and the quickstart,
-runs a CPU fit (one with FedProx's term), a cost-aware cohort draw over a
-packed fleet with a CPU cohort store, a reduced ResNet's loss and a few
-reduced CPU decode steps of the dense and the hybrid stack, and checks
-that JAX never loaded; another imports the paper-table twin and the
-examples with every CUDA query refused."""
+the MoE layer, the serving driver, the strategies, the paper-table twin,
+the ResNet, the heterogeneous-cutoff example, population mode and the
+quickstart, runs a CPU fit (one with FedProx's term), a cost-aware cohort
+draw over a packed fleet with a CPU cohort store, a reduced ResNet's loss
+and a few reduced CPU decode steps of the dense, the hybrid and the MoE
+stack (deepseek-moe-16b), and checks that JAX never loaded; another
+imports the paper-table twin and the examples with every CUDA query
+refused."""
 import ast
 import os
 import subprocess
@@ -60,6 +61,7 @@ import repro_torch.kernels, repro_torch.launch
 import repro_torch.kernels.flash_attention, repro_torch.kernels.decode_attention
 import repro_torch.models.transformer, repro_torch.launch.serve
 import repro_torch.kernels.selective_scan, repro_torch.models.layers.mamba
+import repro_torch.models.layers.moe
 from repro_torch.core import CompressedPsum, init_collective_residual
 from repro_torch.core import FedAdam, FedBuffStrategy, FedProx, FedTau, STRATEGIES
 import repro_torch.benchmarks.paper_tables
@@ -100,6 +102,10 @@ import dataclasses
 hy = build_model(dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(), moe=None),
                  device="cpu")
 toks = generate(hy, hy.init(0), torch.zeros((1, 8), dtype=torch.int32), n_tokens=3,
+                context_len=16)
+assert toks.shape == (1, 3)
+moe = build_model(get_config("deepseek-moe-16b").reduced(), device="cpu")
+toks = generate(moe, moe.init(0), torch.zeros((1, 8), dtype=torch.int32), n_tokens=3,
                 context_len=16)
 assert toks.shape == (1, 3)
 assert "jax" not in sys.modules and "repro" not in sys.modules, sorted(

@@ -86,14 +86,14 @@ def _scaled_close(port, ref, tol, what):
     assert err <= tol * scale, f"{what}: max err {err} > {tol} x {scale}"
 
 
-def _configs(dtype: str, scan: bool, **kw):
+def _configs(dtype: str, scan: bool, arch: str = "qwen3-0.6b", **kw):
     cfg = dict(dtype=dtype, scan_layers=scan, **kw)
-    return (dataclasses.replace(jget_config("qwen3-0.6b").reduced(), **cfg),
-            dataclasses.replace(get_config("qwen3-0.6b").reduced(), **cfg))
+    return (dataclasses.replace(jget_config(arch).reduced(), **cfg),
+            dataclasses.replace(get_config(arch).reduced(), **cfg))
 
 
-def _models(dtype, scan, seed=0, **kw):
-    jcfg, tcfg = _configs(dtype, scan, **kw)
+def _models(dtype, scan, seed=0, arch: str = "qwen3-0.6b", **kw):
+    jcfg, tcfg = _configs(dtype, scan, arch, **kw)
     jm, tm = jbuild_model(jcfg), build_model(tcfg, device="cpu")
     jp = jm.init(jax.random.key(seed))
     return jm, tm, jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
@@ -221,7 +221,8 @@ def test_forward_matches_jax(window, pallas_impl):
 
     jl, _ = jtfm.forward(jm.cfg, jp, {"tokens": jnp.asarray(toks)}, window=window)
     with torch.inference_mode():
-        tl = tfm.forward(tm.cfg, tp, {"tokens": torch.from_numpy(toks)}, window=window)
+        tl, aux = tfm.forward(tm.cfg, tp, {"tokens": torch.from_numpy(toks)}, window=window)
+    assert all(float(v) == 0.0 for v in aux.values())  # no MoE layer
     assert tuple(tl.shape) == tuple(jl.shape) == (2, PROMPT, jm.cfg.vocab_size)
     _scaled_close(tl, jl, MODEL_TOL["float32"], "forward logits")
 
@@ -297,12 +298,17 @@ def test_ring_cache_matches_jax_step_by_step(prompt, pallas_impl):
         _scaled_close(t, j, MODEL_TOL["float32"], "ring cache after 80 steps")
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 0.15)])
-def test_decode_continues_prefill(dtype, tol):
+@pytest.mark.parametrize("arch,dtype,tol", [
+    pytest.param(arch, dtype, tol,
+                 id=("" if arch == "qwen3-0.6b" else f"{arch}-") + f"{dtype}-{tol}")
+    for arch in ("qwen3-0.6b", "granite-8b", "stablelm-3b")
+    for dtype, tol in (("float32", 1e-5), ("bfloat16", 0.15))])
+def test_decode_continues_prefill(arch, dtype, tol):
     """prefill(t[:s]) then decode(t[s]) gives prefill(t[:s+1])'s last
     logits: ``tests/test_models_smoke.py``'s check on the port, at its
-    bounds in bf16 (atol = rtol = 0.15) and 1e-5 in fp32."""
-    _, tm, _, tp = _models(dtype, True, seed=1)
+    bounds in bf16 (atol = rtol = 0.15) and 1e-5 in fp32, for the dense
+    configs it checks that the port has."""
+    _, tm, _, tp = _models(dtype, True, seed=1, arch=arch)
     toks = torch.from_numpy(
         np.random.default_rng(1).integers(0, tm.cfg.vocab_size, (1, 17)).astype(np.int32))
     with torch.inference_mode():
@@ -345,10 +351,9 @@ def test_serve_main_runs_on_the_cpu_when_asked(capsys):
 
 # ---------------- what is not ported ----------------
 @pytest.mark.parametrize("change,what", [
-    (dict(mla=MLAConfig()), "MLA"),
-    (dict(moe=MoEConfig()), "MoE"),
-    (dict(frontend_tokens=16), "frontend"),
-    (dict(attn_layer_period=2, alt_kind="mlstm"), "mlstm"),
+    pytest.param(dict(mla=MLAConfig()), "MLA", id="change0-MLA"),
+    pytest.param(dict(frontend_tokens=16), "frontend", id="change2-frontend"),
+    pytest.param(dict(attn_layer_period=2, alt_kind="mlstm"), "mlstm", id="change3-mlstm"),
 ])
 def test_unported_features_raise_naming_their_item(change, what):
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), **change)
@@ -356,7 +361,7 @@ def test_unported_features_raise_naming_their_item(change, what):
         build_model(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["ssm", "vlm", "audio"])
 def test_unported_families_raise_naming_their_item(family):
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
@@ -367,14 +372,13 @@ _JAMBA = "jamba-1.5-large-398b"
 
 
 @pytest.mark.parametrize("make,what", [
-    (lambda: get_config(_JAMBA), "MoE"),
-    (lambda: get_config(_JAMBA).reduced(), "MoE"),
     (lambda: dataclasses.replace(get_config(_JAMBA).reduced(), moe=None, alt_kind="mlstm"),
      "mlstm"),
-], ids=["jamba", "jamba-reduced", "hybrid-mlstm"])
+], ids=["hybrid-mlstm"])
 def test_unported_hybrids_raise_naming_their_item(make, what):
-    """The hybrid family builds by what its layers need: Jamba as
-    registered needs MoE, a hybrid of attention and mLSTM needs mLSTM."""
+    """The hybrid family builds by what its layers need: a hybrid of
+    attention and mLSTM needs mLSTM (Jamba with its experts builds:
+    ``tests/test_torch_moe.py``)."""
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md queue 1 item 15"):
         build_model(make(), device="cpu")
 
