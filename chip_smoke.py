@@ -228,6 +228,22 @@ Phases (any failure exits non-zero):
    set_sync_debug_mode("error"), the card-vs-CPU check on the first 4
    layers, and the consistency and CPU checks held only where the runs
    route alike (and drop nothing), flips and drops reported.
+15. MLA and frontend serving: flash_attention held and timed in phase 2 at
+   minicpm3-4b's MLA prefill (qk width 96, V zero-padded from 64: the
+   padded columns exact zeros, the kept ones against SDPA on the unpadded
+   V), paligemma-3b's 8 heads over 1 at D = 256 over 1280 positions and
+   musicgen-medium's 24 x 64 over 1088, decode_attention at paligemma's
+   and musicgen's caches; then, each freeing its weights, minicpm3-4b
+   (4,073,875,968 params), paligemma-3b (2,511,022,080) and musicgen-medium
+   (1,819,708,416) at full width through phase 8's serving function, the
+   frontend legs after their numpy-drawn frontend embeddings (256 and 64
+   positions): 62 flash launches a prefill and none a decode step
+   (minicpm: the absorbed decode has no kernel), 18 / 18 and 48 / 48
+   (paligemma, musicgen), nothing else; bounds 2**-8 * sqrt(roundings a
+   layer * layers); the card-vs-CPU check on the first 4 layers; minicpm's
+   decode step of the whole stack under set_sync_debug_mode("error"), and
+   layer 0's mla_forward and its mla_decode at the first three decode
+   positions against the CPU on identical inputs.
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
@@ -236,7 +252,8 @@ DIR/round3_trace.json, DIR/mixed_fleet_round3_trace.json,
 DIR/fedadam_mixed_fleet_round3_trace.json, DIR/resnet_round3_trace.json.gz
 and DIR/population_round3_trace.json.gz, the serving traces to
 DIR/<leg>_{prefill,decode}_trace.json.gz for the legs serving, hybrid,
-deepseek, mixtral16, granite and stablelm (DIR defaults to smoke_out).  If
+deepseek, mixtral16, granite, stablelm, minicpm, paligemma and musicgen
+(DIR defaults to smoke_out).  If
 ``repro_torch`` cannot be imported (the script run away from the
 repository's ``src/``), it says so on stdout and exits 1.
 """
@@ -1166,11 +1183,15 @@ def attention_kernel_checks(dev, launch) -> dict:
     split but one empty), at S = 1 and 16,384, in one split (rounds of 64
     tiles), an all-invalid row (also in more splits than tiles), fp32, D =
     256 and G = 4, every decode case twice and bitwise.  The serving shapes,
-    the Jamba slice's flash and decode shapes (64 query heads) and phase
-    14's (H = KV = 32 at D = 80, H = KV = 16, 32 over 8) are checked and
-    timed: through the ops wrapper, as a bare launch, the plain version and
-    scaled_dot_product_attention (never on the port's path), and so is the
-    fp32 flash route at the serving shape; decode also at 4 CTAs an SM.
+    the Jamba slice's flash and decode shapes (64 query heads), phase 14's
+    (H = KV = 32 at D = 80, H = KV = 16, 32 over 8) and phase 15's (MLA's
+    qk width 96 with V zero-padded from 64, its padded columns exact zeros
+    and the kept ones against SDPA on the unpadded V; 8 heads over 1 at D =
+    256 over 1280 positions and in decode; H = KV = 24 at D = 64 over 1088)
+    are checked and timed: through the ops wrapper, as a bare launch, the
+    plain version and scaled_dot_product_attention (never on the port's
+    path), and so is the fp32 flash route at the serving shape; decode also
+    at 4 CTAs an SM.
     Then the flash library's SASS and ptxas report
     (``flash_build_checks``)."""
     from repro_torch.kernels import ops, ref
@@ -1266,31 +1287,63 @@ def attention_kernel_checks(dev, launch) -> dict:
     # on lines of their own: the Jamba slice's attention layer (64 query heads
     # over 8 KV heads), phase 14's (stablelm-3b: MHA at D = 80, which the
     # wgmma route pads to 128; deepseek-moe-16b: MHA; granite-8b and
-    # mixtral-8x7b: GQA 32/8), and the fp32 route (the CUDA-core kernel) at
-    # the serving shape beside its bound at the fp32 rate outside the tensor
-    # cores
-    for case, h, kv, d, dtype, entry, peak in (
-            ("Jamba head shape", 64, 8, 128, bf16, "repro_flash_attention_bf16", bf16_peak),
-            ("stablelm-3b head shape, D=80", 32, 32, 80, bf16, "repro_flash_attention_bf16",
-             bf16_peak),
-            ("deepseek-moe-16b head shape", 16, 16, 128, bf16, "repro_flash_attention_bf16",
-             bf16_peak),
-            ("granite-8b / mixtral-8x7b head shape", 32, 8, 128, bf16,
-             "repro_flash_attention_bf16", bf16_peak),
-            ("fp32 route, serving shape", 16, 8, 128, f32, "repro_flash_attention_f32",
-             FP32_FLOP_PER_S)):
-        b, sq = SERVE_B, SERVE_PROMPT
-        q, k, v = randn(b, sq, h, d, dtype=dtype), randn(b, sq, kv, d, dtype=dtype), \
-            randn(b, sq, kv, d, dtype=dtype)
+    # mixtral-8x7b: GQA 32/8), phase 15's (minicpm3-4b's MLA prefill: qk
+    # width 96, V zero-padded from 64 to 96, over its 1024 positions;
+    # paligemma-3b: 8 heads over 1 at D = 256, 256 frontend positions before
+    # the 1024; musicgen-medium: MHA 24 x 64, 64 frontend positions), and
+    # the fp32 route (the CUDA-core kernel) at the serving shape beside its
+    # bound at the fp32 rate outside the tensor cores
+    wgmma = ("repro_flash_attention_bf16", bf16_peak)
+    for case, h, kv, d, dtype, (entry, peak), sq, dv in (
+            ("Jamba head shape", 64, 8, 128, bf16, wgmma, SERVE_PROMPT, None),
+            ("stablelm-3b head shape, D=80", 32, 32, 80, bf16, wgmma, SERVE_PROMPT, None),
+            ("deepseek-moe-16b head shape", 16, 16, 128, bf16, wgmma, SERVE_PROMPT, None),
+            ("granite-8b / mixtral-8x7b head shape", 32, 8, 128, bf16, wgmma, SERVE_PROMPT,
+             None),
+            ("minicpm3-4b MLA head shape, D=96, V zero-padded from 64", 40, 40, 96, bf16, wgmma,
+             SERVE_PROMPT, 64),
+            ("paligemma-3b head shape, D=256, G=8", 8, 1, 256, bf16, wgmma, SERVE_PROMPT + 256,
+             None),
+            ("musicgen-medium head shape", 24, 24, 64, bf16, wgmma, SERVE_PROMPT + 64, None),
+            ("fp32 route, serving shape", 16, 8, 128, f32,
+             ("repro_flash_attention_f32", FP32_FLOP_PER_S), SERVE_PROMPT, None)):
+        b = SERVE_B
+        q, k = randn(b, sq, h, d, dtype=dtype), randn(b, sq, kv, d, dtype=dtype)
+        v_in = randn(b, sq, kv, dv or d, dtype=dtype)
+        # MLA's call: V padded with zero columns to the qk width (mla_forward)
+        v = torch.nn.functional.pad(v_in, (0, d - dv)) if dv else v_in
         out, exp = ops.flash_attention(q, k, v), ref.attention(q, k, v)
         err = agree(f"flash_attention [{case}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                    f"{dtype}, causal]", out, exp, dtype)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                    f"v {tuple(v.shape)}, {dtype}, causal]", out, exp, dtype)
+        # the library call computes the layer's own function: SDPA takes a V
+        # narrower than Q and K, scaling by Q's width as MLA does
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v_in.transpose(1, 2)
         o = torch.empty_like(q)
-        flops = 4 * b * h * d * attention_pairs(sq, sq, True, None, 0)
+        pairs = attention_pairs(sq, sq, True, None, 0)
+        flops = 4 * b * h * d * pairs
         b_ms, b_by = bound(nbytes(q, k, v, out), flops, peak)
+        extra = {}
+        if dv:
+            check(f"flash_attention [{case}]: the padded V's output columns are exact zeros",
+                  not bool(out[..., dv:].any()))
+            sdpa = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True).transpose(1, 2)
+            # what the unpadded function needs: V and the output at dv, P . V over dv
+            mla_flops = 2 * b * h * (d + dv) * pairs
+            mla_bytes = nbytes(q, k, v_in) + out[..., :dv].numel() * out.element_size()
+            m_ms, m_by = bound(mla_bytes, mla_flops, peak)
+            extra = dict(
+                unpadded_bound_ms=m_ms, unpadded_bound_by=m_by, unpadded_flops=mla_flops,
+                unpadded_bytes=mla_bytes, v_bytes_padded_over_unpadded=d / dv,
+                pv_flops_padded_over_unpadded=d / dv,
+                library_max_abs_err=float((sdpa.float() - out[..., :dv].float()).abs().max()))
+            check(f"flash_attention [{case}]: the kept columns within rtol=atol=2e-2 of "
+                  "scaled_dot_product_attention on the unpadded V",
+                  torch.allclose(sdpa.float(), out[..., :dv].float(), rtol=2e-2, atol=2e-2),
+                  **extra)
+            del sdpa
         REPORT["timings"].append(dict(
-            name="flash_attention", case=case, max_abs_err=err,
+            name="flash_attention", case=case, max_abs_err=err, **extra,
             ms=time_ms(lambda: ops.flash_attention(q, k, v)),
             launch_ms=time_ms(launch(
                 "flash_attention", entry, "flash_attention", q.data_ptr(), k.data_ptr(),
@@ -1300,9 +1353,10 @@ def attention_kernel_checks(dev, launch) -> dict:
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by, flops=flops, peak_flop_per_s=peak,
             bytes=nbytes(q, k, v, out),
-            shape=f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {sq}, {kv}, {d}) {dtype} causal",
+            shape=f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {sq}, {kv}, {d}) {dtype} causal"
+                  + (f", V zero-padded from {dv}" if dv else ""),
         ))
-        del q, k, v, o, out, exp, qt, kt, vt
+        del q, k, v, v_in, o, out, exp, qt, kt, vt
     rows["flash_build"] = flash_build_checks()
 
     from repro_torch.kernels import decode_attention as dk
@@ -1346,6 +1400,8 @@ def attention_kernel_checks(dev, launch) -> dict:
         ("stablelm-3b head shape, D=80", SERVE_B, s, 32, 32, 80, bf16, "linear", None),
         ("deepseek-moe-16b head shape", SERVE_B, s, 16, 16, 128, bf16, "linear", None),
         ("granite-8b / mixtral-8x7b head shape", SERVE_B, s, 32, 8, 128, bf16, "linear", None),
+        ("paligemma-3b head shape, D=256, G=8", SERVE_B, s, 8, 1, 256, bf16, "linear", None),
+        ("musicgen-medium head shape", SERVE_B, s, 24, 24, 64, bf16, "linear", None),
     ]
     for label, b, sl, h, kv, d, dtype, mask, splits in decode_cases:
         q, kc, vc = randn(b, h, d, dtype=dtype), randn(b, sl, kv, d, dtype=dtype), \
@@ -4854,13 +4910,25 @@ def routing_flips(a: list, b: list) -> list[int]:
     return [int((x.cpu() != y.cpu()).any(-1).sum()) for x, y in zip(a, b)]
 
 
+def frontend_of(cfg, rng, b: int, device) -> dict:
+    """A config with frontend tokens: ``{"frontend": (b, F, frontend_dim)}``
+    fp32 normals drawn from ``rng`` (as ``launch/serve.py`` draws them);
+    otherwise ``{}``, drawing nothing."""
+    if not cfg.frontend_tokens:
+        return {}
+    fd = cfg.frontend_dim or cfg.d_model
+    fe = rng.normal(size=(b, cfg.frontend_tokens, fd)).astype(np.float32)
+    return {"frontend": torch.from_numpy(fe).to(device)}
+
+
 def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
                   prefill_launches: dict, step_launches: dict, rel_l2_bound: float,
                   cpu_prompt: int, cpu_layers: int | None = None,
                   cpu_bound: float | None = None) -> dict:
     """One transformer at full width from ``init(seed)`` on the card,
-    served through ``launch.serve.generate``: B=8, prompt 1024, context
-    2048, 32 new tokens, with the launch counts set to 0 just before and
+    served through ``launch.serve.generate``: B=8, prompt 1024 (after the
+    config's frontend embeddings, numpy-drawn fp32, if it has them),
+    context 2048, 32 new tokens, with the launch counts set to 0 just before and
     read just after (exactly ``prefill_launches`` per prefill and
     ``step_launches`` per decode step, no other kernel).  The end-to-end
     rates come from unsynchronized ``generate`` runs, as a user calls it
@@ -4875,7 +4943,9 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
     An MoE stack also runs ``moe_layer_phase``, and its consistency and
     CPU checks hold their bounds only where the runs compared route every
     token alike (and, prefill against decode, neither prefill dropped a
-    pair): differing routings and drop fractions are reported."""
+    pair): differing routings and drop fractions are reported.  An MLA
+    stack also runs ``mla_layer_phase``.  A frontend config's consistency
+    check prefills the frontend and t[:-1] and decodes t[-1]."""
     import dataclasses
 
     from repro_torch.kernels import ops
@@ -4913,9 +4983,14 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT))
                               .astype(np.int32)).cuda()
+    fe = frontend_of(cfg, rng, SERVE_B, device=model.device)
+    batch = {"tokens": prompt, **fe}
+    n_pos = SERVE_PROMPT + cfg.frontend_tokens
+
     def wall(n_tokens):
         t0 = time.perf_counter()
-        gen = generate(model, params, prompt, n_tokens=n_tokens, context_len=SERVE_CONTEXT)
+        gen = generate(model, params, prompt, n_tokens=n_tokens, context_len=SERVE_CONTEXT,
+                       frontend=fe.get("frontend"))
         torch.cuda.synchronize()
         return time.perf_counter() - t0, gen
 
@@ -4935,7 +5010,8 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
 
     # per call, synchronized around each: a per-layer statistic beside the rates
     ops.reset_launch_counts()
-    again = generate(served, params, prompt, n_tokens=SERVE_TOKENS, context_len=SERVE_CONTEXT)
+    again = generate(served, params, prompt, n_tokens=SERVE_TOKENS, context_len=SERVE_CONTEXT,
+                     frontend=fe.get("frontend"))
     check(f"{tag}: the synchronized run generates the same tokens", torch.equal(again, gen))
     total = {k: prefill_launches.get(k, 0) + n_steps * step_launches.get(k, 0)
              for k in {**prefill_launches, **step_launches}}
@@ -4957,11 +5033,14 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
         "prefill_ms": prefill_s * 1e3, "decode_ms_per_token": decode_s * 1e3,
         "decode_ms_all": [t * 1e3 for t in step_s],
         "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / prefill_s,
+        "prefill_positions_per_s": SERVE_B * n_pos / prefill_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "init_s": init_s,
         "first_tokens": gen[:2].tolist(),
     }
-    print(f"{tag} B={SERVE_B} prompt {SERVE_PROMPT} context {SERVE_CONTEXT}, "
+    print(f"{tag} B={SERVE_B} prompt {SERVE_PROMPT}"
+          f"{f' after {cfg.frontend_tokens} frontend positions' if fe else ''} "
+          f"context {SERVE_CONTEXT}, "
           f"unsynchronized generate: {SERVE_TOKENS} tokens in "
           f"{[round(w, 4) for w in walls]} s (median {wall_med:.4f} s, "
           f"{out['end_to_end_tokens_per_s']:.1f} tokens/s end to end), the prefill alone "
@@ -4980,7 +5059,7 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
             if phase == "prefill":
                 torch.cuda.synchronize()
                 prof.start()
-                _, cache = model.prefill(params, {"tokens": prompt}, SERVE_CONTEXT)
+                _, cache = model.prefill(params, batch, SERVE_CONTEXT)
                 torch.cuda.synchronize()
                 prof.stop()
                 host_s = prefill_s
@@ -5014,15 +5093,20 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
     if cfg.moe is not None:
         out["moe"] = moe_layer_phase(model, params, prompt, card, tag=tag,
                                      decode_ms=decode_s * 1e3)
+    if cfg.mla is not None:
+        out["mla"] = mla_layer_phase(model, params, prompt, card, tag=tag)
 
     # prefill(t[:s]) + decode(t[s]) against prefill(t[:s+1]), at full width
+    # (a frontend config's prefills both after the same frontend embeddings)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 257)).astype(np.int32)).cuda()
+    fe2 = {k: v[:2] for k, v in fe.items()}
+    ctx = 512 + cfg.frontend_tokens
     with torch.inference_mode():
         with MoEProbe() as whole:
-            full, _ = model.prefill(params, {"tokens": toks}, 512)
+            full, _ = model.prefill(params, {"tokens": toks, **fe2}, ctx)
         with MoEProbe() as parts:
-            _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, 512)
-            step, _ = model.decode_step(params, {"tokens": toks[:, -1:]}, cache, 512)
+            _, cache = model.prefill(params, {"tokens": toks[:, :-1], **fe2}, ctx)
+            step, _ = model.decode_step(params, {"tokens": toks[:, -1:]}, cache, ctx)
     err = max(rel_l2(step[i, -1], full[i, -1]) for i in range(2))
     close = bool(torch.allclose(step.float(), full.float(), atol=0.15, rtol=0.15))
     n_moe = len(whole.routes)
@@ -5059,7 +5143,8 @@ def card_vs_cpu(model, params, rng, card: str, *, tag: str, bound: float,
                 prompt_len: int, layers: int | None = None) -> dict:
     """The same full-width bf16 params on the card and, copied, through the
     port on the CPU (the plain versions): a ``prompt_len``-token prompt
-    (B=1) and 4 decode steps, both fed the CPU's greedy tokens.  Each
+    (B=1; after the same frontend embeddings where the config has them)
+    and 4 decode steps, both fed the CPU's greedy tokens.  Each
     step's logits within ``bound`` relative L2; the card's top-1 token
     equal to the CPU's wherever the CPU's top-1 / top-2 margin exceeds
     ``bound`` times its largest logit.  With ``layers``, both run the
@@ -5086,10 +5171,11 @@ def card_vs_cpu(model, params, rng, card: str, *, tag: str, bound: float,
     cpu_params = tree_map(lambda t: t.cpu(), params)
     toks = torch.from_numpy(rng.integers(0, model.arch.vocab_size, (1, prompt_len))
                             .astype(np.int32))
-    ctx, n_steps = 2 * prompt_len, 4
+    fe = frontend_of(model.arch, rng, 1, device="cpu")
+    ctx, n_steps = 2 * (prompt_len + model.arch.frontend_tokens), 4
     t0 = time.perf_counter()
     with torch.inference_mode(), MoEProbe() as cpu_routes:
-        logits, cache = cpu_model.prefill(cpu_params, {"tokens": toks}, ctx)
+        logits, cache = cpu_model.prefill(cpu_params, {"tokens": toks, **fe}, ctx)
         cpu_logits, feed = [logits[0, -1]], []
         for _ in range(n_steps):
             tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
@@ -5098,7 +5184,8 @@ def card_vs_cpu(model, params, rng, card: str, *, tag: str, bound: float,
             cpu_logits.append(logits[0, -1])
         cpu_s = time.perf_counter() - t0
     with torch.inference_mode(), MoEProbe() as card_routes:
-        logits, cache = model.prefill(params, {"tokens": toks.cuda()}, ctx)
+        logits, cache = model.prefill(params, {"tokens": toks.cuda(),
+                                               **{k: v.cuda() for k, v in fe.items()}}, ctx)
         card_logits = [logits[0, -1].cpu()]
         for tok in feed:
             logits, cache = model.decode_step(params, {"tokens": tok.cuda()}, cache, ctx)
@@ -5361,6 +5448,165 @@ def moe_dense_serving_phase(card: str, out_dir: Path) -> dict:
     return out
 
 
+# ---------------- phase 15: MLA and frontend serving ----------------
+# (tag, arch, params counted from the JAX package's init shapes:
+# tests/test_torch_mla.py); each at full width, nothing cut
+MLA_FRONTEND_LEGS = (
+    ("minicpm", "minicpm3-4b", 4_073_875_968),
+    ("paligemma", "paligemma-3b", 2_511_022_080),
+    ("musicgen", "musicgen-medium", 1_819_708_416),
+)
+# An MLA layer's roundings on the residual stream's path, counted as phase
+# 14 counts them: the query side's two products, its norm and RoPE (4), the
+# latent's product, norm and RoPE (3), the per-head K and V products (2), P
+# before P . V (1), the attention output and wo (2).  The frontend legs'
+# layers are DENSE_ROUNDINGS'.
+MLA_ROUNDINGS = 12
+MLA_FRONTEND_CPU_LAYERS = 4   # the card-against-CPU check's layers
+MLA_CHECK_TOKENS = 128        # mla_layer_phase: 2 prompts' first 128 positions ...
+MLA_CHECK_SLOTS = 256         # ... in a 256-slot latent cache, then 3 decode positions
+
+
+def mla_layer_phase(model, params, prompt, card: str, *, tag: str) -> dict:
+    """An MLA leg's checks outside the counted main path.  (1) After a
+    prefill of the serving prompt, one decode step of the whole stack
+    under ``set_sync_debug_mode("error")``: nothing in it waits on the
+    card.  (2) Layer 0's mixer on the card against the port on the CPU on
+    identical bf16 inputs (layer 0's normed input at 2 prompts' first 128
+    positions, then at the next 3): ``mla_forward`` (the flash kernel with
+    V zero-padded against the plain attention) and its latents, then
+    ``mla_decode`` at the first three decode positions from the same cache
+    (the card's latents, copied), the first of them under the sync debug
+    mode, each output and the caches after within 2**-8 *
+    sqrt(MLA_ROUNDINGS) relative L2.  (3) One layer's absorbed decode at
+    the serving shape timed, and the fp32 copies of ``wk_b`` and ``wv_b``
+    it makes a step."""
+    from repro_torch.models.layers import attention as attn_lib
+    from repro_torch.models.layers import mla as mla_lib
+    from repro_torch.models.layers.embeddings import embed
+    from repro_torch.models.layers.norms import apply_norm
+    from repro_torch.utils.pytree import tree_map
+
+    cfg, bf16, dev = model.arch, torch.bfloat16, model.device
+    out = {}
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": prompt}, SERVE_CONTEXT)
+        torch.cuda.synchronize()
+        error, logits = None, None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, cache = model.decode_step(params, {"tokens": prompt[:, -1:]}, cache,
+                                              SERVE_CONTEXT)
+        except RuntimeError as err:
+            error = repr(err)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    check(f"{tag}: a decode step of the whole stack (B={SERVE_B}, context {SERVE_CONTEXT}) "
+          "under set_sync_debug_mode('error'): no host sync, finite logits",
+          error is None and bool(torch.isfinite(logits).all()), error=error)
+
+    blk = (tree_map(lambda t: t[0], params["blocks"][0]) if cfg.scan_layers
+           else params["blocks"][0])   # layer 0 (views of the stacked leaves)
+    p0, cpu_p = blk["mixer"], tree_map(lambda t: t.cpu(), blk["mixer"])
+    n, slots = MLA_CHECK_TOKENS, MLA_CHECK_SLOTS
+    bound_layer = 2 ** -8 * math.sqrt(MLA_ROUNDINGS)
+    errs = {}
+    with torch.inference_mode():
+        h = apply_norm(cfg, blk["norm1"], embed(params["embed"], prompt[:2, :n + 3]).to(bf16))
+        x_pre = h[:, :n].contiguous()
+        got = mla_lib.mla_forward(cfg, p0, x_pre)
+        want = mla_lib.mla_forward(cfg, cpu_p, x_pre.cpu())
+        for name, a, b in zip(("prefill", "prefill c_kv", "prefill k_rope"), got, want):
+            errs[name] = rel_l2(a, b)
+        caches = {}
+        for where in ("card", "cpu"):
+            caches[where] = mla_lib.init_mla_cache(cfg, 2, slots, bf16,
+                                                   device=dev if where == "card" else "cpu")
+            caches[where]["c_kv"][:, :n] = got[1]
+            caches[where]["k_rope"][:, :n] = got[2]
+        for i, pos in enumerate(range(n, n + 3)):
+            x = h[:, n + i:n + i + 1].contiguous()
+            valid = attn_lib.kv_valid(2, slots, pos, ring=False, device=dev)
+            torch.cuda.synchronize()
+            if i == 0:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                o_card, _ = mla_lib.mla_decode(cfg, p0, x, caches["card"], pos, ring=False,
+                                               valid=valid)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            o_cpu, _ = mla_lib.mla_decode(cfg, cpu_p, x.cpu(), caches["cpu"], pos, ring=False,
+                                          valid=valid.cpu())
+            errs[f"decode at {pos}"] = rel_l2(o_card, o_cpu)
+        for key in ("c_kv", "k_rope"):
+            errs[f"cache {key} after"] = rel_l2(caches["card"][key], caches["cpu"][key])
+    out["card_vs_cpu_layer"] = errs
+    check(f"{tag}: layer 0's mla_forward (flash, V zero-padded) and mla_decode at the first 3 "
+          f"decode positions on the card against the CPU on identical bf16 inputs, the first "
+          f"step without a host sync: each within relative L2 {bound_layer:.4f}",
+          all(e <= bound_layer for e in errs.values()), **errs)
+
+    # (3) one layer's absorbed decode at the serving shape, and its fp32 weight copies
+    with torch.inference_mode():
+        c8 = mla_lib.init_mla_cache(cfg, SERVE_B, SERVE_CONTEXT, bf16, device=dev)
+        x8 = torch.randn(SERVE_B, 1, cfg.d_model, device=dev).to(bf16)
+        pos = SERVE_PROMPT + SERVE_TOKENS // 2
+        v8 = attn_lib.kv_valid(SERVE_B, SERVE_CONTEXT, pos, ring=False, device=dev)
+        out["decode_layer_ms"] = time_ms(
+            lambda: mla_lib.mla_decode(cfg, p0, x8, c8, pos, ring=False, valid=v8), iters=10)
+        out["fp32_weight_copies_ms"] = time_ms(
+            lambda: (p0["wk_b"].to(torch.float32), p0["wv_b"].to(torch.float32)), iters=10)
+    out["fp32_weight_copy_bytes_a_step"] = cfg.n_layers * 6 * (
+        p0["wk_b"].numel() + p0["wv_b"].numel())   # 2 B read, 4 B written an element
+    print(f"{tag} MLA layer card vs CPU: {json.dumps(errs)} (bound {bound_layer:.4f}); one "
+          f"layer's absorbed decode at B={SERVE_B}, {SERVE_CONTEXT} slots "
+          f"{out['decode_layer_ms']:.4f} ms (event brackets, host enqueue included), its fp32 "
+          f"wk_b / wv_b copies {out['fp32_weight_copies_ms']:.4f} ms, "
+          f"{out['fp32_weight_copy_bytes_a_step'] / 1e6:.1f} MB a step over {cfg.n_layers} "
+          f"layers ({card})", flush=True)
+    return out
+
+
+def mla_frontend_serving_phase(card: str, out_dir: Path) -> dict:
+    """Phase 15: minicpm3-4b (MLA: 62 layers, 40 heads, qk width 96, V 64,
+    latent 256; its decode the absorbed fp32 form, no kernel), paligemma-3b
+    (vlm: 256 frontend positions of width 1152, 8 heads over 1 at D = 256,
+    vocab 257,216) and musicgen-medium (audio: 64 frontend positions of
+    width 768, MHA 24 x 64, LayerNorm) at full width, each through
+    ``serving_phase`` at phase 8's shape (the frontend legs' prompts after
+    their frontend embeddings): minicpm 62 flash launches a prefill and no
+    kernel a decode step, plus ``mla_layer_phase``; paligemma 18 and 18
+    decode launches; musicgen 48 and 48; no other kernel.  Bounds 2**-8 *
+    sqrt(roundings a layer * layers) (MLA_ROUNDINGS, DENSE_ROUNDINGS); the
+    card against the CPU on the first 4 layers.  Each leg frees its
+    weights before the next."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+
+    t_phase = time.perf_counter()
+    out = {}
+    for tag, arch, n_params in MLA_FRONTEND_LEGS:
+        cfg = get_config(arch)
+        mla = cfg.mla is not None
+        per_layer = MLA_ROUNDINGS if mla else DENSE_ROUNDINGS
+        t0 = time.perf_counter()
+        out[tag] = serving_phase(
+            card, out_dir, cfg=cfg, tag=tag, n_params=n_params,
+            prefill_launches={"flash_attention": cfg.n_layers},
+            step_launches={} if mla else {"decode_attention": cfg.n_layers},
+            rel_l2_bound=2 ** -8 * math.sqrt(per_layer * cfg.n_layers), cpu_prompt=32,
+            cpu_layers=MLA_FRONTEND_CPU_LAYERS,
+            cpu_bound=2 ** -8 * math.sqrt(per_layer * MLA_FRONTEND_CPU_LAYERS))
+        out[tag].update(arch=arch, seconds=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 15 leg {tag} ({arch}): {out[tag]['seconds']:.2f} s ({card})", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 15 (MLA and frontend serving): {out['seconds']:.2f} s ({card})", flush=True)
+    return out
+
+
 def aside(r: dict) -> str:
     """A timing's yardsticks beside the kernel's own: the TopK reduce's
     output fill, the copy floor (FedAvg reduce, codec), the codec's encode
@@ -5436,6 +5682,7 @@ def main() -> int:
     REPORT["scanned"] = scanned_trainer_phase(card, args.out)
     REPORT["segmented"] = segmented_wire_phase(card, args.out)
     REPORT["moe_serving"] = moe_dense_serving_phase(card, args.out)
+    REPORT["mla_frontend_serving"] = mla_frontend_serving_phase(card, args.out)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):

@@ -198,13 +198,16 @@ def get_config(name: str) -> ArchConfig:
 
 
 # the port carries the configs of the models it runs (ROADMAP.md queue 1
-# item 15 adds the rest: MLA, xLSTM, the frontends)
+# item 15 adds the last: xLSTM)
 _ARCH_MODULES = (
     "deepseek_moe_16b",
     "granite_8b",
     "jamba_1_5_large_398b",
+    "minicpm3_4b",
     "mixtral_8x7b",
     "mobilenet_head_office31",
+    "musicgen_medium",
+    "paligemma_3b",
     "qwen3_0_6b",
     "resnet18_cifar10",
     "stablelm_3b",

@@ -10,9 +10,9 @@ methods are plain functions on nested dicts of tensors:
 
 The port runs the ``head`` and ``cnn`` (ResNet-18) families and the
 serving path (prefill + decode) of the transformers whose layers it has:
-attention, mamba, the gated MLP and the MoE feed-forward, so the dense,
-MoE and hybrid families.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item.
+attention, MLA, mamba, the gated MLP, the MoE feed-forward and the
+frontend tokens, so the dense, MoE, hybrid, vlm and audio families.  What
+is not ported raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -30,8 +30,6 @@ PyTree = Any
 # the families none of whose models the port can run yet, and what they need
 _NOT_PORTED = {
     "ssm": "the mLSTM/sLSTM mixers (xLSTM) are ROADMAP.md queue 1 item 15",
-    "vlm": "the frontend tokens are ROADMAP.md queue 1 item 15",
-    "audio": "the frontend tokens are ROADMAP.md queue 1 item 15",
 }
 
 
@@ -83,9 +81,9 @@ def build_model(arch, *, device=None) -> Model:
             loss_fn=lambda p, b: resnet.loss_fn(cfg, p, b),
         )
 
-    if arch_cfg.family in ("dense", "moe", "hybrid"):
+    if arch_cfg.family in ("dense", "moe", "hybrid", "vlm", "audio"):
         # what a transformer needs is read from its layers: check_ported
-        # raises for a layer kind, MLA or frontend not ported yet
+        # raises for a layer kind not ported yet
         from . import transformer as tfm
 
         cfg = arch_cfg

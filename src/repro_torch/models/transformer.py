@@ -1,15 +1,20 @@
 """Decoder-only stack, the twin of ``repro.models.transformer`` for the
-dense, MoE and hybrid families: pre-norm mixer (attention or mamba, by the
-layer plan) + pre-norm feed-forward (the gated MLP, or the MoE layer where
-the plan marks it) blocks.
+dense, MoE, hybrid, vlm and audio families: pre-norm mixer (attention, MLA
+where ``cfg.mla`` is set, or mamba, by the layer plan) + pre-norm
+feed-forward (the gated MLP, or the MoE layer where the plan marks it)
+blocks.  A config with ``frontend_tokens`` takes ``batch["frontend"]``
+(B, F, frontend_dim), cast to the model dtype, projected by
+``frontend_proj`` and prepended to the token embeddings; after prefill the
+cache's ``pos`` counts those F positions, and decode takes tokens only.
 
 Params and caches keep the JAX trees exactly, so one ``params_from_numpy``
 carries either across: ``blocks`` (and a cache's ``layers``) is a tuple of
 per-position dicts whose leaves are stacked ``(L / period, ...)`` when
 ``scan_layers``, and a tuple of per-layer dicts otherwise.  A cache holds
-K and V at an attention position and the (conv, ssm) state at a mamba
-one.  Where JAX scans over the stacked leaves, the port loops over layers
-and indexes views of them: nothing is unstacked or copied.  A cache's
+K and V at an attention position (the latent ``c_kv`` and ``k_rope`` under
+MLA) and the (conv, ssm) state at a mamba one.  Where JAX scans over the
+stacked leaves, the port loops over layers and indexes views of them:
+nothing is unstacked or copied.  A cache's
 ``pos`` is a host-side int32 scalar, so a decode step reads it once and no
 layer waits on the card.
 
@@ -18,9 +23,9 @@ JAX's ``_run_stack`` sums them: ``forward`` returns them beside the
 logits; prefill and decode drop them, as JAX's do.  The capacity factor
 is JAX's: 1.25 in ``block_forward`` and prefill, 2.0 in ``block_decode``.
 
-Not ported yet (each raises ``NotImplementedError``): MLA, mLSTM/sLSTM,
-frontend tokens, and training (``loss_fn`` / ``cross_entropy``); all are
-ROADMAP.md queue 1 item 15.
+Not ported yet (each raises ``NotImplementedError``): mLSTM/sLSTM and
+training (``loss_fn`` / ``cross_entropy``); both are ROADMAP.md queue 1
+item 15.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.utils.pytree import tree_map
 
 from .layers import attention as attn_lib
 from .layers import mamba as mamba_lib
+from .layers import mla as mla_lib
 from .layers import moe as moe_lib
 from .layers.embeddings import embed, init_embedding, normal
 from .layers.mlp import init_mlp, mlp_forward
@@ -49,10 +55,6 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for what the port's transformer does not run yet."""
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported yet ({_ITEM})")
-    if cfg.frontend_tokens:
-        raise NotImplementedError(f"{cfg.name}: frontend tokens are not ported yet ({_ITEM})")
     for spec in cfg.layer_plan():
         if spec.kind in ("mlstm", "slstm"):
             raise NotImplementedError(
@@ -68,7 +70,10 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, *, lead=(
     """One block's params; ``lead`` = (L,) draws the stacked leaves of L
     layers at once."""
     dt = _dtype(cfg)
-    init_mixer = attn_lib.init_attention if spec.kind == "attn" else mamba_lib.init_mamba
+    if spec.kind == "attn":
+        init_mixer = attn_lib.init_attention if cfg.mla is None else mla_lib.init_mla
+    else:
+        init_mixer = mamba_lib.init_mamba
     p: dict = {
         "norm1": init_norm(cfg, cfg.d_model, lead=lead, device=device),
         "mixer": init_mixer(gen, cfg, dt, lead=lead, device=device),
@@ -97,13 +102,19 @@ def block_forward(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tenso
                   window=None, cache: dict | None = None, ring: bool = False):
     """Full-sequence pass of one block -> (x, the MoE aux dict or None).
     Given this layer's ``cache`` (prefill), what its mixer leaves for
-    decode is written into it: the K and V its attention projected, or the
-    mamba layer's final (conv, ssm) state."""
+    decode is written into it: the K and V its attention projected (MLA's
+    latents), or the mamba layer's final (conv, ssm) state."""
     h = apply_norm(cfg, params["norm1"], x)
-    if spec.kind == "attn":
+    if spec.kind == "attn" and cfg.mla is not None:
+        out, c_kv, k_rope = mla_lib.mla_forward(cfg, params["mixer"], h, window=window)
+        if cache is not None:
+            _ring_arrange(c_kv, cache["c_kv"], ring)
+            _ring_arrange(k_rope, cache["k_rope"], ring)
+    elif spec.kind == "attn":
         out, k, v = attn_lib.attention_forward(cfg, params["mixer"], h, window=window)
         if cache is not None:
-            _attn_prefill_cache(cache, k, v, ring)
+            _ring_arrange(k, cache["k"], ring)
+            _ring_arrange(v, cache["v"], ring)
     else:
         out, state = mamba_lib.mamba_forward(cfg, params["mixer"], h)
         if cache is not None:
@@ -119,8 +130,8 @@ def block_decode(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor
     stack without attention)."""
     h = apply_norm(cfg, params["norm1"], x)
     if spec.kind == "attn":
-        out, cache = attn_lib.attention_decode(cfg, params["mixer"], h, cache, pos, ring=ring,
-                                               valid=valid)
+        decode = attn_lib.attention_decode if cfg.mla is None else mla_lib.mla_decode
+        out, cache = decode(cfg, params["mixer"], h, cache, pos, ring=ring, valid=valid)
     else:
         out, cache = mamba_lib.mamba_decode(cfg, params["mixer"], h, cache)
     return _ffn(cfg, spec, params, x + out, 2.0)[0], cache
@@ -142,6 +153,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> PyTree:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": normal(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model,
                                          dt, dev)}
+    if cfg.frontend_tokens:
+        fd = cfg.frontend_dim or cfg.d_model
+        params["frontend_proj"] = {"w": normal(gen, (fd, cfg.d_model), fd, dt, dev)}
     plan = cfg.layer_plan()
     if cfg.scan_layers:
         period = cfg.plan_period
@@ -180,9 +194,15 @@ def _layer_caches(cfg: ArchConfig, layers: tuple):
 
 
 def _embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    """tokens -> (B, S, d) residual stream."""
-    check_ported(cfg)
+    """tokens (B, S) (+ the frontend's (B, F, frontend_dim) embeddings,
+    projected and prepended) -> (B, F + S, d) residual stream."""
     x = embed(params["embed"], batch["tokens"])
+    if cfg.frontend_tokens:
+        if "frontend" not in batch:
+            raise ValueError(f"{cfg.name} takes batch['frontend'], (B, {cfg.frontend_tokens}, "
+                             f"{cfg.frontend_dim or cfg.d_model}) embeddings")
+        fe = torch.matmul(batch["frontend"].to(x.dtype), params["frontend_proj"]["w"])
+        x = torch.cat([fe, x], dim=1)
     return x.to(_dtype(cfg))
 
 
@@ -231,8 +251,10 @@ def _ring(cfg: ArchConfig, shape_seq_len: int) -> tuple[bool, int]:
 
 def init_cache(cfg: ArchConfig, batch: int, context_len: int, *, device=None) -> dict:
     """Each layer's cache by its kind: K and V (B, cache_len, KV, hd) for
-    attention, conv (B, d_conv - 1, di) and fp32 ssm (B, di, N) state for
-    mamba; stacked ``(L / period, ...)`` per position when ``scan_layers``."""
+    attention (under MLA the latents c_kv (B, cache_len, kv_lora_rank) and
+    k_rope (B, cache_len, rope)), conv (B, d_conv - 1, di) and fp32 ssm
+    (B, di, N) state for mamba; stacked ``(L / period, ...)`` per position
+    when ``scan_layers``."""
     check_ported(cfg)
     _, cache_len = _ring(cfg, context_len)
     dt = _dtype(cfg)
@@ -240,7 +262,8 @@ def init_cache(cfg: ArchConfig, batch: int, context_len: int, *, device=None) ->
 
     def one(spec, lead):
         if spec.kind == "attn":
-            return attn_lib.init_kv_cache(cfg, batch, cache_len, dt, lead=lead, device=device)
+            init = attn_lib.init_kv_cache if cfg.mla is None else mla_lib.init_mla_cache
+            return init(cfg, batch, cache_len, dt, lead=lead, device=device)
         return mamba_lib.init_mamba_cache(cfg, batch, dt, lead=lead, device=device)
 
     if not cfg.scan_layers:
@@ -254,17 +277,14 @@ def init_cache(cfg: ArchConfig, batch: int, context_len: int, *, device=None) ->
 def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
                 context_len: int):
     """One-token decode: batch {"tokens": (B,1)} -> (logits (B,1,V), cache).
-    The cache's K and V are written in place; the returned cache holds the
-    same tensors and ``pos + 1``."""
-    ring, _ = _ring(cfg, context_len)
+    The cache's K and V (MLA's latents) are written in place; the returned
+    cache holds the same tensors and ``pos + 1``."""
+    ring, cache_len = _ring(cfg, context_len)
     pos = int(cache["pos"])  # host-side: no sync (a card tensor syncs once a step)
     x = embed(params["embed"], batch["tokens"]).to(_dtype(cfg))
-    # every attention layer masks the same slots: one mask a step, not one a
-    # layer, its length read from the first attention layer's cache
-    kinds = [spec.kind for spec in cfg.layer_plan()]
+    # every attention layer masks the same slots: one mask a step, not one a layer
     valid = None
-    if "attn" in kinds:
-        cache_len = cache["layers"][kinds.index("attn")]["k"].shape[-3]
+    if any(spec.kind == "attn" for spec in cfg.layer_plan()):
         valid = attn_lib.kv_valid(x.shape[0], cache_len, pos, ring=ring, device=x.device)
     for (spec, p), c in zip(_layers(cfg, params["blocks"]),
                             _layer_caches(cfg, cache["layers"]), strict=True):
@@ -290,7 +310,9 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *, context_len: int):
 
 def _ring_arrange(full: torch.Tensor, out: torch.Tensor, ring: bool) -> torch.Tensor:
     """full: (B,S,...) per-position tensor -> its cache layout, written into
-    ``out`` (B,cache_len,...), which holds zeros past S."""
+    ``out`` (B,cache_len,...), which holds zeros past S.  The prefill writes
+    what its mixer projected (JAX projects K and V, or MLA's latents, a
+    second time; the result is the same)."""
     s, cache_len = full.shape[1], out.shape[1]
     if not ring or s <= cache_len:
         out[:, :s] = full
@@ -299,10 +321,3 @@ def _ring_arrange(full: torch.Tensor, out: torch.Tensor, ring: bool) -> torch.Te
     slots = torch.arange(s - cache_len, s, device=full.device) % cache_len
     out[:, slots] = full[:, s - cache_len:]
     return out
-
-
-def _attn_prefill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, ring: bool) -> None:
-    """One layer's cache from the K and V its prefill attention projected
-    (JAX projects them a second time; the result is the same)."""
-    _ring_arrange(k, cache["k"], ring)
-    _ring_arrange(v, cache["v"], ring)

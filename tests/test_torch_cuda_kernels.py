@@ -1190,3 +1190,60 @@ def test_cuda_scanned_graph_with_a_mixed_codec_is_the_per_round_driver(cuda, seg
     for k in st:
         np.testing.assert_array_equal(st[k], st_ref[k], err_msg=k)
     assert repr(hist.rounds) == repr(hist_ref.rounds)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_matches_the_cpu_without_a_host_sync(cuda):
+    """MLA at width 256 (4 heads, qk width 32 + 16 = 48, v width 32), bf16: ``mla_forward`` on the card (one flash
+    launch, V zero-padded to 48) and 3 absorbed ``mla_decode`` steps from
+    its latents under ``set_sync_debug_mode("error")`` (a host sync
+    raises), against the plain path on the CPU on identical inputs: each
+    output and the latent caches within chip_smoke.py's a-priori bound
+    2**-8 * sqrt(MLA_ROUNDINGS = 12) relative L2."""
+    import dataclasses
+
+    from repro_torch.configs.base import MLAConfig, get_config
+    from repro_torch.models.layers import attention, mla
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(
+        get_config("minicpm3-4b").reduced(d_model=256), dtype="bfloat16",
+        mla=MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+                      qk_rope_head_dim=16, v_head_dim=32))
+    bound = 2 ** -8 * 12 ** 0.5
+    gen = torch.Generator().manual_seed(0)
+    params = mla.init_mla(gen, cfg, torch.bfloat16)
+    params["q_norm"] = torch.randn(64, generator=gen) * 0.1
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    x = torch.randn((2, 64, 256), generator=gen).to(torch.bfloat16)
+
+    def rel(a, b):
+        a, b = a.cpu().double(), b.double()
+        return float((a - b).norm() / b.norm())
+
+    before = ops.launch_counts()["flash_attention"]
+    got = mla.mla_forward(cfg, card_params, x.to(cuda))
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = mla.mla_forward(cfg, params, x)
+    for a, b in zip(got, want, strict=True):
+        assert a.is_cuda and a.dtype == torch.bfloat16 and rel(a, b) <= bound
+    caches = [mla.init_mla_cache(cfg, 2, 80, torch.bfloat16, device=d) for d in (cuda, "cpu")]
+    for c in caches:
+        c["c_kv"][:, :64] = got[1].to(c["c_kv"].device)
+        c["k_rope"][:, :64] = got[2].to(c["k_rope"].device)
+    for pos in (64, 65, 66):
+        xt = torch.randn((2, 1, 256), generator=gen).to(torch.bfloat16)
+        valid = attention.kv_valid(2, 80, pos, ring=False, device=cuda)
+        xc = xt.to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, _ = mla.mla_decode(cfg, card_params, xc, caches[0], pos, ring=False,
+                                    valid=valid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref_out, _ = mla.mla_decode(cfg, params, xt, caches[1], pos, ring=False,
+                                    valid=valid.cpu())
+        assert rel(out, ref_out) <= bound, pos
+    for key in ("c_kv", "k_rope"):
+        assert rel(caches[0][key], caches[1][key]) <= bound, key

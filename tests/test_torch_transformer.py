@@ -1,7 +1,10 @@
 """The port's dense transformer serving path (``repro_torch.models``,
 ``launch.serve``) against the JAX package, at ``qwen3-0.6b.reduced()`` on
 the CPU: the same JAX-drawn params carried across by ``params_from_numpy``,
-the same numpy tokens.
+the same numpy tokens.  The serving tests also run ``minicpm3-4b`` (MLA,
+at a v width of 32 under a qk width of 32 + 16: ``reduced()`` makes the two
+equal) and the frontend configs ``paligemma-3b`` and ``musicgen-medium``
+(numpy-drawn fp32 frontend embeddings before the tokens).
 
 JAX runs with ``repro.kernels.ops.set_impl("pallas")`` (restored to "auto"
 after), so its Pallas flash and decode bodies run in interpret mode where
@@ -86,9 +89,22 @@ def _scaled_close(port, ref, tol, what):
     assert err <= tol * scale, f"{what}: max err {err} > {tol} x {scale}"
 
 
+# the MLA the serving tests hold minicpm3-4b to: v width 32 under a qk width of
+# 32 + 16, so the prefill's zero-padded V is exercised
+MLA_VQK = MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+                    qk_rope_head_dim=16, v_head_dim=32)
+ARCH_KW = {"minicpm3-4b": dict(mla=MLA_VQK)}
+NEW_ARCHS = ("minicpm3-4b", "paligemma-3b", "musicgen-medium")
+
+
 def _configs(dtype: str, scan: bool, arch: str = "qwen3-0.6b", **kw):
-    cfg = dict(dtype=dtype, scan_layers=scan, **kw)
-    return (dataclasses.replace(jget_config(arch).reduced(), **cfg),
+    cfg = dict(dtype=dtype, scan_layers=scan, **ARCH_KW.get(arch, {}), **kw)
+    jcfg = dict(cfg)
+    if "mla" in cfg:
+        from repro.configs import base as jbase
+
+        jcfg["mla"] = jbase.MLAConfig(**dataclasses.asdict(cfg["mla"]))
+    return (dataclasses.replace(jget_config(arch).reduced(), **jcfg),
             dataclasses.replace(get_config(arch).reduced(), **cfg))
 
 
@@ -97,6 +113,25 @@ def _models(dtype, scan, seed=0, arch: str = "qwen3-0.6b", **kw):
     jm, tm = jbuild_model(jcfg), build_model(tcfg, device="cpu")
     jp = jm.init(jax.random.key(seed))
     return jm, tm, jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _prompt(cfg, rng, b: int, s: int) -> dict:
+    """A numpy batch of S positions in all: S - F tokens after a config's F
+    frontend embeddings (fp32 normals, as ``launch/serve.py`` draws them)."""
+    f = cfg.frontend_tokens
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s - f)).astype(np.int32)}
+    if f:
+        fd = cfg.frontend_dim or cfg.d_model
+        batch["frontend"] = rng.normal(size=(b, f, fd)).astype(np.float32)
+    return batch
+
+
+def _jax_batch(batch: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 # ---------------- config ----------------
@@ -227,18 +262,28 @@ def test_forward_matches_jax(window, pallas_impl):
     _scaled_close(tl, jl, MODEL_TOL["float32"], "forward logits")
 
 
-@pytest.mark.parametrize("scan", [False, True], ids=["per_layer", "stacked"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_prefill_and_decode_match_jax(dtype, scan, pallas_impl):
+def _layout(scan: bool) -> str:
+    return "stacked" if scan else "per_layer"
+
+
+@pytest.mark.parametrize("arch,dtype,scan", [
+    pytest.param("qwen3-0.6b", dtype, scan, id=f"{dtype}-{_layout(scan)}")
+    for dtype in ("float32", "bfloat16") for scan in (False, True)] + [
+    # the new configs in both dtypes and both layouts, not every pairing
+    pytest.param(arch, dtype, scan, id=f"{arch}-{dtype}-{_layout(scan)}")
+    for arch in NEW_ARCHS for dtype, scan in (("float32", True), ("bfloat16", False))])
+def test_prefill_and_decode_match_jax(arch, dtype, scan, pallas_impl):
     """prefill's next-token logits and its whole cache, a decode step from
     JAX's cache converted by ``params_from_numpy``, then 8 greedy decode
-    steps' logits, against JAX's ``prefill`` / ``decode_step``."""
-    jm, tm, jp, tp = _models(dtype, scan)
-    toks = np.random.default_rng(6).integers(0, jm.cfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    steps' logits, against JAX's ``prefill`` / ``decode_step``.  A
+    frontend config's 128 positions are its 16 frontend embeddings and 112
+    tokens, so JAX's Pallas flash body runs on them too."""
+    jm, tm, jp, tp = _models(dtype, scan, arch=arch)
+    batch = _prompt(jm.cfg, np.random.default_rng(6), 2, PROMPT)
     tol = MODEL_TOL[dtype]
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, CONTEXT)
+    jl, jc = jm.prefill(jp, _jax_batch(batch), CONTEXT)
     with torch.inference_mode():
-        tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, CONTEXT)
+        tl, tc = tm.prefill(tp, _torch_batch(batch), CONTEXT)
     _scaled_close(tl, jl, tol, "prefill logits")
     assert int(tc["pos"]) == int(jc["pos"]) == PROMPT
     assert jax.tree.structure(jc) == jax.tree.structure(jax.tree.map(lambda t: 0, tc))
@@ -301,43 +346,92 @@ def test_ring_cache_matches_jax_step_by_step(prompt, pallas_impl):
 @pytest.mark.parametrize("arch,dtype,tol", [
     pytest.param(arch, dtype, tol,
                  id=("" if arch == "qwen3-0.6b" else f"{arch}-") + f"{dtype}-{tol}")
-    for arch in ("qwen3-0.6b", "granite-8b", "stablelm-3b")
+    for arch in ("qwen3-0.6b", "granite-8b", "stablelm-3b") + NEW_ARCHS
     for dtype, tol in (("float32", 1e-5), ("bfloat16", 0.15))])
 def test_decode_continues_prefill(arch, dtype, tol):
     """prefill(t[:s]) then decode(t[s]) gives prefill(t[:s+1])'s last
     logits: ``tests/test_models_smoke.py``'s check on the port, at its
     bounds in bf16 (atol = rtol = 0.15) and 1e-5 in fp32, for the dense
-    configs it checks that the port has."""
+    configs it checks that the port has, minicpm3-4b's MLA (its absorbed
+    fp32 decode against the padded-V prefill) and the frontend configs
+    (both prefills after the same frontend embeddings, the cache's
+    position counting them)."""
     _, tm, _, tp = _models(dtype, True, seed=1, arch=arch)
-    toks = torch.from_numpy(
-        np.random.default_rng(1).integers(0, tm.cfg.vocab_size, (1, 17)).astype(np.int32))
+    f = tm.cfg.frontend_tokens
+    batch = _torch_batch(_prompt(tm.cfg, np.random.default_rng(1), 1, 17 + f))
+    toks = batch["tokens"]
     with torch.inference_mode():
-        full, _ = tm.prefill(tp, {"tokens": toks}, 64)
-        _, cache = tm.prefill(tp, {"tokens": toks[:, :-1]}, 64)
+        full, _ = tm.prefill(tp, batch, 64)
+        _, cache = tm.prefill(tp, {**batch, "tokens": toks[:, :-1]}, 64)
         step, cache = tm.decode_step(tp, {"tokens": toks[:, -1:]}, cache, 64)
     np.testing.assert_allclose(_f32(step[:, -1]), _f32(full[:, -1]), atol=tol, rtol=tol)
-    assert int(cache["pos"]) == 17
+    assert int(cache["pos"]) == 17 + f
 
 
-def test_generate_matches_jax_serve_loop():
-    """``launch.serve.generate`` against the loop of ``repro.launch.serve``
-    (jitted prefill, argmax, jitted decode steps), reduced, fp32: the same
-    tokens."""
-    jm, tm, jp, tp = _models("float32", False)
-    toks = np.random.default_rng(8).integers(0, jm.cfg.vocab_size, (2, 32)).astype(np.int32)
+def _generate_matches_jax_serve_loop(arch: str) -> None:
+    jm, tm, jp, tp = _models("float32", False, arch=arch)
+    batch = _prompt(jm.cfg, np.random.default_rng(8), 2, 32 + jm.cfg.frontend_tokens)
     n_tokens, ctx = 16, 128
     prefill = jax.jit(lambda p, b: jm.prefill(p, b, ctx))
     decode = jax.jit(lambda p, b, c: jm.decode_step(p, b, c, ctx))
-    logits, cache = prefill(jp, {"tokens": jnp.asarray(toks)})
+    logits, cache = prefill(jp, _jax_batch(batch))
     tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
     want = [np.asarray(tok)]
     for _ in range(n_tokens - 1):
         logits, cache = decode(jp, {"tokens": tok}, cache)
         tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
         want.append(np.asarray(tok))
-    got = generate(tm, tp, torch.from_numpy(toks), n_tokens=n_tokens, context_len=ctx)
+    tb = _torch_batch(batch)
+    got = generate(tm, tp, tb["tokens"], n_tokens=n_tokens, context_len=ctx,
+                   frontend=tb.get("frontend"))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.concatenate(want, axis=1))
+
+
+def test_generate_matches_jax_serve_loop():
+    """``launch.serve.generate`` against the loop of ``repro.launch.serve``
+    (jitted prefill, argmax, jitted decode steps), reduced, fp32: the same
+    tokens."""
+    _generate_matches_jax_serve_loop("qwen3-0.6b")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_generate_matches_jax_serve_loop_with_mla_and_frontends(arch):
+    """As above for minicpm3-4b (MLA, v width under the qk width) and the
+    frontend configs, ``generate(..., frontend=)`` given the serve loop's
+    frontend batch."""
+    _generate_matches_jax_serve_loop(arch)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embed_inputs_with_a_frontend_matches_jax(dtype):
+    """paligemma-3b reduced: the frontend (B, 16, 1152) fp32, cast to the
+    model dtype, projected by ``frontend_proj`` and prepended to the token
+    embeddings; after prefill the cache's position counts the frontend's 16
+    positions; a batch without the frontend is refused.  bf16 within the
+    layer tolerance; fp32 within the error of a 1152-term dot summed in
+    another order, 1152 * 2**-24 * sum_i |fe_i w_i| an entry."""
+    from repro.models import transformer as jtfm
+
+    jm, tm, jp, tp = _models(dtype, True, arch="paligemma-3b")
+    s, f = 24, jm.cfg.frontend_tokens
+    batch = _prompt(jm.cfg, np.random.default_rng(10), 2, s + f)
+    want = jtfm._embed_inputs(jm.cfg, jp, _jax_batch(batch))
+    got = tfm._embed_inputs(tm.cfg, tp, _torch_batch(batch))
+    assert tuple(got.shape) == tuple(want.shape) == (2, s + f, jm.cfg.d_model)
+    assert got.dtype == TDT[dtype]
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(_f32(got), _f32(want), **LAYER_TOL[dtype])
+    else:
+        fd = jm.cfg.frontend_dim
+        dot_abs = np.abs(batch["frontend"]) @ np.abs(np.asarray(jp["frontend_proj"]["w"]))
+        assert np.all(np.abs(_f32(got)[:, :f] - _f32(want)[:, :f]) <= fd * 2.0 ** -24 * dot_abs)
+        np.testing.assert_array_equal(_f32(got)[:, f:], _f32(want)[:, f:])  # the table rows
+    with torch.inference_mode():
+        _, cache = tm.prefill(tp, _torch_batch(batch), 64)
+        with pytest.raises(ValueError, match="frontend"):
+            tm.prefill(tp, {"tokens": _torch_batch(batch)["tokens"]}, 64)
+    assert int(cache["pos"]) == s + f == int(jm.prefill(jp, _jax_batch(batch), 64)[1]["pos"])
 
 
 def test_serve_main_runs_on_the_cpu_when_asked(capsys):
@@ -349,10 +443,18 @@ def test_serve_main_runs_on_the_cpu_when_asked(capsys):
     assert "generated (1, 4) tokens" in out and "on cpu" in out
 
 
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_serve_main_runs_mla_and_frontends_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", arch, "--device", "cpu", "--batch", "1", "--prompt-len", "8",
+                "--tokens", "4", "--context", "32"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}-reduced generated (1, 4) tokens" in out and "on cpu" in out
+
+
 # ---------------- what is not ported ----------------
 @pytest.mark.parametrize("change,what", [
-    pytest.param(dict(mla=MLAConfig()), "MLA", id="change0-MLA"),
-    pytest.param(dict(frontend_tokens=16), "frontend", id="change2-frontend"),
     pytest.param(dict(attn_layer_period=2, alt_kind="mlstm"), "mlstm", id="change3-mlstm"),
 ])
 def test_unported_features_raise_naming_their_item(change, what):
@@ -361,7 +463,36 @@ def test_unported_features_raise_naming_their_item(change, what):
         build_model(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("family", ["ssm", "vlm", "audio"])
+@pytest.mark.parametrize("arch", NEW_ARCHS + ("xlstm-1.3b",))
+def test_mla_and_frontend_configs_build_on_the_cpu(arch):
+    """MLA and the frontend tokens are ported: minicpm3-4b (dense, MLA),
+    paligemma-3b (vlm) and musicgen-medium (audio) build reduced on the
+    CPU, with JAX's mixer and frontend leaves; xlstm-1.3b (ssm: mLSTM and
+    sLSTM), which the port does not carry, still raises naming its item
+    when given JAX's config field for field."""
+    if arch == "xlstm-1.3b":
+        from repro_torch.configs.base import ArchConfig
+
+        j = jget_config(arch)
+        cfg = ArchConfig(**{f.name: getattr(j, f.name) for f in dataclasses.fields(j)
+                            if f.name not in ("mla", "moe", "ssm")}, ssm=SSMConfig())
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
+            build_model(cfg, device="cpu")
+        return
+    m = build_model(get_config(arch).reduced(), device="cpu")
+    p = m.init(0)
+    mixer = p["blocks"][0]["mixer"]
+    if arch == "minicpm3-4b":
+        assert sorted(mixer) == ["kv_norm", "q_norm", "wk_b", "wkv_a", "wo", "wq_a", "wq_b",
+                                 "wv_b"]
+        assert "frontend_proj" not in p
+    else:
+        assert "wq" in mixer and m.arch.frontend_tokens == 16
+        assert tuple(p["frontend_proj"]["w"].shape) == (m.arch.frontend_dim, m.arch.d_model)
+    assert all(t.device.type == "cpu" for t in tree_leaves(p))
+
+
+@pytest.mark.parametrize("family", ["ssm"])
 def test_unported_families_raise_naming_their_item(family):
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
