@@ -244,6 +244,19 @@ Phases (any failure exits non-zero):
    decode step of the whole stack under set_sync_debug_mode("error"), and
    layer 0's mla_forward and its mla_decode at the first three decode
    positions against the CPU on identical inputs.
+16. xLSTM serving: xlstm-1.3b at full width, nothing cut (3,579,976,016
+   params: 6 sLSTM layers of 4 x 512 and 42 mLSTM layers of 4 x 1024)
+   through phase 8's serving function at its shape: no hand-written kernel
+   launches in a prefill or a decode step, nothing else; bounds 2**-8 *
+   sqrt(roundings of the layers) (sLSTM 11, mLSTM 14); the card-vs-CPU
+   check on the first 4 layers (sLSTM, mLSTM x 3); a decode step of the
+   whole stack under set_sync_debug_mode("error"); layer 0's slstm_forward
+   and layer 1's mLSTM prefill, (C, n, m) and mlstm_decode at the next
+   three positions against the CPU on identical inputs; the mLSTM's fp32
+   quadratic form and final state timed beside their fp32 bound, the sLSTM
+   recurrence's host ms and device events a prefill, one mLSTM decode
+   layer timed.  A serving trace over 8 MB gzipped is replaced by the
+   profiler's per-op summary (DIR/<leg>_<phase>_trace.ops.txt).
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
@@ -252,8 +265,8 @@ DIR/round3_trace.json, DIR/mixed_fleet_round3_trace.json,
 DIR/fedadam_mixed_fleet_round3_trace.json, DIR/resnet_round3_trace.json.gz
 and DIR/population_round3_trace.json.gz, the serving traces to
 DIR/<leg>_{prefill,decode}_trace.json.gz for the legs serving, hybrid,
-deepseek, mixtral16, granite, stablelm, minicpm, paligemma and musicgen
-(DIR defaults to smoke_out).  If
+deepseek, mixtral16, granite, stablelm, minicpm, paligemma, musicgen and
+xlstm (DIR defaults to smoke_out).  If
 ``repro_torch`` cannot be imported (the script run away from the
 repository's ``src/``), it says so on stdout and exits 1.
 """
@@ -2173,6 +2186,25 @@ def export_gzipped_trace(prof, trace: Path) -> None:
     with open(trace, "rb") as raw, gzip.open(f"{trace}.gz", "wb") as packed:
         shutil.copyfileobj(raw, packed)
     trace.unlink()
+
+
+# a profiled call's trace is kept below this gzipped size, else its
+# per-op summary (an xLSTM prefill holds ~10^5 kernel events)
+TRACE_LIMIT_BYTES = 8 << 20
+
+
+def export_trace_or_summary(prof, trace: Path) -> dict:
+    """``export_gzipped_trace``, then, where the gzipped trace passes
+    ``TRACE_LIMIT_BYTES``, the profiler's per-op summary in its place."""
+    export_gzipped_trace(prof, trace)
+    packed = Path(f"{trace}.gz")
+    size = packed.stat().st_size
+    if size <= TRACE_LIMIT_BYTES:
+        return {"trace_gz_bytes": size, "trace": str(packed)}
+    packed.unlink()
+    summary = trace.with_suffix(".ops.txt")
+    summary.write_text(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    return {"trace_gz_bytes": size, "summary": str(summary)}
 
 
 def device_time(prof) -> tuple[float, dict]:
@@ -4845,6 +4877,9 @@ def segmented_wire_phase(card: str, out_dir: Path) -> dict:
 
 # ---------------- phases 8-9: the transformer serving paths ----------------
 QWEN3_PARAMS = 596_049_920    # qwen3-0.6b, embeddings tied
+# xlstm-1.3b at full width, from the JAX package's init shapes
+# (tests/test_torch_xlstm.py): 7,213,704,512 B in bf16
+XLSTM_PARAMS = 3_579_976_016
 # one 8-layer period of jamba-1.5-large-398b without its experts (phase 9),
 # counted from the JAX package's init shapes (tests/test_torch_hybrid.py)
 JAMBA_SLICE_PARAMS = 8_999_034_880
@@ -4924,7 +4959,8 @@ def frontend_of(cfg, rng, b: int, device) -> dict:
 def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
                   prefill_launches: dict, step_launches: dict, rel_l2_bound: float,
                   cpu_prompt: int, cpu_layers: int | None = None,
-                  cpu_bound: float | None = None) -> dict:
+                  cpu_bound: float | None = None,
+                  consistency_cut: tuple[int, float] | None = None) -> dict:
     """One transformer at full width from ``init(seed)`` on the card,
     served through ``launch.serve.generate``: B=8, prompt 1024 (after the
     config's frontend embeddings, numpy-drawn fp32, if it has them),
@@ -4944,14 +4980,20 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
     CPU checks hold their bounds only where the runs compared route every
     token alike (and, prefill against decode, neither prefill dropped a
     pair): differing routings and drop fractions are reported.  An MLA
-    stack also runs ``mla_layer_phase``.  A frontend config's consistency
-    check prefills the frontend and t[:-1] and decodes t[-1]."""
+    stack also runs ``mla_layer_phase``, an xLSTM stack
+    ``xlstm_layer_phase``.  With ``consistency_cut`` = (layers, bound) the
+    consistency check is held on the stack's first ``layers`` layers
+    within ``bound`` and the whole stack's error is reported beside it.  A
+    frontend config's consistency check prefills the frontend and t[:-1]
+    and decodes t[-1].  A trace whose gzipped size passes
+    ``TRACE_LIMIT_BYTES`` is replaced by the profiler's per-op summary."""
     import dataclasses
 
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
     from repro_torch.utils.pytree import tree_leaves, tree_size
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     model = build_model(cfg)
@@ -5078,15 +5120,20 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
                               if any(p in name for p in names))
                        for k, names in SERVING_KERNELS.items()}
             top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-            export_gzipped_trace(prof, out_dir / f"{tag}_{phase}_trace.json")
             out[f"{phase}_profile"] = {
                 "device_busy_ms": busy_us / 1e3, "port_kernels_us": port_us,
                 "idle_share": 1.0 - busy_us / 1e6 / host_s, "top_device_us": top,
+                "device_events": sum(1 for e in prof.events()
+                                     if e.device_type == DeviceType.CUDA),
+                **export_trace_or_summary(prof, out_dir / f"{tag}_{phase}_trace.json"),
             }
+            prof_out = out[f"{phase}_profile"]
+            kept = "the per-op summary kept instead" if "summary" in prof_out else "kept"
             print(f"{tag} {phase} profiled: card busy {busy_us / 1e3:.3f} ms, the port's "
                   f"kernels {({k: round(v, 1) for k, v in port_us.items() if v})} us; idle "
-                  f"{out[f'{phase}_profile']['idle_share']:.4f} of the unprofiled "
-                  f"{host_s * 1e3:.3f} ms ({card})", flush=True)
+                  f"{prof_out['idle_share']:.4f} of the unprofiled {host_s * 1e3:.3f} ms; "
+                  f"{prof_out['device_events']} device events, trace "
+                  f"{prof_out['trace_gz_bytes']} B gzipped ({kept}) ({card})", flush=True)
             for name, us in top:
                 print(f"  {us:10.1f} us  {name[:100]}", flush=True)
     del cache
@@ -5095,18 +5142,25 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
                                      decode_ms=decode_s * 1e3)
     if cfg.mla is not None:
         out["mla"] = mla_layer_phase(model, params, prompt, card, tag=tag)
+    if any(spec.kind in XLSTM_ROUNDINGS for spec in cfg.layer_plan()):
+        out["xlstm"] = xlstm_layer_phase(model, params, prompt, card, tag=tag)
 
     # prefill(t[:s]) + decode(t[s]) against prefill(t[:s+1]), at full width
     # (a frontend config's prefills both after the same frontend embeddings)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 257)).astype(np.int32)).cuda()
     fe2 = {k: v[:2] for k, v in fe.items()}
     ctx = 512 + cfg.frontend_tokens
-    with torch.inference_mode():
-        with MoEProbe() as whole:
-            full, _ = model.prefill(params, {"tokens": toks, **fe2}, ctx)
-        with MoEProbe() as parts:
-            _, cache = model.prefill(params, {"tokens": toks[:, :-1], **fe2}, ctx)
-            step, _ = model.decode_step(params, {"tokens": toks[:, -1:]}, cache, ctx)
+
+    def consistency(m, p):
+        with torch.inference_mode():
+            with MoEProbe() as whole:
+                full, _ = m.prefill(p, {"tokens": toks, **fe2}, ctx)
+            with MoEProbe() as parts:
+                _, cache = m.prefill(p, {"tokens": toks[:, :-1], **fe2}, ctx)
+                step, _ = m.decode_step(p, {"tokens": toks[:, -1:]}, cache, ctx)
+        return full, step, whole, parts
+
+    full, step, whole, parts = consistency(model, params)
     err = max(rel_l2(step[i, -1], full[i, -1]) for i in range(2))
     close = bool(torch.allclose(step.float(), full.float(), atol=0.15, rtol=0.15))
     n_moe = len(whole.routes)
@@ -5117,11 +5171,29 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
         for a, b in zip(parts.routes[:n_moe], parts.routes[n_moe:])])
     drops = {"longer": whole.drop_fracs(), "shorter": parts.drop_fracs()[:n_moe]}
     held = not any(flips) and not any(drops["longer"] + drops["shorter"])
-    check(f"{tag}, full width: prefill + decode = the longer prefill's logits (relative L2 <= "
-          f"{rel_l2_bound:.4f}, elementwise atol = rtol = 0.15 as tests/test_models_smoke.py)"
-          + (", held where no pair dropped and no routing differs" if n_moe else ""),
-          not held or (err <= rel_l2_bound and close), rel_l2=err, held=held,
-          max_abs_err=float((step.float() - full.float()).abs().max()))
+    max_abs_err = float((step.float() - full.float()).abs().max())
+    if consistency_cut is None:
+        check(f"{tag}, full width: prefill + decode = the longer prefill's logits (relative L2 "
+              f"<= {rel_l2_bound:.4f}, elementwise atol = rtol = 0.15 as "
+              "tests/test_models_smoke.py)"
+              + (", held where no pair dropped and no routing differs" if n_moe else ""),
+              not held or (err <= rel_l2_bound and close), rel_l2=err, held=held,
+              max_abs_err=max_abs_err)
+    else:
+        layers, bound = consistency_cut
+        full_c, step_c, _, _ = consistency(*first_layers(model, params, layers))
+        err_c = max(rel_l2(step_c[i, -1], full_c[i, -1]) for i in range(2))
+        check(f"{tag}, full width, the first {layers} layers: prefill + decode = the longer "
+              f"prefill's logits (relative L2 <= {bound:.4f}, elementwise atol = rtol = 0.15 "
+              f"as tests/test_models_smoke.py); the whole stack's reported",
+              err_c <= bound and bool(torch.allclose(step_c.float(), full_c.float(),
+                                                     atol=0.15, rtol=0.15)),
+              rel_l2=err_c, whole_stack_rel_l2=err, whole_stack_max_abs_err=max_abs_err)
+        out["prefill_decode_rel_l2_cut"] = {"layers": layers, "rel_l2": err_c}
+        print(f"{tag} prefill + decode against the longer prefill: the first {layers} layers "
+              f"{err_c:.3e} (bound {bound:.4f}), the whole stack {err:.3e}, max abs "
+              f"{max_abs_err:.3f}, reported ({card})", flush=True)
+        del full_c, step_c
     out["prefill_decode_rel_l2"] = err
     if n_moe:
         out["prefill_decode_moe"] = {"held": held, "routing_flips": flips, "drop_frac": drops}
@@ -5131,12 +5203,34 @@ def serving_phase(card: str, out_dir: Path, *, cfg, tag: str, n_params: int,
               f"prefill max {max(drops['longer']):.4f} mean "
               f"{statistics.mean(drops['longer']):.4f}, shorter max "
               f"{max(drops['shorter']):.4f} ({card})", flush=True)
-    del cache, full, step
+    del full, step
 
     out["card_vs_cpu"] = card_vs_cpu(model, params, rng, card, tag=tag,
                                      bound=cpu_bound or rel_l2_bound, prompt_len=cpu_prompt,
                                      layers=cpu_layers)
     return out
+
+
+def first_layers(model, params, layers: int):
+    """The model cut to its first ``layers`` layers, on its device, and
+    their params: views of the stacked leaves (per-layer views, the cut
+    built without ``scan_layers``, where it ends inside one period)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_map
+
+    cut = dataclasses.replace(model.arch, n_layers=layers)
+    period = model.arch.plan_period
+    if cut.scan_layers and cut.plan_period == period:
+        blocks = tree_map(lambda t: t[: layers // period], params["blocks"])
+    elif cut.scan_layers:
+        cut = dataclasses.replace(cut, scan_layers=False)
+        blocks = tuple(tree_map(lambda t, j=i // period: t[j], params["blocks"][i % period])
+                       for i in range(layers))
+    else:
+        blocks = params["blocks"][:layers]
+    return build_model(cut, device=model.device), {**params, "blocks": blocks}
 
 
 def card_vs_cpu(model, params, rng, card: str, *, tag: str, bound: float,
@@ -5152,7 +5246,6 @@ def card_vs_cpu(model, params, rng, card: str, *, tag: str, bound: float,
     MoE stack the bound and the top-1 check hold at the steps up to the
     first whose routing differs anywhere between the two runs; the
     differing (token, layer) routings are reported."""
-    import dataclasses
     import os
 
     from repro_torch.models import build_model
@@ -5160,13 +5253,7 @@ def card_vs_cpu(model, params, rng, card: str, *, tag: str, bound: float,
 
     torch.set_num_threads(os.cpu_count() or 1)
     if layers is not None:
-        cut = dataclasses.replace(model.arch, n_layers=layers)
-        if cut.scan_layers:
-            assert cut.plan_period == model.arch.plan_period
-            blocks = tree_map(lambda t: t[: layers // cut.plan_period], params["blocks"])
-        else:
-            blocks = params["blocks"][:layers]
-        params, model = {**params, "blocks": blocks}, build_model(cut)
+        model, params = first_layers(model, params, layers)
     cpu_model = build_model(model.arch, device="cpu")
     cpu_params = tree_map(lambda t: t.cpu(), params)
     toks = torch.from_numpy(rng.integers(0, model.arch.vocab_size, (1, prompt_len))
@@ -5607,6 +5694,238 @@ def mla_frontend_serving_phase(card: str, out_dir: Path) -> dict:
     return out
 
 
+# ---------------- phase 16: xLSTM serving ----------------
+# An xLSTM layer's roundings on the residual stream's path, counted as
+# phases 14 and 15 count them.  mLSTM: its norm (1), up_proj (1), the q, k
+# and v products (3), the quadratic form's (or the recurrent step's) output
+# cast to bf16 (1), the head-wise norm (1), silu's 4 steps on z (4), the
+# gate product (1), down_proj (1), the residual add (1): 14.  sLSTM: its
+# norm (1), w_in (1), the fp32 h cast to bf16 (1), up (1), silu's 4 steps
+# on g (4), the gate product (1), down (1), the residual add (1): 11.  The
+# gates, the recurrence, the states and the head-wise norms run in fp32.
+XLSTM_ROUNDINGS = {"mlstm": 14, "slstm": 11}
+XLSTM_CPU_LAYERS = 4          # the card-against-CPU check: sLSTM, mLSTM x 3
+XLSTM_CHECK_TOKENS = 128      # xlstm_layer_phase: 2 prompts' first 128 positions, then 3
+
+
+def xlstm_bound(cfg, layers: int | None = None) -> float:
+    """2**-8 * sqrt(the roundings of the stack's first ``layers`` layers)."""
+    plan = cfg.layer_plan()[:layers]
+    return 2 ** -8 * math.sqrt(sum(XLSTM_ROUNDINGS[spec.kind] for spec in plan))
+
+
+def xlstm_layer_phase(model, params, prompt, card: str, *, tag: str) -> dict:
+    """An xLSTM leg's checks and layer timings outside the counted main
+    path.  (1) After a prefill of the serving prompt, one decode step of
+    the whole stack under ``set_sync_debug_mode("error")``.  (2) On the
+    card against the port on the CPU, on identical bf16 inputs: layer 0's
+    ``slstm_forward`` (its output and fp32 carry) on its normed input at 2
+    prompts' first 128 positions; layer 1's mLSTM prefill (its output and
+    (C, n, m)) on its normed input after layer 0, then ``mlstm_decode`` at
+    the next three positions from that state (the card's, copied), the
+    first step under the sync debug mode; each within 2**-8 *
+    sqrt(XLSTM_ROUNDINGS of the layer) relative L2.  (2b) Every layer's
+    decode at position 256 from the state of its own 256-token prefill
+    against its 257-token prefill's output there, both fed the 257-token
+    run's inputs to that layer (2 prompts), within the same bounds: the
+    state handoff held at every layer without the stack's drift between
+    runs that round apart.  (3) At the serving
+    shape (B=8, 1024 positions, layer 1's projections of the serving
+    prompt): the device ms of the mLSTM's fp32 quadratic form and of the
+    prefill's final state beside their bound at the fp32 peak; one
+    ``slstm_forward``'s host ms and its device events (kernel launches and
+    copies), times the sLSTM layers a prefill; one layer's mLSTM decode
+    step's device ms beside the bytes its state moves."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import xlstm
+    from repro_torch.models.layers.embeddings import embed
+    from repro_torch.models.layers.norms import apply_norm
+    from repro_torch.utils.pytree import tree_map
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, bf16 = model.arch, torch.bfloat16
+    out = {}
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": prompt}, SERVE_CONTEXT)
+        torch.cuda.synchronize()
+        error, logits = None, None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, cache = model.decode_step(params, {"tokens": prompt[:, -1:]}, cache,
+                                              SERVE_CONTEXT)
+        except RuntimeError as err:
+            error = repr(err)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    del cache
+    check(f"{tag}: a decode step of the whole stack (B={SERVE_B}, after a {SERVE_PROMPT}-token "
+          "prefill) under set_sync_debug_mode('error'): no host sync, finite logits",
+          error is None and bool(torch.isfinite(logits).all()), error=error)
+
+    period = cfg.plan_period
+    blk = [tree_map(lambda t, j=i // period: t[j], params["blocks"][i % period])
+           if cfg.scan_layers else params["blocks"][i] for i in range(2)]
+    assert [cfg.layer_plan()[i].kind for i in range(2)] == ["slstm", "mlstm"]
+    cpu_p = [tree_map(lambda t: t.cpu(), b["mixer"]) for b in blk]
+    n = XLSTM_CHECK_TOKENS
+    bounds = {kind: 2 ** -8 * math.sqrt(r) for kind, r in XLSTM_ROUNDINGS.items()}
+    errs = {}
+    with torch.inference_mode():
+        x0 = embed(params["embed"], prompt[:2, :n + 3]).to(bf16)
+        h0 = apply_norm(cfg, blk[0]["norm1"], x0)
+        got = xlstm.slstm_forward(cfg, blk[0]["mixer"], h0)
+        want = xlstm.slstm_forward(cfg, cpu_p[0], h0.cpu())
+        errs["slstm output"] = rel_l2(got[0], want[0])
+        errs.update({f"slstm carry {k}": rel_l2(got[1][k], want[1][k]) for k in want[1]})
+        h1 = apply_norm(cfg, blk[1]["norm1"], x0 + got[0])
+        x_pre = h1[:, :n].contiguous()
+        got = xlstm.mlstm_forward(cfg, blk[1]["mixer"], x_pre)
+        want = xlstm.mlstm_forward(cfg, cpu_p[1], x_pre.cpu())
+        errs["mlstm prefill"] = rel_l2(got[0], want[0])
+        errs.update({f"mlstm prefill {k}": rel_l2(got[1][k], want[1][k]) for k in want[1]})
+        caches = {"card": got[1], "cpu": {k: v.to("cpu", copy=True) for k, v in got[1].items()}}
+        for i in range(3):
+            x = h1[:, n + i:n + i + 1].contiguous()
+            torch.cuda.synchronize()
+            if i == 0:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                o_card, _ = xlstm.mlstm_decode(cfg, blk[1]["mixer"], x, caches["card"])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            o_cpu, _ = xlstm.mlstm_decode(cfg, cpu_p[1], x.cpu(), caches["cpu"])
+            errs[f"mlstm decode at {n + i}"] = rel_l2(o_card, o_cpu)
+        errs.update({f"mlstm cache {k} after": rel_l2(caches["card"][k], caches["cpu"][k])
+                     for k in ("C", "n", "m")})
+    out["card_vs_cpu_layer"] = errs
+    check(f"{tag}: layer 0's slstm_forward and layer 1's mLSTM prefill, (C, n, m) and "
+          "mlstm_decode at the next 3 positions on the card against the CPU on identical bf16 "
+          f"inputs, the first step without a host sync: each within relative L2 "
+          f"{bounds['slstm']:.4f} (sLSTM) / {bounds['mlstm']:.4f} (mLSTM)",
+          all(e <= bounds[name[:5]] for name, e in errs.items()), **errs)
+
+    # (2b) every layer's decode at position 256 against the longer prefill's
+    # output there, on identical inputs: the stack's inputs of the 257-token
+    # prefill, each layer's state from its own 256-token prefill
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 257))
+                            .astype(np.int32)).to(model.device)
+    layer_errs = []
+    with torch.inference_mode():
+        x = embed(params["embed"], toks).to(bf16)
+        for spec, p in tfm._layers(cfg, params["blocks"]):
+            forward, decode = tfm._RECURRENT[spec.kind]
+            h = apply_norm(cfg, p["norm1"], x)
+            longer, _ = forward(cfg, p["mixer"], h)
+            _, state = forward(cfg, p["mixer"], h[:, :-1])
+            step, _ = decode(cfg, p["mixer"], h[:, -1:], state)
+            layer_errs.append(rel_l2(step, longer[:, -1:]))
+            x = x + longer
+    out["prefill_decode_per_layer"] = layer_errs
+    kinds = [spec.kind for spec in cfg.layer_plan()]
+    check(f"{tag}: each of the {cfg.n_layers} layers' decode at position 256 from its "
+          "256-token prefill's state against its 257-token prefill's output there, on the "
+          "longer prefill's inputs: within relative L2 2**-8 * sqrt(the layer's roundings)",
+          all(e <= bounds[k] for e, k in zip(layer_errs, kinds)),
+          max_slstm=max(e for e, k in zip(layer_errs, kinds) if k == "slstm"),
+          max_mlstm=max(e for e, k in zip(layer_errs, kinds) if k == "mlstm"))
+
+    # (3) the layers at the serving shape
+    f32_peak = 67e12   # H100 SXM fp32 on the CUDA cores (datasheet peak)
+    with torch.inference_mode():
+        x = apply_norm(cfg, blk[1]["norm1"], embed(params["embed"], prompt).to(bf16))
+        x_in, _ = torch.chunk(torch.matmul(x, blk[1]["mixer"]["up_proj"]), 2, dim=-1)
+        q, k, v, ig, lf = xlstm._mlstm_qkv_gates(cfg, blk[1]["mixer"], x_in)
+        b, s, h, d = q.shape
+        quad_flop = 2 * 2 * b * h * s * s * d      # q . k^T and P . V over every key
+        state_flop = 2 * b * h * s * d * d
+        out["mlstm_quadratic_ms"] = time_ms(lambda: xlstm.mlstm_parallel(q, k, v, ig, lf),
+                                            iters=10)
+        out["mlstm_final_state_ms"] = time_ms(lambda: xlstm._mlstm_final_state(k, v, ig, lf),
+                                              iters=10)
+        out["mlstm_quadratic_bound_ms"] = quad_flop / f32_peak * 1e3
+        out["mlstm_final_state_bound_ms"] = state_flop / f32_peak * 1e3
+        del q, k, v, x_in
+        h0 = apply_norm(cfg, blk[0]["norm1"], embed(params["embed"], prompt).to(bf16))
+        xlstm.slstm_forward(cfg, blk[0]["mixer"], h0)   # warm
+        host_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xlstm.slstm_forward(cfg, blk[0]["mixer"], h0)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        out["slstm_forward_host_ms_all"] = host_ms
+        out["slstm_forward_host_ms"] = statistics.median(host_ms)
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        xlstm.slstm_forward(cfg, blk[0]["mixer"], h0)
+        torch.cuda.synchronize()
+        prof.stop()
+        busy_us, _ = device_time(prof)
+        out["slstm_forward_device_events"] = sum(1 for e in prof.events()
+                                                 if e.device_type == DeviceType.CUDA)
+        out["slstm_forward_busy_ms"] = busy_us / 1e3
+        n_slstm = sum(spec.kind == "slstm" for spec in cfg.layer_plan())
+        out["slstm_prefill_host_ms"] = n_slstm * out["slstm_forward_host_ms"]
+        out["slstm_prefill_device_events"] = n_slstm * out["slstm_forward_device_events"]
+        c8 = xlstm.init_mlstm_cache(cfg, SERVE_B, device=model.device)
+        x8 = torch.randn(SERVE_B, 1, cfg.d_model, device=model.device).to(bf16)
+        out["mlstm_decode_layer_ms"] = time_ms(
+            lambda: xlstm.mlstm_decode(cfg, blk[1]["mixer"], x8, c8), iters=10)
+        out["mlstm_state_bytes_a_layer"] = c8["C"].numel() * 4
+    print(f"{tag} xLSTM layers card vs CPU: {json.dumps(errs)} (bounds {bounds}); each "
+          f"layer's decode against the longer prefill: {[f'{e:.2e}' for e in layer_errs]}; "
+          f"at B={b}, "
+          f"S={s}, H={h}, D={d}: the mLSTM's fp32 quadratic form {out['mlstm_quadratic_ms']:.3f} "
+          f"ms (bound {out['mlstm_quadratic_bound_ms']:.3f} at 67 TFLOP/s), its final state "
+          f"{out['mlstm_final_state_ms']:.3f} ms (bound {out['mlstm_final_state_bound_ms']:.3f})"
+          f"; one slstm_forward {out['slstm_forward_host_ms']:.1f} ms host (median of "
+          f"{[round(t, 1) for t in host_ms]}), "
+          f"{out['slstm_forward_device_events']} device events, card busy "
+          f"{out['slstm_forward_busy_ms']:.1f} ms; x {n_slstm} layers a prefill: "
+          f"{out['slstm_prefill_host_ms']:.1f} ms, {out['slstm_prefill_device_events']} events; "
+          f"one layer's mLSTM decode step {out['mlstm_decode_layer_ms']:.4f} ms (event brackets, "
+          f"host enqueue included; its C {out['mlstm_state_bytes_a_layer'] / 1e6:.1f} MB) "
+          f"({card})", flush=True)
+    return out
+
+
+def xlstm_serving_phase(card: str, out_dir: Path) -> dict:
+    """Phase 16: xlstm-1.3b at full width, nothing cut (48 layers, sLSTM
+    at 0, 8, ..., 40 with 4 heads of 512, mLSTM elsewhere at d_inner 4096
+    with 4 heads of 1024, no FFN, vocab 50,304, untied lm_head, bf16,
+    stacked by the period of 8), through ``serving_phase`` at phase 8's
+    shape: no hand-written kernel launches in a prefill or a decode step
+    (the mixers are matrix products and elementwise ops, in fp32 where
+    JAX's are), plus ``xlstm_layer_phase``.  Bounds 2**-8 * sqrt(the
+    roundings of the layers, ``XLSTM_ROUNDINGS``).  The card against the
+    CPU and prefill + decode against the longer prefill are held on the
+    first 4 layers, the latter reported over the whole stack too: with
+    random weights two bf16 runs of this stack that round apart drift
+    ~8e-3 a layer, coherently, on the card and on the CPU alike (0.39 at
+    layer 48; fp32 5.2e-4), past any bound that adds roundings in random
+    directions.  ``xlstm_layer_phase`` holds the decode against the
+    prefill at every layer on identical inputs.  The weights are freed at
+    the end."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config("xlstm-1.3b")
+    cut_bound = xlstm_bound(cfg, XLSTM_CPU_LAYERS)
+    out = serving_phase(card, out_dir, cfg=cfg, tag="xlstm", n_params=XLSTM_PARAMS,
+                        prefill_launches={}, step_launches={}, rel_l2_bound=xlstm_bound(cfg),
+                        cpu_prompt=32, cpu_layers=XLSTM_CPU_LAYERS, cpu_bound=cut_bound,
+                        consistency_cut=(XLSTM_CPU_LAYERS, cut_bound))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 16 (xLSTM serving): {out['seconds']:.2f} s ({card})", flush=True)
+    return out
+
+
 def aside(r: dict) -> str:
     """A timing's yardsticks beside the kernel's own: the TopK reduce's
     output fill, the copy floor (FedAvg reduce, codec), the codec's encode
@@ -5683,6 +6002,7 @@ def main() -> int:
     REPORT["segmented"] = segmented_wire_phase(card, args.out)
     REPORT["moe_serving"] = moe_dense_serving_phase(card, args.out)
     REPORT["mla_frontend_serving"] = mla_frontend_serving_phase(card, args.out)
+    REPORT["xlstm_serving"] = xlstm_serving_phase(card, args.out)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):

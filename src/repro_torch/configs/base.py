@@ -197,8 +197,7 @@ def get_config(name: str) -> ArchConfig:
     return _REGISTRY[name]
 
 
-# the port carries the configs of the models it runs (ROADMAP.md queue 1
-# item 15 adds the last: xLSTM)
+# the port carries the configs of every model the JAX package runs
 _ARCH_MODULES = (
     "deepseek_moe_16b",
     "granite_8b",
@@ -211,6 +210,7 @@ _ARCH_MODULES = (
     "qwen3_0_6b",
     "resnet18_cifar10",
     "stablelm_3b",
+    "xlstm_1_3b",
 )
 
 _loaded = False

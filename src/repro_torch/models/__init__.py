@@ -9,10 +9,11 @@ methods are plain functions on nested dicts of tensors:
     prefill / decode_step / init_cache (transformers)
 
 The port runs the ``head`` and ``cnn`` (ResNet-18) families and the
-serving path (prefill + decode) of the transformers whose layers it has:
-attention, MLA, mamba, the gated MLP, the MoE feed-forward and the
-frontend tokens, so the dense, MoE, hybrid, vlm and audio families.  What
-is not ported raises ``NotImplementedError`` naming its ROADMAP.md item.
+serving path (prefill + decode) of every transformer family (dense, MoE,
+ssm, hybrid, vlm, audio): attention, MLA, mamba, mLSTM, sLSTM, the gated
+MLP, the MoE feed-forward and the frontend tokens.  Transformer training
+is not ported yet and raises ``NotImplementedError`` naming its
+ROADMAP.md item; an unknown family raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -27,10 +28,7 @@ from repro_torch.utils.pytree import tensor_from_numpy, tree_map
 
 PyTree = Any
 
-# the families none of whose models the port can run yet, and what they need
-_NOT_PORTED = {
-    "ssm": "the mLSTM/sLSTM mixers (xLSTM) are ROADMAP.md queue 1 item 15",
-}
+_TRANSFORMER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclass(frozen=True)
@@ -81,9 +79,9 @@ def build_model(arch, *, device=None) -> Model:
             loss_fn=lambda p, b: resnet.loss_fn(cfg, p, b),
         )
 
-    if arch_cfg.family in ("dense", "moe", "hybrid", "vlm", "audio"):
+    if arch_cfg.family in _TRANSFORMER_FAMILIES:
         # what a transformer needs is read from its layers: check_ported
-        # raises for a layer kind not ported yet
+        # raises for a plan it cannot build
         from . import transformer as tfm
 
         cfg = arch_cfg
@@ -100,10 +98,7 @@ def build_model(arch, *, device=None) -> Model:
             init_cache=lambda batch, ctx: tfm.init_cache(cfg, batch, ctx, device=dev),
         )
 
-    raise NotImplementedError(
-        f"{arch_cfg.name} ({arch_cfg.family} family) is not ported yet: "
-        + _NOT_PORTED[arch_cfg.family]
-    )
+    raise ValueError(f"{arch_cfg.name}: unknown model family {arch_cfg.family!r}")
 
 
 def params_from_numpy(tree: PyTree, device) -> PyTree:

@@ -1,31 +1,31 @@
-"""Decoder-only stack, the twin of ``repro.models.transformer`` for the
-dense, MoE, hybrid, vlm and audio families: pre-norm mixer (attention, MLA
-where ``cfg.mla`` is set, or mamba, by the layer plan) + pre-norm
-feed-forward (the gated MLP, or the MoE layer where the plan marks it)
-blocks.  A config with ``frontend_tokens`` takes ``batch["frontend"]``
-(B, F, frontend_dim), cast to the model dtype, projected by
-``frontend_proj`` and prepended to the token embeddings; after prefill the
-cache's ``pos`` counts those F positions, and decode takes tokens only.
+"""Decoder-only stack, the twin of ``repro.models.transformer`` for every
+transformer family (dense, MoE, ssm, hybrid, vlm, audio): pre-norm mixer
+(attention, MLA where ``cfg.mla`` is set, mamba, mLSTM or sLSTM, by the
+layer plan) + pre-norm feed-forward (the gated MLP, or the MoE layer where
+the plan marks it; none where ``d_ff`` is 0, as in xLSTM) blocks.  A config
+with ``frontend_tokens`` takes ``batch["frontend"]`` (B, F, frontend_dim),
+cast to the model dtype, projected by ``frontend_proj`` and prepended to
+the token embeddings; after prefill the cache's ``pos`` counts those F
+positions, and decode takes tokens only.
 
 Params and caches keep the JAX trees exactly, so one ``params_from_numpy``
 carries either across: ``blocks`` (and a cache's ``layers``) is a tuple of
 per-position dicts whose leaves are stacked ``(L / period, ...)`` when
 ``scan_layers``, and a tuple of per-layer dicts otherwise.  A cache holds
 K and V at an attention position (the latent ``c_kv`` and ``k_rope`` under
-MLA) and the (conv, ssm) state at a mamba one.  Where JAX scans over the
-stacked leaves, the port loops over layers and indexes views of them:
-nothing is unstacked or copied.  A cache's
-``pos`` is a host-side int32 scalar, so a decode step reads it once and no
-layer waits on the card.
+MLA), the (conv, ssm) state at a mamba one, (C, n, m) at an mLSTM one and
+(c, n, h, m) at an sLSTM one.  Where JAX scans over the stacked leaves,
+the port loops over layers and indexes views of them: nothing is unstacked
+or copied.  A cache's ``pos`` is a host-side int32 scalar, so a decode step
+reads it once and no layer waits on the card.
 
 The MoE layers' aux terms (``AUX_KEYS``) are summed over the stack as
 JAX's ``_run_stack`` sums them: ``forward`` returns them beside the
 logits; prefill and decode drop them, as JAX's do.  The capacity factor
 is JAX's: 1.25 in ``block_forward`` and prefill, 2.0 in ``block_decode``.
 
-Not ported yet (each raises ``NotImplementedError``): mLSTM/sLSTM and
-training (``loss_fn`` / ``cross_entropy``); both are ROADMAP.md queue 1
-item 15.
+Not ported yet (each raises ``NotImplementedError``): training
+(``loss_fn`` / ``cross_entropy``), ROADMAP.md queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from .layers import attention as attn_lib
 from .layers import mamba as mamba_lib
 from .layers import mla as mla_lib
 from .layers import moe as moe_lib
+from .layers import xlstm as xlstm_lib
 from .layers.embeddings import embed, init_embedding, normal
 from .layers.mlp import init_mlp, mlp_forward
 from .layers.norms import apply_norm, init_norm
@@ -47,6 +48,13 @@ from .layers.norms import apply_norm, init_norm
 PyTree = Any
 _ITEM = "ROADMAP.md queue 1 item 15"
 AUX_KEYS = ("moe_aux", "moe_z", "moe_drop_frac")
+# the recurrent mixers: forward -> (out, final state), decode writing its
+# cache in place
+_RECURRENT = {
+    "mamba": (mamba_lib.mamba_forward, mamba_lib.mamba_decode),
+    "mlstm": (xlstm_lib.mlstm_forward, xlstm_lib.mlstm_decode),
+    "slstm": (xlstm_lib.slstm_forward, xlstm_lib.slstm_decode),
+}
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -54,11 +62,10 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for what the port's transformer does not run yet."""
+    """Raise for a layer plan the transformer cannot build."""
     for spec in cfg.layer_plan():
-        if spec.kind in ("mlstm", "slstm"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {spec.kind} mixer is not ported yet ({_ITEM})")
+        if spec.kind != "attn" and spec.kind not in _RECURRENT:
+            raise ValueError(f"{cfg.name}: unknown layer kind {spec.kind!r}")
         if spec.kind == "mamba" and cfg.ssm is None:
             raise ValueError(f"{cfg.name}: a mamba layer needs cfg.ssm (d_state, d_conv, "
                              "expand)")
@@ -72,8 +79,14 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, *, lead=(
     dt = _dtype(cfg)
     if spec.kind == "attn":
         init_mixer = attn_lib.init_attention if cfg.mla is None else mla_lib.init_mla
-    else:
+    elif spec.kind == "mamba":
         init_mixer = mamba_lib.init_mamba
+    elif spec.kind == "mlstm":
+        init_mixer = xlstm_lib.init_mlstm
+    elif spec.kind == "slstm":
+        init_mixer = xlstm_lib.init_slstm
+    else:
+        raise ValueError(spec.kind)
     p: dict = {
         "norm1": init_norm(cfg, cfg.d_model, lead=lead, device=device),
         "mixer": init_mixer(gen, cfg, dt, lead=lead, device=device),
@@ -103,7 +116,7 @@ def block_forward(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tenso
     """Full-sequence pass of one block -> (x, the MoE aux dict or None).
     Given this layer's ``cache`` (prefill), what its mixer leaves for
     decode is written into it: the K and V its attention projected (MLA's
-    latents), or the mamba layer's final (conv, ssm) state."""
+    latents), or a recurrent mixer's final state."""
     h = apply_norm(cfg, params["norm1"], x)
     if spec.kind == "attn" and cfg.mla is not None:
         out, c_kv, k_rope = mla_lib.mla_forward(cfg, params["mixer"], h, window=window)
@@ -115,11 +128,13 @@ def block_forward(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tenso
         if cache is not None:
             _ring_arrange(k, cache["k"], ring)
             _ring_arrange(v, cache["v"], ring)
-    else:
-        out, state = mamba_lib.mamba_forward(cfg, params["mixer"], h)
+    elif spec.kind in _RECURRENT:
+        out, state = _RECURRENT[spec.kind][0](cfg, params["mixer"], h)
         if cache is not None:
-            cache["conv"].copy_(state["conv"])
-            cache["ssm"].copy_(state["ssm"])
+            for key, t in state.items():
+                cache[key].copy_(t)
+    else:
+        raise ValueError(spec.kind)
     return _ffn(cfg, spec, params, x + out, 1.25)
 
 
@@ -132,8 +147,10 @@ def block_decode(cfg: ArchConfig, spec: LayerSpec, params: dict, x: torch.Tensor
     if spec.kind == "attn":
         decode = attn_lib.attention_decode if cfg.mla is None else mla_lib.mla_decode
         out, cache = decode(cfg, params["mixer"], h, cache, pos, ring=ring, valid=valid)
+    elif spec.kind in _RECURRENT:
+        out, cache = _RECURRENT[spec.kind][1](cfg, params["mixer"], h, cache)
     else:
-        out, cache = mamba_lib.mamba_decode(cfg, params["mixer"], h, cache)
+        raise ValueError(spec.kind)
     return _ffn(cfg, spec, params, x + out, 2.0)[0], cache
 
 
@@ -253,8 +270,9 @@ def init_cache(cfg: ArchConfig, batch: int, context_len: int, *, device=None) ->
     """Each layer's cache by its kind: K and V (B, cache_len, KV, hd) for
     attention (under MLA the latents c_kv (B, cache_len, kv_lora_rank) and
     k_rope (B, cache_len, rope)), conv (B, d_conv - 1, di) and fp32 ssm
-    (B, di, N) state for mamba; stacked ``(L / period, ...)`` per position
-    when ``scan_layers``."""
+    (B, di, N) state for mamba, fp32 C (B, H, hd, hd), n (B, H, hd) and m
+    (B, H) for mLSTM, fp32 c, n, h and m (B, H, hd) for sLSTM; stacked
+    ``(L / period, ...)`` per position when ``scan_layers``."""
     check_ported(cfg)
     _, cache_len = _ring(cfg, context_len)
     dt = _dtype(cfg)
@@ -264,7 +282,13 @@ def init_cache(cfg: ArchConfig, batch: int, context_len: int, *, device=None) ->
         if spec.kind == "attn":
             init = attn_lib.init_kv_cache if cfg.mla is None else mla_lib.init_mla_cache
             return init(cfg, batch, cache_len, dt, lead=lead, device=device)
-        return mamba_lib.init_mamba_cache(cfg, batch, dt, lead=lead, device=device)
+        if spec.kind == "mamba":
+            return mamba_lib.init_mamba_cache(cfg, batch, dt, lead=lead, device=device)
+        if spec.kind == "mlstm":
+            return xlstm_lib.init_mlstm_cache(cfg, batch, lead=lead, device=device)
+        if spec.kind == "slstm":
+            return xlstm_lib.init_slstm_cache(cfg, batch, lead=lead, device=device)
+        raise ValueError(spec.kind)
 
     if not cfg.scan_layers:
         layers = tuple(one(plan[i], ()) for i in range(cfg.n_layers))
@@ -277,8 +301,9 @@ def init_cache(cfg: ArchConfig, batch: int, context_len: int, *, device=None) ->
 def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict, *,
                 context_len: int):
     """One-token decode: batch {"tokens": (B,1)} -> (logits (B,1,V), cache).
-    The cache's K and V (MLA's latents) are written in place; the returned
-    cache holds the same tensors and ``pos + 1``."""
+    The cache's K and V (MLA's latents) and the recurrent states are
+    written in place; the returned cache holds the same tensors and
+    ``pos + 1``."""
     ring, cache_len = _ring(cfg, context_len)
     pos = int(cache["pos"])  # host-side: no sync (a card tensor syncs once a step)
     x = embed(params["embed"], batch["tokens"]).to(_dtype(cfg))

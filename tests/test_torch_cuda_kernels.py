@@ -1247,3 +1247,53 @@ def test_cuda_mla_matches_the_cpu_without_a_host_sync(cuda):
         assert rel(out, ref_out) <= bound, pos
     for key in ("c_kv", "k_rope"):
         assert rel(caches[0][key], caches[1][key]) <= bound, key
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_matches_the_cpu_without_a_host_sync(cuda):
+    """xlstm-1.3b reduced (sLSTM, mLSTM, sLSTM, mLSTM, stacked; each with
+    the reduced config's MLP), bf16, on the card against the plain path on
+    the CPU from the same weights: the prefill's logits and caches and 3
+    decode steps fed the CPU's tokens, each step under
+    ``set_sync_debug_mode("error")`` (a host sync raises), within
+    chip_smoke.py's a-priori bound 2**-8 * sqrt(roundings a layer x
+    layers) relative L2 (sLSTM 11 and mLSTM 14, ``XLSTM_ROUNDINGS``, and
+    the MLP's 8); no hand-written kernel launches."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(get_config("xlstm-1.3b").reduced(), n_layers=4,
+                              xlstm_slstm_every=2, scan_layers=True)
+    bound = 2 ** -8 * (2 * (11 + 8) + 2 * (14 + 8)) ** 0.5
+    cpu_model, card_model = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu_model.init(0)
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 512))
+                            .astype(np.int32))
+
+    def rel(a, b):
+        a, b = a.cpu().double(), b.double()
+        return float((a - b).norm() / b.norm())
+
+    before = ops.launch_counts()
+    with torch.inference_mode():
+        want, cpu_cache = cpu_model.prefill(params, {"tokens": toks}, 1024)
+        got, cache = card_model.prefill(card_params, {"tokens": toks.to(cuda)}, 1024)
+        assert rel(got, want) <= bound
+        for a, b in zip(tree_leaves(cache["layers"]), tree_leaves(cpu_cache["layers"])):
+            assert a.is_cuda and a.dtype == torch.float32 and rel(a, b) <= bound
+        for _ in range(3):
+            tok = torch.argmax(want[:, -1], -1)[:, None].to(torch.int32)
+            want, cpu_cache = cpu_model.decode_step(params, {"tokens": tok}, cpu_cache, 1024)
+            tok = tok.to(cuda)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, cache = card_model.decode_step(card_params, {"tokens": tok}, cache, 1024)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert rel(got, want) <= bound
+    assert ops.launch_counts() == before

@@ -98,9 +98,9 @@ def test_build_model_runs_on_the_card_unless_asked():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model("mobilenet-head-office31")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # a family not ported yet
+    with pytest.raises(ValueError, match="unknown model family 'rnn'"):  # every family is ported
         build_model(dataclasses.replace(
-            get_config("mobilenet-head-office31"), name="ssm", family="ssm"
+            get_config("mobilenet-head-office31"), name="rnn", family="rnn"
         ), device="cpu")
 
 

@@ -453,32 +453,13 @@ def test_serve_main_runs_mla_and_frontends_on_the_cpu(arch, capsys):
     assert f"arch={arch}-reduced generated (1, 4) tokens" in out and "on cpu" in out
 
 
-# ---------------- what is not ported ----------------
-@pytest.mark.parametrize("change,what", [
-    pytest.param(dict(attn_layer_period=2, alt_kind="mlstm"), "mlstm", id="change3-mlstm"),
-])
-def test_unported_features_raise_naming_their_item(change, what):
-    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md queue 1 item 15"):
-        build_model(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("arch", NEW_ARCHS + ("xlstm-1.3b",))
+# ---------------- building, and what is not ported ----------------
+@pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_mla_and_frontend_configs_build_on_the_cpu(arch):
     """MLA and the frontend tokens are ported: minicpm3-4b (dense, MLA),
     paligemma-3b (vlm) and musicgen-medium (audio) build reduced on the
-    CPU, with JAX's mixer and frontend leaves; xlstm-1.3b (ssm: mLSTM and
-    sLSTM), which the port does not carry, still raises naming its item
-    when given JAX's config field for field."""
-    if arch == "xlstm-1.3b":
-        from repro_torch.configs.base import ArchConfig
-
-        j = jget_config(arch)
-        cfg = ArchConfig(**{f.name: getattr(j, f.name) for f in dataclasses.fields(j)
-                            if f.name not in ("mla", "moe", "ssm")}, ssm=SSMConfig())
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
-            build_model(cfg, device="cpu")
-        return
+    CPU, with JAX's mixer and frontend leaves (xlstm-1.3b's build:
+    ``tests/test_torch_xlstm.py``)."""
     m = build_model(get_config(arch).reduced(), device="cpu")
     p = m.init(0)
     mixer = p["blocks"][0]["mixer"]
@@ -490,28 +471,6 @@ def test_mla_and_frontend_configs_build_on_the_cpu(arch):
         assert "wq" in mixer and m.arch.frontend_tokens == 16
         assert tuple(p["frontend_proj"]["w"].shape) == (m.arch.frontend_dim, m.arch.d_model)
     assert all(t.device.type == "cpu" for t in tree_leaves(p))
-
-
-@pytest.mark.parametrize("family", ["ssm"])
-def test_unported_families_raise_naming_their_item(family):
-    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
-        build_model(cfg, device="cpu")
-
-
-_JAMBA = "jamba-1.5-large-398b"
-
-
-@pytest.mark.parametrize("make,what", [
-    (lambda: dataclasses.replace(get_config(_JAMBA).reduced(), moe=None, alt_kind="mlstm"),
-     "mlstm"),
-], ids=["hybrid-mlstm"])
-def test_unported_hybrids_raise_naming_their_item(make, what):
-    """The hybrid family builds by what its layers need: a hybrid of
-    attention and mLSTM needs mLSTM (Jamba with its experts builds:
-    ``tests/test_torch_moe.py``)."""
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md queue 1 item 15"):
-        build_model(make(), device="cpu")
 
 
 def test_mamba_layers_need_an_ssm_config():
