@@ -257,6 +257,34 @@ Phases (any failure exits non-zero):
    recurrence's host ms and device events a prefill, one mLSTM decode
    layer timed.  A serving trace over 8 MB gzipped is replaced by the
    profiler's per-op summary (DIR/<leg>_<phase>_trace.ops.txt).
+17. LM fine-tuning (dense transformer training): (a) the forward's lse and
+   the hand-written flash backward (flash_attention_bwd) against
+   ref.attention_with_lse / ref.attention_bwd and autograd of
+   ref.attention within 2e-5 (fp32) / 2e-2 (bf16) of each tensor's
+   max-abs, at the training shape (B·C = 8, S = 512, H 16 over KV 8, D
+   128, causal) in bf16 and fp32, GQA 32/8, D = 80 and 64, a window at a
+   q_offset, ragged S = 300, not causal at D = 256 and rows with no valid
+   key; at the training shape the backward and the forward with lse timed
+   through the wrapper and as a bare launch beside their bounds, the plain
+   backward and scaled_dot_product_attention's forward and backward;
+   ptxas' registers and spills of the 12 backward kernels; (b) qwen3-0.6b
+   at full width cut to 2 layers: loss_fn's value and every leaf's
+   gradient on the card against the port's CPU route on identical inputs,
+   fp32 (2 x 512 tokens) and bf16 (1 x 256); (c) qwen3-0.6b at full width
+   (28 layers, 596,049,920 params, bf16) on make_round_step in parallel
+   mode as repro_torch/examples/federated_llm_finetune.py builds it (C = 4
+   clients, 2 x 512 tokens, 2 local steps, sgd(0.1), FedAvg, 3 rounds)
+   with the fp32 wire, Int8 and LoRA rank 4 with Int8 factors: per round
+   exactly 56 flash forward and 56 backward launches (one a layer and
+   local step for the whole cohort) and the codec's (none for fp32's
+   leafwise mean; Int8 a quantize, a dequantize and a dequant_reduce a
+   segment; LoRA those of each fallback segment and a quantize and a
+   dequantize of each matrix segment's factors), no kernels.ref call,
+   finite losses and params; round seconds, trained tokens/s, peak memory,
+   and a profiled fourth Int8 round (card idle share, the flash backward's
+   share of card time; DIR/lm_finetune_round_trace.json.gz); (d) the
+   example at its defaults on the card (8 rounds): the last round's loss
+   below the first's.
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
@@ -266,7 +294,8 @@ DIR/fedadam_mixed_fleet_round3_trace.json, DIR/resnet_round3_trace.json.gz
 and DIR/population_round3_trace.json.gz, the serving traces to
 DIR/<leg>_{prefill,decode}_trace.json.gz for the legs serving, hybrid,
 deepseek, mixtral16, granite, stablelm, minicpm, paligemma, musicgen and
-xlstm (DIR defaults to smoke_out).  If
+xlstm, phase 17's profiled round to DIR/lm_finetune_round_trace.json.gz
+(DIR defaults to smoke_out).  If
 ``repro_torch`` cannot be imported (the script run away from the
 repository's ``src/``), it says so on stdout and exits 1.
 """
@@ -1286,8 +1315,8 @@ def attention_kernel_checks(dev, launch) -> dict:
             ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
             launch_ms=time_ms(launch(
                 "flash_attention", "repro_flash_attention_bf16", "flash_attention",
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, skv, h, kv, d,
-                1, -1, 0, float(d ** -0.5))),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, b, sq, skv, h,
+                kv, d, 1, -1, 0, float(d ** -0.5))),
             plain_ms=time_ms(lambda: ref.attention(q, k, v, **kw)),
             library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
@@ -1360,7 +1389,8 @@ def attention_kernel_checks(dev, launch) -> dict:
             ms=time_ms(lambda: ops.flash_attention(q, k, v)),
             launch_ms=time_ms(launch(
                 "flash_attention", entry, "flash_attention", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), b, sq, sq, h, kv, d, 1, -1, 0, float(d ** -0.5))),
+                v.data_ptr(), o.data_ptr(), None, b, sq, sq, h, kv, d, 1, -1, 0,
+                float(d ** -0.5))),
             plain_ms=time_ms(lambda: ref.attention(q, k, v), iters=5),
             library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
@@ -5926,6 +5956,424 @@ def xlstm_serving_phase(card: str, out_dir: Path) -> dict:
     return out
 
 
+# ---------------- phase 17: LM fine-tuning (dense transformer training) ----------------
+# qwen3-0.6b at full width on make_round_step, parallel mode, as
+# repro_torch/examples/federated_llm_finetune.py builds it
+LM_ARCH = "qwen3-0.6b"
+LM_C, LM_B, LM_SEQ, LM_STEPS, LM_ROUNDS, LM_RANK = 4, 2, 512, 2, 3, 4
+LM_CODECS = ("fp32", "int8", "lora")
+LM_PROFILED = "int8"            # the codec of the profiled fourth round
+LM_CPU_LAYERS = 2               # leg b: the stack cut to its first 2 layers
+# leg b's bounds, set before the first card run: fp32 sums in other orders
+# (the flash kernels, cuBLAS against the CPU's GEMMs): 1e-5 on the loss,
+# relative L2 1e-4 a gradient leaf; bf16 as the serving leg's logits (P
+# rounded to bf16 on the card's flash route, other roundings' order)
+LM_CPU_BOUND = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, LOGITS_REL_L2)}
+LM_CPU_TOKENS = {"float32": (LM_B, LM_SEQ), "bfloat16": (1, 256)}   # leg b's batch
+FL_LAUNCHED = ("fedavg_reduce", "quantize_int8", "dequantize_int8", "dequant_reduce",
+               "topk_scatter_reduce", "collective_absmax", "collective_pack",
+               "collective_unpack", "decode_attention", "selective_scan")
+# leg a: label, B, Sq, Skv, H, KV, D, dtype, window, q_offset, causal
+FLASH_BWD_CASES = [
+    ("training shape", LM_C * LM_B, LM_SEQ, LM_SEQ, 16, 8, 128, torch.bfloat16, None, 0, True),
+    ("fp32, training shape", LM_C * LM_B, LM_SEQ, LM_SEQ, 16, 8, 128, torch.float32, None, 0,
+     True),
+    ("GQA 32/8", 2, 512, 512, 32, 8, 128, torch.bfloat16, None, 0, True),
+    ("stablelm-3b heads, D=80", 2, 512, 512, 32, 32, 80, torch.bfloat16, None, 0, True),
+    ("D=64", 2, 512, 512, 8, 2, 64, torch.bfloat16, None, 0, True),
+    ("fp32 D=64", 2, 512, 512, 8, 2, 64, torch.float32, None, 0, True),
+    ("window 100 at q_offset 256", 2, 128, 384, 8, 4, 64, torch.bfloat16, 100, 256, True),
+    ("ragged S=300", 2, 300, 300, 16, 8, 128, torch.bfloat16, None, 0, True),
+    ("fp32 ragged S=300, D=256, not causal", 1, 300, 300, 4, 4, 256, torch.float32, None, 0,
+     False),
+    ("rows with no valid key", 1, 8, 24, 2, 1, 40, torch.float32, 3, 20, True),
+    ("bf16 rows with no valid key", 1, 8, 24, 2, 1, 40, torch.bfloat16, 3, 20, True),
+]
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|: the attention tolerances' measure."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def flash_backward_checks(dev) -> dict:
+    """Leg a: the forward's lse and the backward kernel (dq, dk, dv) against
+    ``ref.attention_with_lse`` / ``ref.attention_bwd`` on the same inputs
+    (the kernel's own out and lse) and against autograd of
+    ``ref.attention``, within 2e-5 (fp32) / 2e-2 (bf16) of each tensor's
+    max-abs, at ``FLASH_BWD_CASES``; at the training shape (bf16 and fp32)
+    the forward with lse and the backward timed through the wrapper and as
+    a bare launch beside their bounds (the backward's five products
+    10·B·H·D·pairs at the dtype's peak, or its bytes), the plain backward,
+    and scaled_dot_product_attention's forward and backward (never on the
+    port's path).  Then ptxas' registers and spills of the backward
+    kernels.  -> the backward's kernel row (bf16, training shape)."""
+    import re
+
+    from repro_torch.kernels import _cuda, ref
+    from repro_torch.kernels import flash_attention as fk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    bf16_peak = bf16_flop_per_s()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = None
+    for label, b, sq, skv, h, kv, d, dtype, window, q_off, causal in FLASH_BWD_CASES:
+        q, k, v, dout = (torch.randn(s, generator=gen, device=dev).to(dtype) for s in
+                         ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d), (b, sq, h, d)))
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        out, lse = fk.flash_attention_fwd(q, k, v, **kw)
+        grads = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        exp_out, exp_lse = ref.attention_with_lse(q, k, v, **kw)
+        plain = ref.attention_bwd(q, k, v, out, lse, dout, **kw)
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        ref.attention(qr, kr, vr, **kw).backward(dout)
+        auto = (qr.grad, kr.grad, vr.grad)
+        tol = ATTN_TOL[dtype]
+        errs = {"out": max_rel(out, exp_out), "lse": max_rel(lse, exp_lse),
+                **{f"{n}_plain": max_rel(g, p) for n, g, p in zip("qkv", grads, plain)},
+                **{f"{n}_autograd": max_rel(g, a) for n, g, a in zip("qkv", grads, auto)}}
+        check(f"flash_attention_bwd [{label}: q {tuple(q.shape)}, k {tuple(k.shape)}, {dtype}, "
+              f"window {window}, q_offset {q_off}, causal {causal}]: lse, dq, dk, dv within "
+              f"{tol} of each tensor's max-abs (plain versions, autograd of ref.attention)",
+              all(g.dtype == dtype and g.shape == p.shape and bool(torch.isfinite(g).all())
+                  for g, p in zip(grads, plain)) and max(errs.values()) <= tol, **errs)
+        del qr, kr, vr, auto, exp_out, exp_lse
+        if label not in ("training shape", "fp32, training shape"):
+            continue
+        pairs = attention_pairs(sq, skv, causal, window, q_off)
+        peak = bf16_peak if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        bwd_bytes = nbytes(q, k, v, out, lse, dout, *grads)
+        bwd_flops = 10 * b * h * d * pairs
+        b_ms, b_by = bound(bwd_bytes, bwd_flops, peak)
+        f_ms, f_by = bound(nbytes(q, k, v, out, lse), 4 * b * h * d * pairs, peak)
+        o, ls = torch.empty_like(q), torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty_like(lse)
+        sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+        mask_args = (int(causal), -1 if window is None else window, q_off, float(d ** -0.5))
+        fwd_bare = lambda: _cuda.launch(  # noqa: E731
+            "flash_attention", f"repro_flash_attention_{sfx}", "flash_attention", dev,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ls.data_ptr(), b, sq, skv,
+            h, kv, d, *mask_args)
+        bwd_bare = lambda: _cuda.launch(  # noqa: E731
+            "flash_attention", f"repro_flash_attention_bwd_{sfx}", "flash_attention_bwd", dev,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b,
+            sq, skv, h, kv, d, *mask_args)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = dout.transpose(1, 2)
+        timing = dict(
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:102",
+            max_abs_err=max(float((g.float() - p.float()).abs().max())
+                            for g, p in zip(grads, plain)),
+            ms=time_ms(lambda: fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)),
+            launch_ms=time_ms(bwd_bare),
+            plain_ms=time_ms(lambda: ref.attention_bwd(q, k, v, out, lse, dout, **kw), iters=5),
+            library_ms=time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                           retain_graph=True)),
+            bound_ms=b_ms, bound_by=b_by, flops=bwd_flops, bytes=bwd_bytes,
+            peak_flop_per_s=peak,
+            fwd_lse_ms=time_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw)),
+            fwd_lse_launch_ms=time_ms(fwd_bare),
+            fwd_ms=time_ms(lambda: fk.flash_attention(q, k, v, **kw)),
+            fwd_bound_ms=f_ms, fwd_bound_by=f_by,
+            sdpa_fwd_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
+            shape=f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {skv}, {kv}, {d}) {dtype} causal",
+        )
+        timing["sdpa_fwd_bwd_ms"] = timing["sdpa_fwd_ms"] + timing["library_ms"]
+        print(f"flash_attention_bwd [{label}] {timing['shape']}: backward {timing['ms'] * 1e3:.2f} "
+              f"us (bare {timing['launch_ms'] * 1e3:.2f}), bound {b_ms * 1e3:.2f} us ({b_by}: "
+              f"{bwd_flops / 1e9:.2f} GFLOP, {bwd_bytes / 1e6:.2f} MB), plain "
+              f"{timing['plain_ms'] * 1e3:.2f} us, SDPA's backward "
+              f"{timing['library_ms'] * 1e3:.2f} us; forward with lse "
+              f"{timing['fwd_lse_ms'] * 1e3:.2f} us (bare {timing['fwd_lse_launch_ms'] * 1e3:.2f}, "
+              f"without lse {timing['fwd_ms'] * 1e3:.2f}), bound {f_ms * 1e3:.2f} us ({f_by}), "
+              f"SDPA's forward {timing['sdpa_fwd_ms'] * 1e3:.2f} us", flush=True)
+        if dtype == torch.bfloat16:
+            row = timing
+        else:
+            REPORT["timings"].append({"name": "flash_attention_bwd", "case": label, **timing})
+        del q, k, v, dout, out, lse, grads, plain, o, ls, dq, dk, dv, delta, qt, kt, vt, ot
+
+    def name_of(line):
+        entry = re.search(r"Compiling entry function '\S*?(flash_attention_bwd_\w+?_kernel)I"
+                          r"(\w+?)Li(\d+)E", line)
+        if entry:
+            kind, dtype, dp = entry.groups()
+            return f"{kind}<{'float' if dtype == 'f' else 'bf16'}, {dp}>"
+        return None
+
+    row["ptxas"] = ptxas_report("flash_attention", name_of)
+    check("ptxas reports the 12 backward kernels (dQ, dK/dV x 2 dtypes x 3 head dims)",
+          len(row["ptxas"]) == 12, kernels=row["ptxas"])
+    return row
+
+
+def lm_batch(cfg, rnd: int, dev, *, clients=LM_C, steps=LM_STEPS, batch=LM_B, seq=LM_SEQ):
+    """The example's round batch (``lm_round_batch``, seed ``rnd``) on ``dev``."""
+    from repro_torch.data.loader import lm_round_batch
+
+    arrays = lm_round_batch(n_clients=clients, steps=steps, batch_size=batch, seq_len=seq,
+                            vocab_size=cfg.vocab_size, seed=rnd)
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def lm_card_vs_cpu(card: str, dtype: str) -> dict:
+    """Leg b: qwen3-0.6b at full width cut to its first 2 layers, one client,
+    one batch: ``loss_fn``'s value and every leaf's gradient
+    (``torch.func.grad_and_value``) on the card against the port's CPU route
+    on identical params and tokens, within ``LM_CPU_BOUND``; one flash
+    forward and one backward launch a layer on the card."""
+    import dataclasses
+    import os
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CPU_LAYERS, dtype=dtype)
+    card_m, cpu_m = build_model(cfg), build_model(cfg, device="cpu")
+    params = card_m.init(0)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    b, s = LM_CPU_TOKENS[dtype]
+    batch = {k: v[0, 0] for k, v in lm_batch(cfg, 1, "cpu", clients=1, steps=1, batch=b,
+                                             seq=s).items()}
+    t0 = time.perf_counter()
+    want, (want_loss, _) = torch.func.grad_and_value(cpu_m.loss_fn, has_aux=True)(
+        cpu_params, batch)
+    cpu_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    got, (got_loss, _) = torch.func.grad_and_value(card_m.loss_fn, has_aux=True)(
+        params, {k: v.cuda() for k, v in batch.items()})
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    loss_tol, leaf_tol = LM_CPU_BOUND[dtype]
+    loss_err = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+    leaf_errs = [rel_l2(g, w) for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True)]
+    check(f"lm fine-tune, {dtype}: card against CPU at full width ({LM_CPU_LAYERS} layers, "
+          f"{b} x {s} tokens): loss within {loss_tol} relative, every gradient leaf within "
+          f"relative L2 {leaf_tol}; 1 flash forward and 1 backward launch a layer",
+          loss_err <= loss_tol and max(leaf_errs) <= leaf_tol
+          and launches["flash_attention"] == launches["flash_attention_bwd"] == LM_CPU_LAYERS,
+          loss=float(got_loss), cpu_loss=float(want_loss), loss_rel_err=loss_err,
+          max_leaf_rel_l2=max(leaf_errs), cpu_s=cpu_s)
+    print(f"lm fine-tune card vs CPU ({dtype}, {LM_CPU_LAYERS} of 28 layers, {b} x {s} tokens): "
+          f"loss {float(got_loss):.6f} vs {float(want_loss):.6f} ({loss_err:.2e}), leaves' "
+          f"relative L2 max {max(leaf_errs):.2e} median {statistics.median(leaf_errs):.2e}; "
+          f"CPU {cpu_s:.1f} s ({card})", flush=True)
+    del params, got, cpu_params, want
+    return {"loss_rel_err": loss_err, "leaf_rel_l2": leaf_errs, "cpu_s": cpu_s}
+
+
+def codec_launches(codec, name: str) -> dict:
+    """What one parallel round launches beyond attention: Null's fp32 wire
+    is a leafwise weighted mean (no kernel), Int8 a quantize, a dequantize
+    and a dequant_reduce a segment, LoRA the same for each fallback
+    (non-matrix) segment plus a quantize and a dequantize of each matrix
+    segment's factor pair."""
+    if name == "fp32":
+        return {}
+    segs = list(codec.segments)
+    if name == "int8":
+        n = len(segs)
+        return {"quantize_int8": n, "dequantize_int8": n, "dequant_reduce": n}
+    n_lora = sum(codec._use_lora(s) for s in segs)
+    n_fb = len(segs) - n_lora
+    return {"quantize_int8": n_fb + 2 * n_lora, "dequantize_int8": n_fb + 2 * n_lora,
+            "dequant_reduce": n_fb}
+
+
+class RefTrap:
+    """A context in which any call of ``kernels.ref`` raises: nothing on
+    the card may reach a plain version."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+
+        self.saved = {n: f for n, f in vars(ref).items()
+                      if callable(f) and getattr(f, "__module__", None) == ref.__name__}
+
+        def trap(name):
+            def raise_(*args, **kwargs):
+                raise AssertionError(f"kernels.ref.{name} reached on the card path")
+            return raise_
+
+        for n in self.saved:
+            setattr(ref, n, trap(n))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+
+        for n, f in self.saved.items():
+            setattr(ref, n, f)
+        return False
+
+
+def lm_round_leg(card: str, out_dir: Path, cfg, params, name: str, dev="cuda") -> dict:
+    """Leg c for one codec: ``make_round_step`` (parallel, ``sgd(0.1)``,
+    FedAvg) with the example's ``build_codec(name, params, LM_RANK)``, C =
+    4 clients, batch 2 x 512 tokens, 2 local steps, 3 rounds of the
+    example's batches, each round synchronized and timed, its launch counts
+    set to 0 just before and read just after: exactly n_layers flash
+    forward and backward launches a local step for the cohort (the vmap
+    fold), ``codec_launches`` a round, nothing else, and no ``kernels.ref``
+    call; finite losses and params.  The profiled codec runs a fourth round
+    under the profiler."""
+    from repro_torch.core import FedAvg, RoundSpec, make_round_step
+    from repro_torch.examples.federated_llm_finetune import build_codec
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import tree_leaves, tree_size
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = tree_size(params)
+    codec, int8 = build_codec(name, params, LM_RANK)
+    strategy = FedAvg()
+    round_step = make_round_step(build_model(cfg, device=dev).loss_fn, sgd(0.1), strategy,
+                                 RoundSpec(max_steps=LM_STEPS, execution_mode="parallel",
+                                           codec=codec))
+    weights = torch.ones((LM_C,), device=dev)
+    budgets = torch.full((LM_C,), LM_STEPS, dtype=torch.int32, device=dev)
+    state, client_state = strategy.init_state(params), codec.init_client_state(LM_C, n,
+                                                                               device=dev)
+    per_round = {"flash_attention": cfg.n_layers * LM_STEPS,
+                 "flash_attention_bwd": cfg.n_layers * LM_STEPS, **codec_launches(codec, name)}
+    g, losses, walls, launches = params, [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with RefTrap():
+        for rnd in range(1, LM_ROUNDS + 1):
+            batch = lm_batch(cfg, rnd, dev)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            g, state, client_state, metrics = round_step(g, state, client_state, batch,
+                                                         weights, budgets, rnd)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append({k: v for k, v in ops.launch_counts().items() if v})
+            losses.append(float(metrics["client_loss_mean"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in tree_leaves(g))
+    check(f"lm fine-tune [{name}]: {LM_ROUNDS} rounds of C = {LM_C} at full width: finite "
+          f"losses and params; exactly {per_round} a round, nothing else, no kernels.ref call",
+          finite and all(math.isfinite(x) for x in losses)
+          and all(c == per_round for c in launches),
+          losses=losses, launches=launches, expected=per_round)
+    round_s = statistics.median(walls)
+    tokens = LM_C * LM_STEPS * LM_B * LM_SEQ
+    out = {"round_s": walls, "round_s_median": round_s, "losses": losses,
+           "launches_a_round": launches[0], "peak_memory_gb": peak_gb,
+           "trained_tokens_per_s": tokens / round_s,
+           "wire_bytes_a_client": codec.wire_bytes(n), "int8_wire_bytes": int8.wire_bytes(n)}
+    print(f"lm fine-tune [{name}] qwen3-0.6b full width ({n:,} params), C={LM_C} x {LM_STEPS} "
+          f"steps x {LM_B} x {LM_SEQ}: round s {[round(w, 4) for w in walls]} (median "
+          f"{round_s:.4f}, {out['trained_tokens_per_s']:.0f} trained tokens/s), losses "
+          f"{[round(x, 4) for x in losses]}, launches a round {launches[0]}, peak "
+          f"{peak_gb:.2f} GB, wire {out['wire_bytes_a_client']:,} B a client "
+          f"({out['int8_wire_bytes'] / out['wire_bytes_a_client']:.1f}x under Int8's) "
+          f"({card})", flush=True)
+    if name == LM_PROFILED:
+        batch = lm_batch(cfg, LM_ROUNDS + 1, dev)
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        torch.cuda.synchronize()
+        prof.start()
+        g, state, client_state, _ = round_step(g, state, client_state, batch, weights, budgets,
+                                               LM_ROUNDS + 1)
+        torch.cuda.synchronize()
+        prof.stop()
+        busy_us, by_kernel = device_time(prof)
+        check(f"lm fine-tune [{name}]: the profiled round recorded card time", busy_us > 0,
+              device_busy_us=busy_us)
+        bwd_us = sum(us for k, us in by_kernel.items() if "flash_attention_bwd" in k)
+        fwd_us = sum(us for k, us in by_kernel.items() if "flash_attention_kernel" in k)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+        out["profile"] = {
+            "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e6 / round_s,
+            "flash_bwd_ms": bwd_us / 1e3, "flash_bwd_share": bwd_us / busy_us,
+            "flash_fwd_ms": fwd_us / 1e3, "top_device_us": top,
+            "device_events": sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA),
+            **export_trace_or_summary(prof, out_dir / "lm_finetune_round_trace.json"),
+        }
+        p = out["profile"]
+        print(f"lm fine-tune [{name}] round {LM_ROUNDS + 1} profiled: card busy "
+              f"{p['device_busy_ms']:.2f} ms, idle {p['idle_share']:.4f} of the unprofiled "
+              f"median {round_s * 1e3:.2f} ms; flash backward {p['flash_bwd_ms']:.2f} ms "
+              f"({p['flash_bwd_share']:.4f} of busy), forward {p['flash_fwd_ms']:.2f} ms; "
+              f"{p['device_events']} device events, trace {p['trace_gz_bytes']} B gzipped "
+              f"({card})", flush=True)
+        for k, us in top:
+            print(f"  {us:10.1f} us  {k[:100]}", flush=True)
+    del g, state, client_state
+    return out
+
+
+def lm_reduced_leg(card: str) -> dict:
+    """Leg d: the example itself on the card at its defaults (qwen3-0.6b
+    reduced to d_model 128 and 2 layers, 4 clients, 4 local steps of 2 x 64
+    tokens, 8 rounds, fp32 wire): the loss of the last round below the
+    first's, all finite."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.examples import federated_llm_finetune as example
+
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        params, last = example.main([])
+    seconds = time.perf_counter() - t0
+    losses = [float(x) for x in re.findall(r"mean client CE loss: (\S+)", text.getvalue())]
+    check("lm fine-tune example at its defaults on the card: 8 finite round losses, the last "
+          "below the first", len(losses) == 8 and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0] and losses[-1] == round(last, 4), losses=losses)
+    print(f"lm fine-tune example (defaults) on the card: losses {losses}, {seconds:.2f} s "
+          f"({card})", flush=True)
+    return {"losses": losses, "seconds": seconds}
+
+
+def lm_finetune_phase(card: str, out_dir: Path) -> dict:
+    """Phase 17: dense transformer training.  (a) the flash backward kernel
+    and the forward's lse against their plain versions
+    (``flash_backward_checks``); (b) the card against the CPU on a 2-layer
+    cut of qwen3-0.6b at full width, fp32 and bf16 (``lm_card_vs_cpu``);
+    (c) qwen3-0.6b at full width (bf16, 28 layers, 596,049,920 params) on
+    the round engine with the fp32, Int8 and LoRA wires (``lm_round_leg``);
+    (d) the example at its defaults (``lm_reduced_leg``)."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    out = {"flash_bwd_row": flash_backward_checks(torch.device("cuda"))}
+    out["card_vs_cpu"] = {dt: lm_card_vs_cpu(card, dt) for dt in ("float32", "bfloat16")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    params = build_model(cfg).init(0)
+    out["rounds"] = {name: lm_round_leg(card, out_dir, cfg, params, name) for name in LM_CODECS}
+    # the main path's launches: the flash kernels' in the Int8 leg's 3 rounds
+    out["launches"] = {k: LM_ROUNDS * v
+                       for k, v in out["rounds"][LM_PROFILED]["launches_a_round"].items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reduced"] = lm_reduced_leg(card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17 (LM fine-tuning): {out['seconds']:.2f} s ({card})", flush=True)
+    return out
+
+
 def aside(r: dict) -> str:
     """A timing's yardsticks beside the kernel's own: the TopK reduce's
     output fill, the copy floor (FedAvg reduce, codec), the codec's encode
@@ -6003,6 +6451,8 @@ def main() -> int:
     REPORT["moe_serving"] = moe_dense_serving_phase(card, args.out)
     REPORT["mla_frontend_serving"] = mla_frontend_serving_phase(card, args.out)
     REPORT["xlstm_serving"] = xlstm_serving_phase(card, args.out)
+    lm = REPORT["lm_finetune"] = lm_finetune_phase(card, args.out)
+    rows["flash_attention_bwd"] = lm["flash_bwd_row"]
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):
@@ -6019,16 +6469,18 @@ def main() -> int:
     for name in ("quantize_int8", "dequantize_int8", "dequant_reduce", "fedavg_reduce",
                  "topk_scatter_reduce", "collective_absmax", "collective_pack",
                  "collective_unpack",
-                 "flash_attention", "decode_attention", "selective_scan"):
+                 "flash_attention", "flash_attention_bwd", "decode_attention",
+                 "selective_scan"):
         r = rows[name]
         # each kernel's launches on the path that runs it: phase 3's loop,
         # for the TopK reduce phase 3b's mixed fleet, for the collective
         # kernels phase 7's mesh (rank 0, rounds 1-3 of every case), for
         # the attention kernels phase 8's serving run, for the scan phase
-        # 9's
+        # 9's, for the flash backward phase 17's Int8 rounds
         path = {"topk_scatter_reduce": mixed, "collective_absmax": mesh,
                 "collective_pack": mesh, "collective_unpack": mesh, "flash_attention": serving,
-                "decode_attention": serving, "selective_scan": hybrid}.get(name, loop)
+                "flash_attention_bwd": lm, "decode_attention": serving,
+                "selective_scan": hybrid}.get(name, loop)
         launches = path["launches"][name]
         check(f"{name} launched on its path", launches > 0, launches=launches)
         kernels.append({

@@ -163,7 +163,7 @@ def main() -> int:
 
     def runner(so, causal):
         fn = so.repro_flash_attention_bf16
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, s, h, kv, d,
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, b, s, s, h, kv, d,
                 int(causal), -1, 0, float(d ** -0.5), stream)
 
         def call():

@@ -57,8 +57,10 @@ SIGNATURES = {
         "repro_collective_unpack": (_P, _P, _P, _I64, _P),
     },
     "flash_attention": {
-        "repro_flash_attention_f32": (_P, _P, _P, _P, *(_I64,) * 9, _F, _P),
-        "repro_flash_attention_bf16": (_P, _P, _P, _P, *(_I64,) * 9, _F, _P),
+        "repro_flash_attention_f32": (*(_P,) * 5, *(_I64,) * 9, _F, _P),
+        "repro_flash_attention_bf16": (*(_P,) * 5, *(_I64,) * 9, _F, _P),
+        "repro_flash_attention_bwd_f32": (*(_P,) * 10, *(_I64,) * 9, _F, _P),
+        "repro_flash_attention_bwd_bf16": (*(_P,) * 10, *(_I64,) * 9, _F, _P),
     },
     "decode_attention": {
         "repro_decode_attention_f32": (*(_P,) * 6, *(_I64,) * 7, _F, _P),
@@ -76,7 +78,8 @@ LAUNCHES = {
     "fedavg_reduce": 0, "quantize_int8": 0, "dequantize_int8": 0,
     "dequant_reduce": 0, "topk_scatter_reduce": 0,
     "collective_absmax": 0, "collective_pack": 0, "collective_unpack": 0,
-    "flash_attention": 0, "decode_attention": 0, "selective_scan": 0,
+    "flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
+    "selective_scan": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

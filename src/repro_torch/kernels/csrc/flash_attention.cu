@@ -110,6 +110,27 @@ __device__ __forceinline__ void store4(float* dst, float a, float b, float c, fl
   *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
 }
 
+// bf16 rows for the backward (the forward's bf16 route loads by TMA): 8
+// values, 16 bytes, in one load; 4 values, 8 bytes, in one store
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(p[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b, float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
 // Rows [row0, row0 + ROWS) of one head, row r at base + r * row_stride,
 // into shared memory as fp32 times `scale`, row pitch DP + 4; rows past
 // n_rows and columns past d are zero.
@@ -145,7 +166,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int64_t sq,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int64_t sq,
                        int64_t skv, int h, int kv, int d, int causal,
                        int64_t window, int64_t q_offset, float scale) {
   constexpr int kPitch = DP + 4;
@@ -287,6 +309,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t r = q0 + ty + 16 * i;
     if (r >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // m + log(l): a row with no valid key keeps m = -1e30, which absorbs log(l)
+    if (lse != nullptr && tx == 0) lse[bh * sq + r] = m[i] + logf(l[i]);
     T* orow = o + ((b * sq + r) * h + hh) * static_cast<int64_t>(d);
 #pragma unroll
     for (int jj = 0; jj < kCols; ++jj) {
@@ -299,8 +323,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DP>
-int launch_dp(const T* q, const T* k, const T* v, T* o, int64_t b, int64_t sq,
-              int64_t skv, int64_t h, int64_t kv, int64_t d, int64_t causal,
+int launch_dp(const T* q, const T* k, const T* v, T* o, float* lse, int64_t b,
+              int64_t sq, int64_t skv, int64_t h, int64_t kv, int64_t d, int64_t causal,
               int64_t window, int64_t q_offset, float scale, cudaStream_t stream) {
   constexpr size_t kSmem = smem_bytes<DP>();
   static bool configured = false;  // the attribute is per function, set once
@@ -313,23 +337,23 @@ int launch_dp(const T* q, const T* k, const T* v, T* o, int64_t b, int64_t sq,
   }
   const dim3 grid(static_cast<unsigned>(b * h), static_cast<unsigned>((sq + kBQ - 1) / kBQ));
   flash_attention_kernel<T, DP><<<grid, kThreads, kSmem, stream>>>(
-      q, k, v, o, sq, skv, static_cast<int>(h), static_cast<int>(kv), static_cast<int>(d),
-      static_cast<int>(causal), window, q_offset, scale);
+      q, k, v, o, lse, sq, skv, static_cast<int>(h), static_cast<int>(kv),
+      static_cast<int>(d), static_cast<int>(causal), window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, int64_t b, int64_t sq, int64_t skv,
-           int64_t h, int64_t kv, int64_t d, int64_t causal, int64_t window,
+int launch(const T* q, const T* k, const T* v, T* o, float* lse, int64_t b, int64_t sq,
+           int64_t skv, int64_t h, int64_t kv, int64_t d, int64_t causal, int64_t window,
            int64_t q_offset, float scale, cudaStream_t stream) {
   if (b == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
   if (d <= 64)
-    return launch_dp<T, 64>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
+    return launch_dp<T, 64>(q, k, v, o, lse, b, sq, skv, h, kv, d, causal, window, q_offset,
                             scale, stream);
   if (d <= 128)
-    return launch_dp<T, 128>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
+    return launch_dp<T, 128>(q, k, v, o, lse, b, sq, skv, h, kv, d, causal, window, q_offset,
                              scale, stream);
-  return launch_dp<T, 256>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
+  return launch_dp<T, 256>(q, k, v, o, lse, b, sq, skv, h, kv, d, causal, window, q_offset,
                            scale, stream);
 }
 
@@ -341,6 +365,7 @@ namespace {
 constexpr int kWgBQ = 128;          // query rows per work item: two warpgroups of 64
 constexpr int kWgThreads = 256;     // two warpgroups: 255 registers a thread
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of one CTA, every tile 1024-byte aligned (the 128-byte
 // swizzle's period).  A tile is DP / 64 panels of 64 columns (128 bytes a
@@ -686,9 +711,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ o, int64_t sq, int64_t skv, int h,
-                             int kv, int d, int causal, int64_t window, int64_t q_offset,
-                             float scale_log2, int n_items) {
+                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                             int64_t sq, int64_t skv, int h, int kv, int d, int causal,
+                             int64_t window, int64_t q_offset, float scale_log2, int n_items) {
   using C = WgTile<DP>;
   constexpr int kBK = C::kBK, kStages = C::kStages, kQSlots = C::kQSlots;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -870,6 +895,11 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       const int64_t qr = it.q0 + row + 8 * r;
       if (qr >= sq) continue;
       const float inv = 1.0f / fmaxf(l[r], 1e-30f);  // IEEE; one rounding more than a division
+      // m + log(l) in natural units (m is in log2 units); a row with no
+      // valid key keeps m = -1e30 unscaled, and gets the plain version's -1e30
+      if (lse != nullptr && cq == 0)
+        lse[(static_cast<int64_t>(it.b) * h + it.hh) * sq + qr] =
+            m[r] == kNegInf ? kNegInf : (m[r] + log2f(l[r])) * kLn2;
       __nv_bfloat16* orow = o + ((it.b * sq + qr) * h + it.hh) * static_cast<int64_t>(d);
 #pragma unroll
       for (int ch = 0; ch < DP / 8; ++ch) {
@@ -924,9 +954,9 @@ int tensor_map(CUtensorMap* map, const void* x, int64_t b, int64_t s, int64_t he
 
 template <int DP>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                 __nv_bfloat16* o, int64_t b, int64_t sq, int64_t skv, int64_t h, int64_t kv,
-                 int64_t d, int64_t causal, int64_t window, int64_t q_offset, float scale,
-                 cudaStream_t stream) {
+                 __nv_bfloat16* o, float* lse, int64_t b, int64_t sq, int64_t skv, int64_t h,
+                 int64_t kv, int64_t d, int64_t causal, int64_t window, int64_t q_offset,
+                 float scale, cudaStream_t stream) {
   using C = WgTile<DP>;
   static bool configured = false;  // the attribute is per function, set once
   if (!configured) {
@@ -953,38 +983,479 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bflo
   if (rc != 0) return rc;
   const unsigned grid = static_cast<unsigned>(n_items < n_sms ? n_items : n_sms);
   flash_attention_kernel_wgmma<DP><<<grid, kWgThreads, C::kSmem, stream>>>(
-      tq, tk, tv, o, sq, skv, static_cast<int>(h), static_cast<int>(kv), static_cast<int>(d),
-      static_cast<int>(causal), window, q_offset, scale * kLog2e, static_cast<int>(n_items));
+      tq, tk, tv, o, lse, sq, skv, static_cast<int>(h), static_cast<int>(kv),
+      static_cast<int>(d), static_cast<int>(causal), window, q_offset, scale * kLog2e,
+      static_cast<int>(n_items));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ---------------- the backward: CUDA cores, fp32 sums, no atomics ----------------
+namespace {
+
+constexpr int kBwdBQ = 64;  // query rows a tile
+
+// keys a tile: 32 at D_pad = 256 keeps the dK / dV kernel's tiles inside
+// 227 KB of shared memory (and its accumulators at 64 floats a thread)
+template <int DP>
+__host__ __device__ constexpr int bwd_bk() { return DP == 256 ? 32 : 64; }
+
+template <int DP>
+constexpr size_t bwd_dq_smem() {
+  constexpr int BK = bwd_bk<DP>();
+  return sizeof(float) * (2 * kBwdBQ * (DP + 4) + 2 * BK * (DP + 4) + kBwdBQ * (BK + 1) +
+                          2 * kBwdBQ);
+}
+
+template <int DP>
+constexpr size_t bwd_dkv_smem() {
+  constexpr int BK = bwd_bk<DP>();
+  return sizeof(float) * (2 * BK * (DP + 4) + 2 * kBwdBQ * (DP + 4) + 2 * kBwdBQ * (BK + 1) +
+                          2 * kBwdBQ);
+}
+
+// The masks, as the forward and ``ref.attention`` apply them: key j attends
+// to the query at position qpos when j < skv, (not causal or j <= qpos) and
+// (no window or j > qpos - window).  A row with no valid key (possible with
+// a window and q_offset) took the uniform mean of V in the forward.
+struct Mask {
+  int64_t skv, window, q_offset;
+  int causal;
+  __device__ __forceinline__ bool valid(int64_t qpos, int64_t j) const {
+    return j < skv && (!causal || j <= qpos) && (window < 0 || j > qpos - window);
+  }
+  // the keys [lo, hi] a query at qpos attends (empty when lo > hi)
+  __device__ __forceinline__ int64_t lo(int64_t qpos) const {
+    return window >= 0 ? max64(qpos - window + 1, 0) : 0;
+  }
+  __device__ __forceinline__ int64_t hi(int64_t qpos) const {
+    return causal ? min64(qpos, skv - 1) : skv - 1;
+  }
+  __device__ __forceinline__ bool empty(int64_t qpos) const { return lo(qpos) > hi(qpos); }
+};
+
+// dQ = scale * dS . K over the key tiles the tile's rows attend, one CTA a
+// (b*h, 64-row query tile); first delta = rowsum(dO * O) of its rows, into
+// `delta` (B, H, Sq) for the dK / dV kernel.  S and P are recomputed from
+// the scaled Q and lse: P = exp(S - lse), dP = dO . V^T, dS = P * (dP -
+// delta) where the mask lets the pair attend and 0 elsewhere (the
+// forward's where() passes no gradient to a masked score).  Thread (ty,
+// tx) holds score rows ty + 16i and key columns tx + 16j, and dQ rows ty +
+// 16i, columns 4 tx + 64 jj .. + 3.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ o,
+                              const float* __restrict__ lse, const T* __restrict__ dout,
+                              T* __restrict__ dq, float* __restrict__ delta, int64_t sq,
+                              int h, int kv, int d, Mask mask, float scale) {
+  constexpr int BK = bwd_bk<DP>(), kJ = BK / 16, kPitch = DP + 4, kCols = DP / 64;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // scaled Q
+  float* dos = qs + kBwdBQ * kPitch;            // dO
+  float* ks = dos + kBwdBQ * kPitch;
+  float* vs = ks + BK * kPitch;
+  float* dss = vs + BK * kPitch;                // dS, kBwdBQ x (BK + 1)
+  float* lse_s = dss + kBwdBQ * (BK + 1);
+  float* delta_s = lse_s + kBwdBQ;
+
+  const int bh = blockIdx.x, b = bh / h, hh = bh % h, kvh = hh / (h / kv);
+  const int64_t q0 = static_cast<int64_t>(blockIdx.y) * kBwdBQ;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int64_t q_stride = static_cast<int64_t>(h) * d, kv_stride = static_cast<int64_t>(kv) * d;
+  const int64_t q_base = (b * sq * h + hh) * static_cast<int64_t>(d);
+  const int64_t kv_base = (b * mask.skv * kv + kvh) * static_cast<int64_t>(d);
+
+  load_tile<T, kBwdBQ, DP>(qs, q + q_base, q_stride, q0, sq, d, scale);
+  load_tile<T, kBwdBQ, DP>(dos, dout + q_base, q_stride, q0, sq, d, 1.0f);
+  __syncthreads();
+  // delta: 4 threads a row, each a quarter of D_pad; O read once, here
+  {
+    const int r = tid / 4, part = tid % 4;
+    float acc = 0.0f;
+    if (q0 + r < sq) {
+      const T* orow = o + q_base + (q0 + r) * q_stride;
+      for (int c = part * 8; c < d; c += 32) {
+        float x[8];
+        load8(orow + c, x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(dos[r * kPitch + c + e], x[e], acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      delta_s[r] = acc;
+      lse_s[r] = q0 + r < sq ? lse[bh * sq + q0 + r] : 0.0f;
+      if (q0 + r < sq) delta[bh * sq + q0 + r] = acc;
+    }
+  }
+
+  // the key tiles the tile's rows attend: lo and hi grow with the position
+  const int64_t qlo = q0 + mask.q_offset, qhi = min64(q0 + kBwdBQ, sq) - 1 + mask.q_offset;
+  const int64_t lo = mask.lo(qlo), hi = mask.hi(qhi);
+  const int64_t kt0 = lo / BK, kt1 = hi >= lo ? hi / BK + 1 : kt0;
+
+  float acc[4][kCols * 4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < kCols * 4; ++e) acc[i][e] = 0.0f;
+
+  for (int64_t kt = kt0; kt < kt1; ++kt) {
+    const int64_t k0 = kt * BK;
+    __syncthreads();  // the previous tile's K reads are done (and delta_s, lse_s written)
+    load_tile<T, BK, DP>(ks, k + kv_base, kv_stride, k0, mask.skv, d, 1.0f);
+    load_tile<T, BK, DP>(vs, v + kv_base, kv_stride, k0, mask.skv, d, 1.0f);
+    __syncthreads();
+
+    float s[4][kJ], dp[4][kJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 2
+    for (int dd = 0; dd < DP; dd += 4) {
+      float4 qa[4], da[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kPitch + dd);
+        da[i] = *reinterpret_cast<const float4*>(dos + (ty + 16 * i) * kPitch + dd);
+      }
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float4 kk = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kPitch + dd);
+        const float4 vv = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kPitch + dd);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = fmaf(qa[i].x, kk.x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kk.y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kk.z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kk.w, s[i][j]);
+          dp[i][j] = fmaf(da[i].x, vv.x, dp[i][j]);
+          dp[i][j] = fmaf(da[i].y, vv.y, dp[i][j]);
+          dp[i][j] = fmaf(da[i].z, vv.z, dp[i][j]);
+          dp[i][j] = fmaf(da[i].w, vv.w, dp[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int64_t qpos = q0 + r + mask.q_offset;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const int c = tx + 16 * j;
+        float ds = 0.0f;
+        if (q0 + r < sq && mask.valid(qpos, k0 + c))
+          ds = expf(s[i][j] - lse_s[r]) * (dp[i][j] - delta_s[r]);
+        dss[r * (BK + 1) + c] = ds;
+      }
+    }
+    __syncthreads();  // dS in place
+
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = dss[(ty + 16 * i) * (BK + 1) + c];
+#pragma unroll
+      for (int jj = 0; jj < kCols; ++jj) {
+        const float4 kk = *reinterpret_cast<const float4*>(ks + c * kPitch + 4 * tx + 64 * jj);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * jj + 0] = fmaf(p[i], kk.x, acc[i][4 * jj + 0]);
+          acc[i][4 * jj + 1] = fmaf(p[i], kk.y, acc[i][4 * jj + 1]);
+          acc[i][4 * jj + 2] = fmaf(p[i], kk.z, acc[i][4 * jj + 2]);
+          acc[i][4 * jj + 3] = fmaf(p[i], kk.w, acc[i][4 * jj + 3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t r = q0 + ty + 16 * i;
+    if (r >= sq) continue;
+    T* row = dq + q_base + r * q_stride;
+#pragma unroll
+    for (int jj = 0; jj < kCols; ++jj) {
+      const int col = 4 * tx + 64 * jj;
+      if (col < d)  // a row with no key tile stores zeros
+        store4(row + col, acc[i][4 * jj] * scale, acc[i][4 * jj + 1] * scale,
+               acc[i][4 * jj + 2] * scale, acc[i][4 * jj + 3] * scale);
+    }
+  }
+}
+
+// dK = dS^T . (scale Q) and dV = P^T . dO for one (b*kv, key tile), summed
+// in registers over the G query heads of the KV head and the query tiles
+// that reach the key tile: each CTA owns its rows of dK and dV, so there
+// are no atomics and the sums run in one fixed order.  A row with no valid
+// key adds dO / Skv to every key's dV (its output was the mean of V) and
+// nothing to dK.  Thread (ty, tx) holds score rows ty + 16i and key
+// columns tx + 16j, and dK / dV key rows ty + 16i, columns 4 tx + 64 jj.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const float* __restrict__ lse,
+                               const T* __restrict__ dout, const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv, int64_t sq, int h,
+                               int kv, int d, Mask mask, float scale) {
+  constexpr int BK = bwd_bk<DP>(), kJ = BK / 16, kPitch = DP + 4, kCols = DP / 64;
+  constexpr int kPP = BK + 1;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + BK * kPitch;
+  float* qs = vs + BK * kPitch;                 // scaled Q
+  float* dos = qs + kBwdBQ * kPitch;
+  float* ps = dos + kBwdBQ * kPitch;            // P, kBwdBQ x kPP
+  float* dss = ps + kBwdBQ * kPP;               // dS
+  float* lse_s = dss + kBwdBQ * kPP;
+  float* delta_s = lse_s + kBwdBQ;
+
+  const int bkv = blockIdx.x, b = bkv / kv, kvh = bkv % kv, g = h / kv;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * BK;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int64_t q_stride = static_cast<int64_t>(h) * d, kv_stride = static_cast<int64_t>(kv) * d;
+  const int64_t kv_base = (b * mask.skv * kv + kvh) * static_cast<int64_t>(d);
+  const float uniform = 1.0f / static_cast<float>(mask.skv);
+
+  load_tile<T, BK, DP>(ks, k + kv_base, kv_stride, k0, mask.skv, d, 1.0f);
+  load_tile<T, BK, DP>(vs, v + kv_base, kv_stride, k0, mask.skv, d, 1.0f);
+
+  float dk_acc[kJ][kCols * 4], dv_acc[kJ][kCols * 4];
+#pragma unroll
+  for (int i = 0; i < kJ; ++i)
+#pragma unroll
+    for (int e = 0; e < kCols * 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
+
+  const int64_t n_qt = (sq + kBwdBQ - 1) / kBwdBQ, k1 = k0 + BK - 1;
+  for (int hh = kvh * g; hh < (kvh + 1) * g; ++hh) {
+    const int64_t bh = static_cast<int64_t>(b) * h + hh;
+    const int64_t q_base = (b * sq * h + hh) * static_cast<int64_t>(d);
+    for (int64_t qt = 0; qt < n_qt; ++qt) {
+      const int64_t q0 = qt * kBwdBQ;
+      const int64_t qlo = q0 + mask.q_offset, qhi = min64(q0 + kBwdBQ, sq) - 1 + mask.q_offset;
+      // a row with no valid key reaches every key (the mean); emptiness
+      // grows with the position, so the tile's last row decides
+      if (!mask.empty(qhi) && (mask.hi(qhi) < k0 || mask.lo(qlo) > k1)) continue;
+      __syncthreads();  // the previous tile's reads are done
+      load_tile<T, kBwdBQ, DP>(qs, q + q_base, q_stride, q0, sq, d, scale);
+      load_tile<T, kBwdBQ, DP>(dos, dout + q_base, q_stride, q0, sq, d, 1.0f);
+      if (tid < kBwdBQ) {
+        const bool in = q0 + tid < sq;
+        lse_s[tid] = in ? lse[bh * sq + q0 + tid] : 0.0f;
+        delta_s[tid] = in ? delta[bh * sq + q0 + tid] : 0.0f;
+      }
+      __syncthreads();
+
+      float s[4][kJ], dp[4][kJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 2
+      for (int dd = 0; dd < DP; dd += 4) {
+        float4 qa[4], da[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kPitch + dd);
+          da[i] = *reinterpret_cast<const float4*>(dos + (ty + 16 * i) * kPitch + dd);
+        }
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const float4 kk = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kPitch + dd);
+          const float4 vv = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kPitch + dd);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[i][j] = fmaf(qa[i].x, kk.x, s[i][j]);
+            s[i][j] = fmaf(qa[i].y, kk.y, s[i][j]);
+            s[i][j] = fmaf(qa[i].z, kk.z, s[i][j]);
+            s[i][j] = fmaf(qa[i].w, kk.w, s[i][j]);
+            dp[i][j] = fmaf(da[i].x, vv.x, dp[i][j]);
+            dp[i][j] = fmaf(da[i].y, vv.y, dp[i][j]);
+            dp[i][j] = fmaf(da[i].z, vv.z, dp[i][j]);
+            dp[i][j] = fmaf(da[i].w, vv.w, dp[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        const int64_t qpos = q0 + r + mask.q_offset;
+        const bool row_in = q0 + r < sq, row_empty = mask.empty(qpos);
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const int c = tx + 16 * j;
+          float p = 0.0f, ds = 0.0f;
+          if (row_in && mask.valid(qpos, k0 + c)) {
+            p = expf(s[i][j] - lse_s[r]);
+            ds = p * (dp[i][j] - delta_s[r]);
+          } else if (row_in && row_empty && k0 + c < mask.skv) {
+            p = uniform;
+          }
+          ps[r * kPP + c] = p;
+          dss[r * kPP + c] = ds;
+        }
+      }
+      __syncthreads();  // P and dS in place
+
+#pragma unroll 4
+      for (int r = 0; r < kBwdBQ; ++r) {
+        float p[kJ], ds[kJ];
+#pragma unroll
+        for (int i = 0; i < kJ; ++i) {
+          p[i] = ps[r * kPP + ty + 16 * i];
+          ds[i] = dss[r * kPP + ty + 16 * i];
+        }
+#pragma unroll
+        for (int jj = 0; jj < kCols; ++jj) {
+          const float4 da = *reinterpret_cast<const float4*>(dos + r * kPitch + 4 * tx + 64 * jj);
+          const float4 qa = *reinterpret_cast<const float4*>(qs + r * kPitch + 4 * tx + 64 * jj);
+#pragma unroll
+          for (int i = 0; i < kJ; ++i) {
+            dv_acc[i][4 * jj + 0] = fmaf(p[i], da.x, dv_acc[i][4 * jj + 0]);
+            dv_acc[i][4 * jj + 1] = fmaf(p[i], da.y, dv_acc[i][4 * jj + 1]);
+            dv_acc[i][4 * jj + 2] = fmaf(p[i], da.z, dv_acc[i][4 * jj + 2]);
+            dv_acc[i][4 * jj + 3] = fmaf(p[i], da.w, dv_acc[i][4 * jj + 3]);
+            dk_acc[i][4 * jj + 0] = fmaf(ds[i], qa.x, dk_acc[i][4 * jj + 0]);
+            dk_acc[i][4 * jj + 1] = fmaf(ds[i], qa.y, dk_acc[i][4 * jj + 1]);
+            dk_acc[i][4 * jj + 2] = fmaf(ds[i], qa.z, dk_acc[i][4 * jj + 2]);
+            dk_acc[i][4 * jj + 3] = fmaf(ds[i], qa.w, dk_acc[i][4 * jj + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kJ; ++i) {
+    const int64_t r = k0 + ty + 16 * i;
+    if (r >= mask.skv) continue;
+    T* krow = dk + kv_base + r * kv_stride;
+    T* vrow = dv + kv_base + r * kv_stride;
+#pragma unroll
+    for (int jj = 0; jj < kCols; ++jj) {
+      const int col = 4 * tx + 64 * jj;
+      if (col < d) {
+        store4(krow + col, dk_acc[i][4 * jj], dk_acc[i][4 * jj + 1], dk_acc[i][4 * jj + 2],
+               dk_acc[i][4 * jj + 3]);
+        store4(vrow + col, dv_acc[i][4 * jj], dv_acc[i][4 * jj + 1], dv_acc[i][4 * jj + 2],
+               dv_acc[i][4 * jj + 3]);
+      }
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
+  if (configured) return cudaSuccess;  // the attribute is per function, set once
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  configured = err == cudaSuccess;
+  return err;
+}
+
+template <typename T, int DP>
+int launch_bwd_dp(const T* q, const T* k, const T* v, const T* o, const float* lse,
+                  const T* dout, T* dq, T* dk, T* dv, float* delta, int64_t b, int64_t sq,
+                  int64_t skv, int64_t h, int64_t kv, int64_t d, Mask mask, float scale,
+                  cudaStream_t stream) {
+  constexpr int BK = bwd_bk<DP>();
+  static bool dq_ready = false, dkv_ready = false;
+  cudaError_t err =
+      allow_smem(flash_attention_bwd_dq_kernel<T, DP>, bwd_dq_smem<DP>(), dq_ready);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_attention_bwd_dkv_kernel<T, DP>, bwd_dkv_smem<DP>(), dkv_ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // dQ (and delta) first: the dK / dV kernel reads delta
+  const dim3 dq_grid(static_cast<unsigned>(b * h),
+                     static_cast<unsigned>((sq + kBwdBQ - 1) / kBwdBQ));
+  flash_attention_bwd_dq_kernel<T, DP><<<dq_grid, kThreads, bwd_dq_smem<DP>(), stream>>>(
+      q, k, v, o, lse, dout, dq, delta, sq, static_cast<int>(h), static_cast<int>(kv),
+      static_cast<int>(d), mask, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 dkv_grid(static_cast<unsigned>(b * kv), static_cast<unsigned>((skv + BK - 1) / BK));
+  flash_attention_bwd_dkv_kernel<T, DP><<<dkv_grid, kThreads, bwd_dkv_smem<DP>(), stream>>>(
+      q, k, v, lse, dout, delta, dk, dv, sq, static_cast<int>(h), static_cast<int>(kv),
+      static_cast<int>(d), mask, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const T* q, const T* k, const T* v, const T* o, const float* lse, const T* dout,
+               T* dq, T* dk, T* dv, float* delta, int64_t b, int64_t sq, int64_t skv, int64_t h,
+               int64_t kv, int64_t d, int64_t causal, int64_t window, int64_t q_offset,
+               float scale, cudaStream_t stream) {
+  if (b == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
+  const Mask mask{skv, window, q_offset, static_cast<int>(causal)};
+  if (d <= 64)
+    return launch_bwd_dp<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, skv, h, kv, d,
+                                mask, scale, stream);
+  if (d <= 128)
+    return launch_bwd_dp<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, skv, h, kv,
+                                 d, mask, scale, stream);
+  return launch_bwd_dp<T, 256>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, skv, h, kv, d,
+                               mask, scale, stream);
 }
 
 }  // namespace
 
 // q: (b, sq, h, d), k, v: (b, skv, kv, d), o: (b, sq, h, d), all contiguous
 // and 16-byte aligned; h % kv == 0, d % 8 == 0, 8 <= d <= 256, skv >= 1;
-// window < 0 means no window; scale = d ** -0.5 as an fp32 value.
+// window < 0 means no window; scale = d ** -0.5 as an fp32 value.  lse:
+// null (serving), or (b, h, sq) fp32, written with each row's log-sum-exp
+// of its scaled, masked scores (the backward's input).
 extern "C" int repro_flash_attention_f32(const float* q, const float* k, const float* v,
-                                         float* o, int64_t b, int64_t sq, int64_t skv,
-                                         int64_t h, int64_t kv, int64_t d, int64_t causal,
-                                         int64_t window, int64_t q_offset, float scale,
-                                         cudaStream_t stream) {
-  return launch<float>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset, scale,
+                                         float* o, float* lse, int64_t b, int64_t sq,
+                                         int64_t skv, int64_t h, int64_t kv, int64_t d,
+                                         int64_t causal, int64_t window, int64_t q_offset,
+                                         float scale, cudaStream_t stream) {
+  return launch<float>(q, k, v, o, lse, b, sq, skv, h, kv, d, causal, window, q_offset, scale,
                        stream);
 }
 
 extern "C" int repro_flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                          const __nv_bfloat16* v, __nv_bfloat16* o,
+                                          const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
                                           int64_t b, int64_t sq, int64_t skv, int64_t h,
                                           int64_t kv, int64_t d, int64_t causal,
                                           int64_t window, int64_t q_offset, float scale,
                                           cudaStream_t stream) {
   if (b == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
   if (d <= 64)
-    return launch_wgmma<64>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
+    return launch_wgmma<64>(q, k, v, o, lse, b, sq, skv, h, kv, d, causal, window, q_offset,
                             scale, stream);
   if (d <= 128)
-    return launch_wgmma<128>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
+    return launch_wgmma<128>(q, k, v, o, lse, b, sq, skv, h, kv, d, causal, window, q_offset,
                              scale, stream);
-  return launch_wgmma<256>(q, k, v, o, b, sq, skv, h, kv, d, causal, window, q_offset,
+  return launch_wgmma<256>(q, k, v, o, lse, b, sq, skv, h, kv, d, causal, window, q_offset,
                            scale, stream);
+}
+
+// The backward: the forward's arguments, its output o and lse, the
+// output's gradient dout (b, sq, h, d) -> dq, dk, dv in the inputs' dtype;
+// delta: (b, h, sq) fp32 scratch.  Two launches on `stream`: dQ (with
+// delta), then dK and dV.
+extern "C" int repro_flash_attention_bwd_f32(const float* q, const float* k, const float* v,
+                                             const float* o, const float* lse,
+                                             const float* dout, float* dq, float* dk,
+                                             float* dv, float* delta, int64_t b, int64_t sq,
+                                             int64_t skv, int64_t h, int64_t kv, int64_t d,
+                                             int64_t causal, int64_t window, int64_t q_offset,
+                                             float scale, cudaStream_t stream) {
+  return launch_bwd<float>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, skv, h, kv, d,
+                           causal, window, q_offset, scale, stream);
+}
+
+extern "C" int repro_flash_attention_bwd_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* o, const float* lse, const __nv_bfloat16* dout, __nv_bfloat16* dq,
+    __nv_bfloat16* dk, __nv_bfloat16* dv, float* delta, int64_t b, int64_t sq, int64_t skv,
+    int64_t h, int64_t kv, int64_t d, int64_t causal, int64_t window, int64_t q_offset,
+    float scale, cudaStream_t stream) {
+  return launch_bwd<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, skv, h, kv,
+                                   d, causal, window, q_offset, scale, stream);
 }

@@ -23,6 +23,8 @@ from .decode_attention import decode_attention as _decode_kernel
 from .dequant_reduce import dequant_reduce as _dequant_reduce_kernel
 from .fedavg_reduce import fedavg_reduce as _fedavg_reduce_kernel
 from .flash_attention import flash_attention as _flash_kernel
+from .flash_attention import flash_attention_bwd as _flash_bwd_kernel
+from .flash_attention import flash_attention_fwd as _flash_fwd_kernel
 from .quantize import BLOCK, dequantize_int8 as _dequantize_kernel
 from .quantize import quantize_int8 as _quantize_kernel
 from .scatter_reduce import topk_scatter_reduce as _topk_kernel
@@ -159,19 +161,126 @@ def collective_pack_leaves(ds, wf, rs, absmax, live=None):
     return ref.collective_pack_leaves(ds, wf, rs, absmax, live, block=BLOCK)
 
 
-# ---------------- attention (the transformer's prefill and decode) ----------------
+# ---------------- attention (the transformer's prefill, training and decode) ----------------
+_ITEM = "ROADMAP.md queue 1 item 15"
+
+
+def _traced(*tensors: torch.Tensor) -> bool:
+    """Whether autograd or a ``torch.func`` transform sees these tensors:
+    an input that needs a gradient, or a functorch wrapper (``vmap``'s
+    batched or ``grad``'s tracking tensor), whose data pointer a ctypes
+    launch cannot read."""
+    grad_on = torch.is_grad_enabled()
+    return any((grad_on and t.requires_grad) or torch._C._functorch.is_functorch_wrapped_tensor(t)
+               for t in tensors)
+
+
+def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """A card kernel without a backward: raise where autograd or a
+    transform would reach it, instead of a detached result or a failed
+    pointer read."""
+    if _traced(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel: training through it on the card is not "
+            f"ported yet ({_ITEM})")
+
+
+def _fold(x: torch.Tensor, dim: int | None, n: int) -> torch.Tensor:
+    """A vmapped input as a plain batch: the mapped dim ``dim`` (None:
+    unmapped, expanded) moved to the front and folded into B."""
+    x = x.unsqueeze(0).expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.reshape(n * x.shape[1], *x.shape[2:]).contiguous()
+
+
+def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(q, k, v) -> (out, lse): the forward that saves what its backward,
+    ``_FlashAttentionBwd``, reads.  Under ``torch.func.vmap`` the mapped
+    dimension is folded into B (``vmap`` below), so the innermost call gets
+    plain tensors and a vmapped cohort makes one launch; ``generate_vmap_rule``
+    would hand the launch functorch wrappers instead."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, q_offset):
+        if _on_card(q, k, v):
+            return _flash_fwd_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return ref.attention_with_lse(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, q_offset = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.mask = (causal, window, q_offset)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, out, lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, out, lse, dout, *ctx.mask)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, q_offset):
+        n = info.batch_size
+        qf, kf, vf = (_fold(t, d, n) for t, d in zip((q, k, v), in_dims[:3]))
+        out, lse = _FlashAttention.apply(qf, kf, vf, causal, window, q_offset)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+class _FlashAttentionBwd(torch.autograd.Function):
+    """(q, k, v, out, lse, dout) -> (dq, dk, dv): the hand-written backward
+    on the card, ``ref.attention_bwd`` on the CPU.  It has no backward of
+    its own: a double backward raises."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, dout, causal, window, q_offset):
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        if _on_card(q, k, v, out, lse, dout):
+            return _flash_bwd_kernel(q, k, v, out, lse, dout.contiguous(), **kw)
+        return ref.attention_bwd(q, k, v, out, lse, dout, **kw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash attention's backward has no backward: double backward "
+                           "(a gradient of a gradient) through attention is not supported")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, dout, causal, window, q_offset):
+        n = info.batch_size
+        folded = [_fold(t, d, n) for t, d in zip((q, k, v, out, lse, dout), in_dims[:6])]
+        grads = _FlashAttentionBwd.apply(*folded, causal, window, q_offset)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """q (B,Sq,H,D), k/v (B,Skv,KV,D) -> (B,Sq,H,D): causal and/or
-    sliding-window GQA attention, q[:, 0] at absolute position ``q_offset``."""
-    if _on_card(q, k, v):
+    sliding-window GQA attention, q[:, 0] at absolute position ``q_offset``.
+    Differentiable: where autograd or a ``torch.func`` transform sees the
+    inputs it runs through ``_FlashAttention`` (the forward with lse, the
+    backward kernel after); otherwise (serving, ``torch.inference_mode``)
+    the forward alone, which saves nothing and writes no lse."""
+    on_card = _on_card(q, k, v)
+    if _traced(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)[0]
+    if on_card:
         return _flash_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, *, kv_valid):
     """One token q (B,H,D) against caches (B,S,KV,D) where ``kv_valid``
-    (B,S) holds -> (B,H,D)."""
+    (B,S) holds -> (B,H,D).  Serving only on the card: no backward."""
     if _on_card(q, k_cache, v_cache, kv_valid):
+        _refuse_autograd("decode_attention", q, k_cache, v_cache)
         return _decode_kernel(q, k_cache, v_cache, kv_valid=kv_valid)
     return ref.decode_attention(q, k_cache, v_cache, kv_valid=kv_valid)
 
@@ -180,9 +289,11 @@ def decode_attention(q, k_cache, v_cache, *, kv_valid):
 def selective_scan(x, dt, A, B, C, D, *, init_state=None):
     """x, dt (B,S,Di); A (Di,N); B, C (B,S,N); D (Di,); optional initial
     state (B,Di,N) -> (y (B,S,Di) in x's dtype, final state fp32).  Any S:
-    the TPU dispatch's S % 128 gate is not copied."""
+    the TPU dispatch's S % 128 gate is not copied.  Serving only on the
+    card: no backward."""
     tensors = (x, dt, A, B, C, D) + (() if init_state is None else (init_state,))
     if _on_card(*tensors):
+        _refuse_autograd("selective_scan", *tensors)
         return _scan_kernel(x, dt, A, B, C, D, init_state=init_state)
     return ref.selective_scan(x, dt, A, B, C, D, init_state=init_state)
 

@@ -151,6 +151,37 @@ def dequant_reduce(
 NEG_INF = -1e30  # masked scores: finite, so a row with no valid key is a uniform mean, not NaN
 
 
+def _attention_scores(q, k, v, causal, window, q_offset):
+    """-> (the scaled, masked fp32 scores (B,H,Sq,Skv), V repeated over the
+    groups (B,H,Skv,D) fp32, the mask (Sq,Skv))."""
+    b, sq, h, d = q.shape
+    _, skv, kv, _ = k.shape
+    groups = h // kv
+    scale = d ** -0.5
+    qg = (q.to(torch.float32) * scale).transpose(1, 2)                      # (B,H,Sq,D)
+    kf = torch.repeat_interleave(k.to(torch.float32), groups, dim=2).transpose(1, 2)
+    vf = torch.repeat_interleave(v.to(torch.float32), groups, dim=2).transpose(1, 2)
+    scores = torch.matmul(qg, kf.transpose(-1, -2))                          # (B,H,Sq,Skv)
+    mask = attention_mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
+                          device=q.device)
+    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=q.device))
+    return scores, vf, mask
+
+
+def attention_mask(sq: int, skv: int, *, causal: bool, window: int | None, q_offset: int,
+                   device) -> torch.Tensor:
+    """(Sq, Skv) bool: key j attends to query i iff (not causal or j <= i +
+    q_offset) and (window is None or j > i + q_offset - window)."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def attention(
     q: torch.Tensor,           # (B, Sq, H, D)
     k: torch.Tensor,           # (B, Skv, KV, D)
@@ -165,24 +196,52 @@ def attention(
     and (window is None or j > i + q_offset - window).  Scores in fp32 with
     q scaled by D**-0.5 before the product; the output in q's dtype.  The
     JAX oracle's banded and streamed paths compute the same function."""
+    scores, vf, _ = _attention_scores(q, k, v, causal, window, q_offset)
+    out = torch.matmul(torch.softmax(scores, dim=-1), vf)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention_with_lse(q, k, v, *, causal=True, window=None, q_offset=0):
+    """``attention`` (bitwise) and each row's log-sum-exp of the same
+    scaled, masked scores, lse (B, H, Sq) fp32: the flash backward's
+    input.  A row with no valid key gets -1e30 + log(Skv), which is -1e30
+    in fp32."""
+    scores, vf, _ = _attention_scores(q, k, v, causal, window, q_offset)
+    out = torch.matmul(torch.softmax(scores, dim=-1), vf)
+    return out.transpose(1, 2).to(q.dtype), torch.logsumexp(scores, dim=-1)
+
+
+def attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=None, q_offset=0):
+    """The gradient of ``attention`` by the flash backward's formulas, from
+    its output and lse: delta = rowsum(dO * O), P = exp(S - lse), dV =
+    sum over the group of P^T . dO, dS = P * (dO . V^T - delta), dQ =
+    scale * dS . K, dK = scale * sum over the group of dS^T . Q.  Sums in
+    fp32, (dq, dk, dv) in the inputs' dtypes.  Masked pairs pass no
+    gradient to the scores (dS = 0, as autograd through ``attention``'s
+    where()); a row with no valid key took the mean of V, so it adds dO /
+    Skv to every key's dV and nothing to dQ or dK: zeros, never NaN."""
     b, sq, h, d = q.shape
     _, skv, kv, _ = k.shape
     groups = h // kv
     scale = d ** -0.5
-    qg = (q.to(torch.float32) * scale).transpose(1, 2)                      # (B,H,Sq,D)
-    kf = torch.repeat_interleave(k.to(torch.float32), groups, dim=2).transpose(1, 2)
-    vf = torch.repeat_interleave(v.to(torch.float32), groups, dim=2).transpose(1, 2)
-    scores = torch.matmul(qg, kf.transpose(-1, -2))                          # (B,H,Sq,Skv)
-    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=q.device))
-    out = torch.matmul(torch.softmax(scores, dim=-1), vf)
-    return out.transpose(1, 2).to(q.dtype)
+    f32 = torch.float32
+    qs = (q.to(f32) * scale).transpose(1, 2)                                  # (B,H,Sq,D)
+    kf = torch.repeat_interleave(k.to(f32), groups, dim=2).transpose(1, 2)   # (B,H,Skv,D)
+    vf = torch.repeat_interleave(v.to(f32), groups, dim=2).transpose(1, 2)
+    do = dout.to(f32).transpose(1, 2)
+    mask = attention_mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
+                          device=q.device)
+    delta = (do * out.to(f32).transpose(1, 2)).sum(-1, keepdim=True)         # (B,H,Sq,1)
+    s = torch.matmul(qs, kf.transpose(-1, -2))
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros((), device=q.device))
+    p = torch.where(mask.any(-1, keepdim=True), p, torch.full((), 1.0 / skv, device=q.device))
+    ds = torch.where(mask, p * (torch.matmul(do, vf.transpose(-1, -2)) - delta),
+                     torch.zeros((), device=q.device))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qs).reshape(b, kv, groups, skv, d).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), do).reshape(b, kv, groups, skv, d).sum(2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
 
 
 def decode_attention(

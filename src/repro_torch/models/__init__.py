@@ -8,12 +8,13 @@ methods are plain functions on nested dicts of tensors:
     trainable_mask(params) -> bool pytree (None = all trainable)
     prefill / decode_step / init_cache (transformers)
 
-The port runs the ``head`` and ``cnn`` (ResNet-18) families and the
+The port runs the ``head`` and ``cnn`` (ResNet-18) families, the
 serving path (prefill + decode) of every transformer family (dense, MoE,
 ssm, hybrid, vlm, audio): attention, MLA, mamba, mLSTM, sLSTM, the gated
-MLP, the MoE feed-forward and the frontend tokens.  Transformer training
-is not ported yet and raises ``NotImplementedError`` naming its
-ROADMAP.md item; an unknown family raises ``ValueError``.
+MLP, the MoE feed-forward and the frontend tokens, and the training of the
+dense family (``loss_fn``; ``ce_chunk`` as the reference's).  Training the
+other families raises ``NotImplementedError`` naming its ROADMAP.md item;
+an unknown family raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ class Model:
         return self.arch.name
 
 
-def build_model(arch, *, device=None) -> Model:
+def build_model(arch, *, device=None, ce_chunk: int = 0) -> Model:
     arch_cfg = get_config(arch) if isinstance(arch, str) else arch
     dev = resolve_device(device)
 
@@ -91,7 +92,7 @@ def build_model(arch, *, device=None) -> Model:
             arch=arch_cfg,
             device=dev,
             init=lambda seed=0: tfm.init_params(cfg, seed, device=dev),
-            loss_fn=tfm.loss_fn,
+            loss_fn=lambda p, b: tfm.loss_fn(cfg, p, b, ce_chunk=ce_chunk),
             prefill=lambda p, b, ctx: tfm.prefill(cfg, p, b, context_len=ctx),
             decode_step=lambda p, b, cache, ctx: tfm.decode_step(
                 cfg, p, b, cache, context_len=ctx),

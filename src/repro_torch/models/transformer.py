@@ -24,8 +24,12 @@ JAX's ``_run_stack`` sums them: ``forward`` returns them beside the
 logits; prefill and decode drop them, as JAX's do.  The capacity factor
 is JAX's: 1.25 in ``block_forward`` and prefill, 2.0 in ``block_decode``.
 
-Not ported yet (each raises ``NotImplementedError``): training
-(``loss_fn`` / ``cross_entropy``), ROADMAP.md queue 1 item 15.
+Training (``loss_fn``: CE over the final residual stream, ``cross_entropy``)
+runs the dense family: attention through ``ops.flash_attention``, whose
+backward is a hand-written kernel on the card.  ``loss_fn`` refuses, with
+``NotImplementedError`` naming ROADMAP.md queue 1 item 15, the families
+whose training is not ported yet (``_training_gaps``): MoE, MLA, the
+frontend tokens, mamba and xLSTM layers.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 from .layers import attention as attn_lib
 from .layers import mamba as mamba_lib
@@ -189,14 +193,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> PyTree:
 
 def _layers(cfg: ArchConfig, blocks: tuple):
     """(layer spec, that layer's params) in stack order: views into the
-    stacked leaves when ``scan_layers``."""
+    stacked leaves when ``scan_layers``.  The views come from one
+    ``unbind`` a leaf, whose gradient is one stack of the layers'
+    gradients; indexing a layer out (``x[j]``) would give each layer's
+    gradient the whole stacked leaf's size, zeros around its slice, and
+    sum L of them."""
     plan = cfg.layer_plan()
     if not cfg.scan_layers:
         yield from zip(plan, blocks)
         return
     period = cfg.plan_period
+    unbound = [[x.unbind(0) for x in tree_leaves(b)] for b in blocks]
     for i in range(cfg.n_layers):
-        yield plan[i], tree_map(lambda x, j=i // period: x[j], blocks[i % period])
+        pos, j = i % period, i // period
+        yield plan[i], tree_unflatten(blocks[pos], [u[j] for u in unbound[pos]])
 
 
 def _layer_caches(cfg: ArchConfig, layers: tuple):
@@ -247,12 +257,80 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, window=None):
     return _logits(cfg, params, apply_norm(cfg, params["final_norm"], x)), aux
 
 
-def cross_entropy(*args, **kwargs):
-    raise NotImplementedError(f"transformer training (cross_entropy) is not ported yet ({_ITEM})")
+# ---------------- losses ----------------
+def _training_gaps(cfg: ArchConfig) -> list[str]:
+    """What the port lacks to train ``cfg``, one line a family; empty for
+    the dense family."""
+    kinds = {spec.kind for spec in cfg.layer_plan()}
+    gaps = []
+    if cfg.moe is not None:
+        gaps.append("MoE: the aux and z losses (moe_loss) and the feed-forward's dispatch "
+                    "under torch.func")
+    if cfg.mla is not None:
+        gaps.append("MLA: its forward and backward held against the reference's "
+                    "(flash with V zero-padded to the qk width)")
+    if cfg.frontend_tokens:
+        gaps.append("frontend tokens: the projection's gradient and the -1 label pad held "
+                    "against the reference's")
+    if "mamba" in kinds:
+        gaps.append("mamba: a selective_scan backward kernel")
+    if kinds & {"mlstm", "slstm"}:
+        gaps.append("xLSTM: the mLSTM's and the sLSTM recurrence's backward")
+    return gaps
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError(f"transformer training (loss_fn) is not ported yet ({_ITEM})")
+def cross_entropy(cfg: ArchConfig, params: dict, x_final: torch.Tensor, labels: torch.Tensor,
+                  *, chunk: int = 0) -> torch.Tensor:
+    """Token CE over the final residual stream; labels == -1 are masked.
+    Logits in fp32, the gold logit gathered at max(labels, 0), the sum over
+    the unmasked tokens divided by max(their count, 1).
+
+    ``chunk > 0`` (dividing S, S > chunk) sums the loss chunk by chunk along
+    the sequence, as JAX's ``lax.map`` does; JAX also checkpoints each
+    chunk so the (B, S, V) logits never exist at once.  The port computes
+    the same sum plainly: ``torch.utils.checkpoint`` does not run under
+    ``torch.func.grad`` (saved-tensor hooks, or an autograd.Function
+    without ``setup_context``), so every chunk's logits stay saved."""
+    b, s, _ = x_final.shape
+
+    def ce_of(xc, yc):
+        logits = _logits(cfg, params, xc).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(yc, min=0).to(torch.int64)[..., None])[..., 0]
+        mask = (yc >= 0).to(torch.float32)
+        return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+    if chunk and s % chunk == 0 and s > chunk:
+        parts = [ce_of(x_final[:, i:i + chunk], labels[:, i:i + chunk])
+                 for i in range(0, s, chunk)]
+        total = torch.sum(torch.stack([t for t, _ in parts]))
+        n = torch.sum(torch.stack([c for _, c in parts]))
+    else:
+        total, n = ce_of(x_final, labels)
+    return total / torch.clamp(n, min=1.0)
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, ce_chunk: int = 0):
+    """FL-client local loss: CE over next-token ``batch["labels"]`` ->
+    (loss, metrics {"ce", the MoE aux keys}).  Raises for a family whose
+    training is not ported (``_training_gaps``)."""
+    gaps = _training_gaps(cfg)
+    if gaps:
+        raise NotImplementedError(
+            f"{cfg.name}: transformer training (loss_fn) is ported for the dense family; "
+            f"missing here: {'; '.join(gaps)} ({_ITEM})")
+    x = _embed_inputs(cfg, params, batch)
+    x, aux = _run_stack(cfg, params, x)
+    x = apply_norm(cfg, params["final_norm"], x)
+
+    labels = batch["labels"]
+    if cfg.frontend_tokens:  # the frontend's positions predict nothing (the reference's pad)
+        pad = torch.full((labels.shape[0], cfg.frontend_tokens), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+
+    ce = cross_entropy(cfg, params, x, labels, chunk=ce_chunk)
+    return ce, {"ce": ce, **aux}
 
 
 # ---------------- prefill / decode ----------------

@@ -671,6 +671,137 @@ def test_cuda_flash_attention(cuda, b, sq, skv, h, kv, d, dtype, window, q_offse
     torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
 
 
+# the training shapes of chip_smoke.py phase 17 (a): qwen3-0.6b's layer at
+# 4 clients x 2 sequences of 512 folded into B = 8, and the other heads and
+# masks the backward takes
+FLASH_BWD_CASES = [  # b, sq, skv, h, kv, d, dtype, window, q_offset, causal
+    (8, 512, 512, 16, 8, 128, torch.bfloat16, None, 0, True),
+    (8, 512, 512, 16, 8, 128, torch.float32, None, 0, True),
+    (2, 512, 512, 32, 8, 128, torch.bfloat16, None, 0, True),     # GQA 32 / 8
+    (2, 256, 256, 32, 32, 80, torch.bfloat16, None, 0, True),     # stablelm-3b's D = 80
+    (2, 256, 256, 8, 2, 64, torch.float32, None, 0, True),
+    (2, 128, 384, 8, 4, 64, torch.bfloat16, 100, 256, True),      # window at q_offset
+    (2, 300, 300, 16, 8, 128, torch.bfloat16, None, 0, True),     # ragged S
+    (1, 65, 130, 4, 4, 256, torch.float32, None, 0, False),       # not causal, D = 256
+    (1, 8, 24, 2, 1, 40, torch.float32, 3, 20, True),             # rows with no valid key
+]
+
+
+def _max_rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,dtype,window,q_offset,causal", FLASH_BWD_CASES)
+def test_cuda_flash_attention_backward(cuda, b, sq, skv, h, kv, d, dtype, window, q_offset,
+                                       causal):
+    """The forward's lse and the backward kernel's dq, dk, dv against
+    ``ref.attention_with_lse`` / ``ref.attention_bwd`` on the same inputs
+    (the kernel's own out and lse) and against autograd of
+    ``ref.attention``, each within 2e-5 (fp32) / 2e-2 (bf16) of the
+    tensor's max-abs; one counted launch each."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, dout = _attn_inputs(cuda, sq + d + 1, [(b, sq, h, d), (b, skv, kv, d),
+                                                    (b, skv, kv, d), (b, sq, h, d)], dtype)
+    from repro_torch.kernels import flash_attention as fk
+
+    before = ops.launch_counts()
+    out, lse = fk.flash_attention_fwd(q, k, v, **kw)
+    grads = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    exp_out, exp_lse = ref.attention_with_lse(q, k, v, **kw)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert _max_rel(lse, exp_lse) <= tol and _max_rel(out, exp_out) <= tol
+    plain = ref.attention_bwd(q, k, v, out, lse, dout, **kw)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ref.attention(qr, kr, vr, **kw).backward(dout)
+    for got, want, auto in zip(grads, plain, (qr.grad, kr.grad, vr.grad), strict=True):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert bool(torch.isfinite(got.float()).all())
+        assert _max_rel(got, want) <= tol and _max_rel(got, auto) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_pair_folds_a_vmapped_cohort_into_one_launch(cuda, monkeypatch):
+    """vmap over 3 clients of grad_and_value through ops.flash_attention:
+    one forward and one backward launch for the cohort, nothing reaches
+    ``ref``, and the gradients match the plain attention's autograd."""
+    q, k, v, w = _attn_inputs(cuda, 5, [(3, 2, 64, 4, 32), (3, 2, 64, 2, 32),
+                                        (3, 2, 64, 2, 32), (2, 64, 4, 32)], torch.float32)
+
+    def loss(attend):
+        return lambda kv_pair, qq: (attend(qq, *kv_pair) * w).sum()
+
+    plain = torch.func.vmap(torch.func.grad_and_value(loss(ref.attention), argnums=(0, 1)))(
+        (k, v), q)
+
+    def trap(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("attention", "attention_with_lse", "attention_bwd"):
+        monkeypatch.setattr(ref, name, trap)
+    ops.reset_launch_counts()
+    (gkv, gq), val = torch.func.vmap(
+        torch.func.grad_and_value(loss(ops.flash_attention), argnums=(0, 1)))((k, v), q)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    torch.cuda.synchronize()
+    (pkv, pq), pval = plain
+    torch.testing.assert_close(val, pval, rtol=2e-5, atol=2e-5)
+    for got, want in zip((*gkv, gq), (*pkv, pq), strict=True):
+        assert _max_rel(got, want) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_serving_kernels_refuse_a_gradient(cuda):
+    """decode_attention and selective_scan have no backward kernel: on the
+    card, an input that needs a gradient raises naming item 15."""
+    q, kc, vc = _attn_inputs(cuda, 3, [(2, 4, 32), (2, 16, 2, 32), (2, 16, 2, 32)],
+                             torch.float32)
+    valid = torch.ones(2, 16, dtype=torch.bool, device=cuda)
+    with pytest.raises(NotImplementedError, match="decode_attention.*item 15"):
+        ops.decode_attention(q.requires_grad_(), kc, vc, kv_valid=valid)
+    args, _ = _scan_inputs(cuda, 1, 2, 64, 128, 16, torch.float32, False)
+    x = args[0].detach().clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="selective_scan.*item 15"):
+        ops.selective_scan(x, *args[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_dense_training_matches_the_cpu(cuda):
+    """qwen3-0.6b.reduced() in fp32 from one set of params: loss_fn's value
+    and every leaf's gradient on the card within 1e-4 of the CPU route's
+    (relative to each leaf's max-abs: the kernels' and cuBLAS's sums run
+    in other orders), one flash forward and one backward launch a layer."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype="float32")
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu.init(0)
+    rng = np.random.default_rng(0)
+    batch = {k: _t(rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    want, (want_loss, _) = torch.func.grad_and_value(cpu.loss_fn, has_aux=True)(params, batch)
+    ops.reset_launch_counts()
+    got, (got_loss, _) = torch.func.grad_and_value(card.loss_fn, has_aux=True)(
+        tree_map(lambda t: t.to(cuda), params), {k: t.to(cuda) for k, t in batch.items()})
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == cfg.n_layers
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_loss.cpu(), want_loss, rtol=1e-5, atol=0)
+    for g, w_ in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        assert _max_rel(g.cpu(), w_) <= 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,d,dtype,mask", [
     (8, 2048, 16, 8, 128, torch.bfloat16, "linear"),         # qwen3-0.6b's decode
