@@ -261,13 +261,17 @@ Phases (any failure exits non-zero):
    the hand-written flash backward (flash_attention_bwd) against
    ref.attention_with_lse / ref.attention_bwd and autograd of
    ref.attention within 2e-5 (fp32) / 2e-2 (bf16) of each tensor's
-   max-abs, at the training shape (B·C = 8, S = 512, H 16 over KV 8, D
-   128, causal) in bf16 and fp32, GQA 32/8, D = 80 and 64, a window at a
-   q_offset, ragged S = 300, not causal at D = 256 and rows with no valid
-   key; at the training shape the backward and the forward with lse timed
-   through the wrapper and as a bare launch beside their bounds, the plain
-   backward and scaled_dot_product_attention's forward and backward;
-   ptxas' registers and spills of the 12 backward kernels; (b) qwen3-0.6b
+   max-abs, two calls bitwise equal, at the training shape (B·C = 8, S =
+   512, H 16 over KV 8, D 128, causal) in bf16 and fp32, GQA 32/8, D = 80
+   and 64, a window at a q_offset, ragged S = 300, not causal at D = 256,
+   rows with no valid key (also bf16 at D = 256 under a window), and the
+   widths the next training slices launch (paligemma's 8 over 1 at D =
+   256, MLA's qk 96, musicgen's 24 x 64); at the training shape the
+   backward and the forward with lse timed through the wrapper and as a
+   bare launch, bf16's dQ and dK / dV kernels also alone, beside their
+   bounds, the plain backward and scaled_dot_product_attention's forward
+   and backward; ptxas' registers and spills of the 12 backward kernels,
+   none in the six wgmma ones (bf16's tensor-core route); (b) qwen3-0.6b
    at full width cut to 2 layers: loss_fn's value and every leaf's
    gradient on the card against the port's CPU route on identical inputs,
    fp32 (2 x 512 tokens) and bf16 (1 x 256); (c) qwen3-0.6b at full width
@@ -350,11 +354,13 @@ def check(name: str, ok: bool, **info) -> None:
 _FLUSH = None
 
 
-def time_ms(fn, iters: int = 30) -> float:
+def time_ms(fn, iters: int = 30, lead_cycles: int = 0) -> float:
     """Median device time of one call.  Before each call a 512 MB memset
     evicts the 50 MB L2 (the server meets freshly decoded wires mostly
     cold) and keeps the card busy while the host enqueues the call, so the
-    events bracket the device work and not the host's launch overhead."""
+    events bracket the device work and not the host's launch overhead.  A
+    call whose host side outlasts the memset (autograd's dispatch of a
+    library backward) gets ``lead_cycles`` more of a device-side sleep."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
@@ -364,6 +370,8 @@ def time_ms(fn, iters: int = 30) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         _FLUSH.zero_()
+        if lead_cycles:
+            torch.cuda._sleep(lead_cycles)
         s.record()
         fn()
         e.record()
@@ -5973,6 +5981,9 @@ LM_CPU_TOKENS = {"float32": (LM_B, LM_SEQ), "bfloat16": (1, 256)}   # leg b's ba
 FL_LAUNCHED = ("fedavg_reduce", "quantize_int8", "dequantize_int8", "dequant_reduce",
                "topk_scatter_reduce", "collective_absmax", "collective_pack",
                "collective_unpack", "decode_attention", "selective_scan")
+# ~2 ms at the 1980 MHz maximum SM clock: time for autograd to enqueue
+# SDPA's backward before the timed window opens (leg a's yardstick)
+SDPA_BWD_LEAD_CYCLES = 4_000_000
 # leg a: label, B, Sq, Skv, H, KV, D, dtype, window, q_offset, causal
 FLASH_BWD_CASES = [
     ("training shape", LM_C * LM_B, LM_SEQ, LM_SEQ, 16, 8, 128, torch.bfloat16, None, 0, True),
@@ -5988,6 +5999,15 @@ FLASH_BWD_CASES = [
      False),
     ("rows with no valid key", 1, 8, 24, 2, 1, 40, torch.float32, 3, 20, True),
     ("bf16 rows with no valid key", 1, 8, 24, 2, 1, 40, torch.bfloat16, 3, 20, True),
+    # the widths the next training slices launch (ROADMAP item 15)
+    ("paligemma-3b's 8 over 1 at D = 256", 2, 512, 512, 8, 1, 256, torch.bfloat16, None, 0,
+     True),
+    ("MLA's qk 96", 2, 512, 512, 16, 16, 96, torch.bfloat16, None, 0, True),
+    ("musicgen-medium's 24 x 64", 2, 512, 512, 24, 24, 64, torch.bfloat16, None, 0, True),
+    # rows from 115 on have no valid key; at D = 256 the dK / dV kernel's
+    # four passes and 32-row tiles
+    ("bf16 rows with no valid key, window 16, D = 256", 2, 200, 300, 4, 2, 256, torch.bfloat16,
+     16, 200, True),
 ]
 
 
@@ -6002,13 +6022,15 @@ def flash_backward_checks(dev) -> dict:
     ``ref.attention_with_lse`` / ``ref.attention_bwd`` on the same inputs
     (the kernel's own out and lse) and against autograd of
     ``ref.attention``, within 2e-5 (fp32) / 2e-2 (bf16) of each tensor's
-    max-abs, at ``FLASH_BWD_CASES``; at the training shape (bf16 and fp32)
-    the forward with lse and the backward timed through the wrapper and as
-    a bare launch beside their bounds (the backward's five products
-    10·B·H·D·pairs at the dtype's peak, or its bytes), the plain backward,
-    and scaled_dot_product_attention's forward and backward (never on the
-    port's path).  Then ptxas' registers and spills of the backward
-    kernels.  -> the backward's kernel row (bf16, training shape)."""
+    max-abs, at ``FLASH_BWD_CASES``, and two calls bitwise equal; at the
+    training shape (bf16 and fp32) the forward with lse and the backward
+    timed through the wrapper and as a bare launch (bf16: also the dQ and
+    the dK / dV kernel alone) beside their bounds (the backward's five
+    products 10·B·H·D·pairs at the dtype's peak, or its bytes), the plain
+    backward, and scaled_dot_product_attention's forward and backward
+    (never on the port's path).  Then ptxas' registers and spills of the
+    backward kernels, none in the wgmma ones.  -> the backward's kernel row
+    (bf16, training shape)."""
     import re
 
     from repro_torch.kernels import _cuda, ref
@@ -6025,6 +6047,9 @@ def flash_backward_checks(dev) -> dict:
         kw = dict(causal=causal, window=window, q_offset=q_off)
         out, lse = fk.flash_attention_fwd(q, k, v, **kw)
         grads = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        again = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        bitwise = all(torch.equal(g, a) for g, a in zip(grads, again))
+        del again
         exp_out, exp_lse = ref.attention_with_lse(q, k, v, **kw)
         plain = ref.attention_bwd(q, k, v, out, lse, dout, **kw)
         qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
@@ -6036,9 +6061,11 @@ def flash_backward_checks(dev) -> dict:
                 **{f"{n}_autograd": max_rel(g, a) for n, g, a in zip("qkv", grads, auto)}}
         check(f"flash_attention_bwd [{label}: q {tuple(q.shape)}, k {tuple(k.shape)}, {dtype}, "
               f"window {window}, q_offset {q_off}, causal {causal}]: lse, dq, dk, dv within "
-              f"{tol} of each tensor's max-abs (plain versions, autograd of ref.attention)",
+              f"{tol} of each tensor's max-abs (plain versions, autograd of ref.attention), "
+              f"two calls bitwise equal",
               all(g.dtype == dtype and g.shape == p.shape and bool(torch.isfinite(g).all())
-                  for g, p in zip(grads, plain)) and max(errs.values()) <= tol, **errs)
+                  for g, p in zip(grads, plain)) and max(errs.values()) <= tol and bitwise,
+              bitwise=bitwise, **errs)
         del qr, kr, vr, auto, exp_out, exp_lse
         if label not in ("training shape", "fp32, training shape"):
             continue
@@ -6062,6 +6089,13 @@ def flash_backward_checks(dev) -> dict:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b,
             sq, skv, h, kv, d, *mask_args)
+
+        def bwd_part(part):  # 1: the dQ kernel (and delta), 2: the dK / dV kernel
+            return lambda: _cuda.launch(
+                "flash_attention", "repro_flash_attention_bwd_bf16_parts", "flash_attention_bwd",
+                dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                b, sq, skv, h, kv, d, *mask_args, part)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
         dot = dout.transpose(1, 2)
@@ -6074,7 +6108,8 @@ def flash_backward_checks(dev) -> dict:
             launch_ms=time_ms(bwd_bare),
             plain_ms=time_ms(lambda: ref.attention_bwd(q, k, v, out, lse, dout, **kw), iters=5),
             library_ms=time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                                           retain_graph=True)),
+                                                           retain_graph=True),
+                               lead_cycles=SDPA_BWD_LEAD_CYCLES),
             bound_ms=b_ms, bound_by=b_by, flops=bwd_flops, bytes=bwd_bytes,
             peak_flop_per_s=peak,
             fwd_lse_ms=time_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw)),
@@ -6085,6 +6120,13 @@ def flash_backward_checks(dev) -> dict:
             shape=f"q ({b}, {sq}, {h}, {d}), k/v ({b}, {skv}, {kv}, {d}) {dtype} causal",
         )
         timing["sdpa_fwd_bwd_ms"] = timing["sdpa_fwd_ms"] + timing["library_ms"]
+        parts = ""
+        if dtype == torch.bfloat16:
+            bwd_bare()  # delta for the dK / dV kernel alone
+            timing["dq_kernel_ms"] = time_ms(bwd_part(1))
+            timing["dkv_kernel_ms"] = time_ms(bwd_part(2))
+            parts = (f"; the dQ kernel alone {timing['dq_kernel_ms'] * 1e3:.2f} us, the dK / dV "
+                     f"kernel {timing['dkv_kernel_ms'] * 1e3:.2f} us")
         print(f"flash_attention_bwd [{label}] {timing['shape']}: backward {timing['ms'] * 1e3:.2f} "
               f"us (bare {timing['launch_ms'] * 1e3:.2f}), bound {b_ms * 1e3:.2f} us ({b_by}: "
               f"{bwd_flops / 1e9:.2f} GFLOP, {bwd_bytes / 1e6:.2f} MB), plain "
@@ -6092,7 +6134,7 @@ def flash_backward_checks(dev) -> dict:
               f"{timing['library_ms'] * 1e3:.2f} us; forward with lse "
               f"{timing['fwd_lse_ms'] * 1e3:.2f} us (bare {timing['fwd_lse_launch_ms'] * 1e3:.2f}, "
               f"without lse {timing['fwd_ms'] * 1e3:.2f}), bound {f_ms * 1e3:.2f} us ({f_by}), "
-              f"SDPA's forward {timing['sdpa_fwd_ms'] * 1e3:.2f} us", flush=True)
+              f"SDPA's forward {timing['sdpa_fwd_ms'] * 1e3:.2f} us{parts}", flush=True)
         if dtype == torch.bfloat16:
             row = timing
         else:
@@ -6100,16 +6142,19 @@ def flash_backward_checks(dev) -> dict:
         del q, k, v, dout, out, lse, grads, plain, o, ls, dq, dk, dv, delta, qt, kt, vt, ot
 
     def name_of(line):
-        entry = re.search(r"Compiling entry function '\S*?(flash_attention_bwd_\w+?_kernel)I"
-                          r"(\w+?)Li(\d+)E", line)
+        entry = re.search(r"Compiling entry function '\S*?(flash_attention_bwd_\w+?_kernel"
+                          r"(?:_wgmma)?)I(f?)Li(\d+)E", line)
         if entry:
             kind, dtype, dp = entry.groups()
-            return f"{kind}<{'float' if dtype == 'f' else 'bf16'}, {dp}>"
+            return f"{kind}<{'float, ' if dtype == 'f' else ''}{dp}>"
         return None
 
     row["ptxas"] = ptxas_report("flash_attention", name_of)
-    check("ptxas reports the 12 backward kernels (dQ, dK/dV x 2 dtypes x 3 head dims)",
-          len(row["ptxas"]) == 12, kernels=row["ptxas"])
+    wgmma = {k: v for k, v in row["ptxas"].items() if "wgmma" in k}
+    check("ptxas reports the 12 backward kernels (dQ, dK/dV x 3 head dims: fp32 on the CUDA "
+          "cores, bf16 wgmma), no spill and no stack frame in the wgmma ones",
+          len(row["ptxas"]) == 12 and len(wgmma) == 6 and no_spill(wgmma)
+          and all(v.get("stack_frame") == 0 for v in wgmma.values()), kernels=row["ptxas"])
     return row
 
 

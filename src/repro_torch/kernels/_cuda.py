@@ -61,6 +61,7 @@ SIGNATURES = {
         "repro_flash_attention_bf16": (*(_P,) * 5, *(_I64,) * 9, _F, _P),
         "repro_flash_attention_bwd_f32": (*(_P,) * 10, *(_I64,) * 9, _F, _P),
         "repro_flash_attention_bwd_bf16": (*(_P,) * 10, *(_I64,) * 9, _F, _P),
+        "repro_flash_attention_bwd_bf16_parts": (*(_P,) * 10, *(_I64,) * 9, _F, _I64, _P),
     },
     "decode_attention": {
         "repro_decode_attention_f32": (*(_P,) * 6, *(_I64,) * 7, _F, _P),

@@ -110,27 +110,6 @@ __device__ __forceinline__ void store4(float* dst, float a, float b, float c, fl
   *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
 }
 
-// bf16 rows for the backward (the forward's bf16 route loads by TMA): 8
-// values, 16 bytes, in one load; 4 values, 8 bytes, in one store
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b, float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = u;
-}
-
 // Rows [row0, row0 + ROWS) of one head, row r at base + r * row_stride,
 // into shared memory as fp32 times `scale`, row pitch DP + 4; rows past
 // n_rows and columns past d are zero.
@@ -612,10 +591,31 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64 fp32) += A (64 x 16, shared, K-major) * B (16 x 64, shared,
+// K-major); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
-  static_assert(N == 32 || N == 128, "no such key tile");
+  static_assert(N == 32 || N == 64 || N == 128, "no such key tile");
   if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
   else wgmma_ss_n128(d, da, db, scale_d);
 }
 
@@ -991,7 +991,32 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bflo
 
 }  // namespace
 
-// ---------------- the backward: CUDA cores, fp32 sums, no atomics ----------------
+// ---------------- the backward: two kernels, fp32 sums, no atomics ----------------
+//
+// Replaces no TPU kernel: the JAX package has no backward kernel, JAX
+// differentiates its attention oracle.  Added for training (the port's
+// ops._FlashAttentionBwd), from the forward's out and lse: delta =
+// rowsum(dO * O), P = exp(S - lse), dP = dO . V^T, dS = P * (dP - delta)
+// where the mask lets the pair attend and 0 elsewhere; dQ = scale * dS . K,
+// dK = scale * dS^T . Q and dV = P^T . dO summed over a KV head's G query
+// heads.  A row with no valid key took the mean of V: it adds dO / Skv to
+// every key's dV and nothing to dQ or dK.
+//
+// Bound at the training shape (B = 8, S = 512, H = 16 over KV = 8, D = 128,
+// bf16, causal): ~101 MB of q, k, v, out, lse, dout and the gradients (30 us
+// at 3.35 TB/s) against 21.5 GFLOP of the five distinct products (20 us at
+// 1070 TFLOP/s); the two-kernel scheme computes S and dP twice, seven
+// products, ~30 GFLOP (28 us).  Only the tensor cores come near it: seven
+// products in fp32 on the CUDA cores take ~450 us at 67 TFLOP/s.
+//
+// Two kernels, dQ (with delta) then dK / dV: each CTA owns its rows of dQ,
+// or of dK and dV over the G query heads, so there are no atomics and two
+// calls give the same bits.  The dtype picks the route (a route, not a
+// fallback): bf16 runs on the tensor cores (wgmma, TMA; its section below),
+// fp32 on the CUDA cores in fp32 throughout (TF32 would miss fp32's 2e-5
+// gate), one CTA of 256 threads a 64-row query tile (dQ) or a key tile (dK /
+// dV, 64 keys; 32 at D_pad = 256), tiles staged through shared memory as
+// fp32.
 namespace {
 
 constexpr int kBwdBQ = 64;  // query rows a tile
@@ -1404,6 +1429,890 @@ int launch_bwd(const T* q, const T* k, const T* v, const T* o, const float* lse,
 
 }  // namespace
 
+// ---------------- the backward, bf16: wgmma on the tensor cores, TMA copies ----------------
+//
+// The forward's building blocks (tensor_map's 64-column boxes with the
+// 128-byte swizzle, zeros past the edges; the mbarrier ring that thread 0
+// fills with TMA; sw128_desc; wgmma_ss / wgmma_rs) in two kernels:
+//
+// dQ, flash_attention_bwd_dq_kernel_wgmma: work items (b, h, 128 query
+// rows), warpgroups 0 and 1 each own 64 rows.  The item's Q and dO arrive
+// once (two slots: the next item's load early; one at D_pad = 256), its K
+// and V tiles (64 keys; 32 at 256) stream through a ring that runs on from
+// item to item (3 stages; 4 at 64).  delta is summed while the first tile's
+// products run (dO from the swizzled slot, O from memory, every load asked
+// for before the first is used) and written for dK / dV.  Per key tile:
+// S = Q . K^T and dP = dO . V^T from shared memory (both K-major), P =
+// exp2(S scale log2e - lse log2e), dS = P (dP - delta), rounded to bf16 in
+// registers (the accumulator's layout is the A fragment's, as the forward's
+// P), dQ += dS . K with K the MN-major B operand.
+//
+// dK / dV, flash_attention_bwd_dkv_kernel_wgmma: work items (b, KV head, 128
+// keys), warpgroups 0 and 1 each own 64 keys; the item's K and V arrive once
+// and stay (one slot; two at 64), Q and dO tiles of 64 rows (32 at 256) of
+// the G query heads stream through a ring (4 stages; 3 at 256), with their
+// rows' lse log2e and delta passed through shared memory.  Per query tile, transposed: S^T
+// = K . Q^T and dP^T = V . dO^T from shared memory (both K-major, as they
+// lie), P^T and dS^T as above (a row with no valid key: P = 1 / Skv, dS =
+// 0), rounded to bf16 in registers, dV += P^T . dO and dK += dS^T . Q with dO
+// and Q the MN-major B operand.  dK takes the scale in the epilogue.  At
+// D_pad = 256 dK and dV (128 fp32 registers each a thread) do not fit
+// together, nor one of them beside the rest (ptxas spilled): the item walks
+// its query tiles four times, dV's columns [0, 128) and [128, 256) (S^T
+// only), then dK's, each pass with one 64-register accumulator.
+//
+// Both: one persistent CTA an SM, two warpgroups of 255 registers (the
+// forward's reason: no third warpgroup that loads), thread 0 loads; the
+// items heaviest first (class Heaviest), the consumers told each slot's item
+// by thread 0.  A key or query tile whose pairs are all masked is never
+// walked; an edge tile (ragged, diagonal, window, a row with no valid key)
+// masks per element from per-row bounds in tile columns, an interior tile
+// runs a loop without masks.  Each warpgroup runs a tile's products, its
+// elementwise work and its second products in turn; the two warpgroups
+// overlap each other, not their own phases (a second tile's scores in
+// flight would need registers the accumulators hold).  Rounding: bf16
+// operands, fp32 sums, P^T / dS^T / dS rounded to bf16 before their
+// products, as the forward rounds P.
+namespace {
+
+__device__ __forceinline__ void wg_bar(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// 8 bf16 products of two 16-byte chunks, summed in fp32 onto acc
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b, float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+// Tiles 0..n-1 by their walk's length, heaviest first.  A length (the key
+// tiles a query tile reaches, or the query tiles a key tile reaches) counts
+// an interval that slides across a fixed one: it rises, stays, then falls.
+// So heaviest first is the merge of the two sides of the first heaviest
+// tile: from it on, the heavier of the nearest tiles not yet taken on either
+// side, the left one on a tie.  seek(r) moves on to rank r; ranks only grow,
+// so a walker passes over the tiles once for all its items.
+struct Heaviest {
+  int n, at, left, right, rank;
+  template <typename W>
+  __device__ void start(int n_tiles, W weight) {
+    n = n_tiles;
+    at = 0;
+    rank = 0;
+    int best = weight(0);
+    for (int t = 1; t < n; ++t) {
+      const int x = weight(t);
+      if (x > best) {
+        best = x;
+        at = t;
+      }
+    }
+    left = at - 1;
+    right = at + 1;
+  }
+  template <typename W>
+  __device__ int seek(int r, W weight) {
+    for (; rank < r; ++rank)
+      at = left >= 0 && (right >= n || weight(left) >= weight(right)) ? left-- : right++;
+    return at;
+  }
+};
+
+// The first query row with no valid key (sq if none): from qpos = skv +
+// window - 1 on; every row under a causal window of 0.
+__device__ __forceinline__ int64_t first_empty_row(const Mask& mk, int64_t sq) {
+  if (mk.window < 0) return sq;
+  return min64(mk.causal && mk.window == 0 ? 0 : max64(mk.skv + mk.window - 1 - mk.q_offset, 0),
+               sq);
+}
+
+// x - origin as a tile-local column, clamped to [-1, n]
+__device__ __forceinline__ int local(int64_t x, int64_t origin, int n) {
+  return static_cast<int>(max64(-1, min64(x - origin, n)));
+}
+
+// The key tiles [kt0, kt0 + n) of BK keys that query rows [q0, q0 + rows)
+// reach: lo and hi grow with the position, so the first row's lo and the
+// last row's hi bound them (n = 0 when every row has no valid key).
+template <int BK>
+__device__ __forceinline__ int key_span(const Mask& mk, int64_t sq, int64_t q0, int rows,
+                                        int64_t& kt0) {
+  const int64_t lo = mk.lo(q0 + mk.q_offset), hi = mk.hi(min64(q0 + rows, sq) - 1 + mk.q_offset);
+  kt0 = lo / BK;
+  return hi >= lo ? static_cast<int>(hi / BK + 1 - kt0) : 0;
+}
+
+// The query tiles of BQ rows that keys [k0, k0 + 128) reach: [f, f + n1),
+// whose rows may hold a valid pair with them, then [qe, n_qt), the tiles
+// from the first row with no valid key on (it reaches every key: its output
+// was the mean of V).  m tiles in all, for each query head.
+struct QuerySpan {
+  int f, n1, qe, m;
+};
+
+template <int BQ>
+__device__ __forceinline__ QuerySpan query_span(const Mask& mk, int64_t sq, int64_t k0) {
+  const int n_qt = static_cast<int>((sq + BQ - 1) / BQ);
+  const int64_t k1 = min64(k0 + 128, mk.skv) - 1;
+  // rows whose position can reach [k0, k1]: qpos >= k0 (causal), qpos <=
+  // k1 + window - 1 (window)
+  const int64_t r_lo = max64(mk.causal ? k0 - mk.q_offset : 0, 0);
+  const int64_t r_hi = min64(mk.window >= 0 ? k1 + mk.window - 1 - mk.q_offset : sq - 1, sq - 1);
+  const int64_t r_e = first_empty_row(mk, sq);
+  const int qe = r_e >= sq ? n_qt : static_cast<int>(r_e / BQ);
+  int a0 = 0, a1 = 0;
+  if (r_lo <= r_hi) {
+    a0 = static_cast<int>(r_lo / BQ);
+    a1 = static_cast<int>(r_hi / BQ) + 1;
+  }
+  QuerySpan s;
+  s.f = min(a0, qe);
+  s.n1 = max(0, min(a1, qe) - s.f);
+  s.qe = qe;
+  s.m = s.n1 + n_qt - qe;
+  return s;
+}
+
+// The query tiles of a dK / dV item in the order its passes walk them:
+// each pass the G heads, each head its m query tiles [f, f + n1), [qe,
+// n_qt) (QuerySpan); next() gives the tile's query head and first row.
+template <int BQ>
+struct QueryCursor {
+  int hl, qi;
+  template <typename Item>
+  __device__ void next(const Item& it, int groups, int& head, int64_t& q0) {
+    head = it.kvh * groups + hl;
+    q0 = static_cast<int64_t>(qi < it.s.n1 ? it.s.f + qi : it.s.qe + qi - it.s.n1) * BQ;
+    if (++qi == it.s.m) {
+      qi = 0;
+      if (++hl == groups) hl = 0;
+    }
+  }
+};
+
+template <int DP>
+struct BwdQTile {
+  static constexpr int kBQ = 128;                    // query rows an item: two warpgroups of 64
+  static constexpr int kBK = DP == 256 ? 32 : 64;    // keys a tile
+  static constexpr int kStages = DP == 64 ? 4 : 3;   // the K / V ring: loads kStages - 2 ahead
+  static constexpr int kSlots = DP == 256 ? 1 : 2;   // Q and dO: the next item's load early
+  static constexpr int kPanels = DP / 64;
+  static constexpr uint32_t kQBytes = kBQ * DP * 2;   // Q or dO
+  static constexpr uint32_t kKVBytes = kBK * DP * 2;  // K or V
+  static constexpr uint32_t kRing = kSlots * 2 * kQBytes;             // slot s: Q, then dO
+  static constexpr uint32_t kBars = kRing + kStages * 2 * kKVBytes;   // stage s: K, then V
+  static constexpr uint32_t kProducer = kBars + 16 * 8;               // thread 0's walk
+  static constexpr size_t kSmem = kProducer + 256 + 1024;             // slack to align
+};
+
+template <int DP>
+struct BwdKVTile {
+  static constexpr int kBK = 128;                    // keys an item: two warpgroups of 64
+  static constexpr int kBQ = DP == 256 ? 32 : 64;    // query rows a tile
+  // dK and dV a pass accumulates: at 256 (registers) four passes, dV's
+  // columns [0, 128) and [128, 256), then dK's
+  static constexpr int kPasses = DP == 256 ? 4 : 1;
+  static constexpr int kN = DP == 256 ? 128 : DP;   // columns a pass accumulates
+  static constexpr int kStages = DP == 256 ? 3 : 4;  // the Q / dO ring: loads kStages - 2 ahead
+  static constexpr int kSlots = DP == 64 ? 2 : 1;    // K and V: the next item's load early
+  static constexpr int kPanels = DP / 64;
+  static constexpr uint32_t kKVBytes = kBK * DP * 2;  // K or V
+  static constexpr uint32_t kQBytes = kBQ * DP * 2;   // Q or dO
+  static constexpr uint32_t kRing = kSlots * 2 * kKVBytes;            // slot s: K, then V
+  static constexpr uint32_t kRows = kRing + kStages * 2 * kQBytes;    // stage s: Q, then dO
+  // per warpgroup and tile parity: the tile's rows' lse log2e, then delta
+  static constexpr uint32_t kBars = kRows + 2 * 2 * 2 * kBQ * 4;
+  static constexpr uint32_t kProducer = kBars + 16 * 8;
+  static constexpr size_t kSmem = kProducer + 256 + 1024;
+};
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// mbarriers at `bars`: slot full and free (kSlots each), stage full and
+// free (kStages each); full ones complete on thread 0's expect_tx and the
+// copies, free ones on every thread's arrival.
+template <int kSlots, int kStages>
+struct Bars {
+  static constexpr int kCount = 2 * (kSlots + kStages);
+  static_assert(kCount <= 16, "the mbarriers' room");
+  uint32_t bars;
+  __device__ uint32_t slot_full(int j) const { return bars + 8u * (j % kSlots); }
+  __device__ uint32_t slot_free(int j) const { return bars + 8u * (kSlots + j % kSlots); }
+  __device__ uint32_t stage_full(int g) const { return bars + 8u * (2 * kSlots + g % kStages); }
+  __device__ uint32_t stage_free(int g) const {
+    return bars + 8u * (2 * kSlots + kStages + g % kStages);
+  }
+  __device__ void init() const {
+    for (int j = 0; j < kSlots; ++j) {
+      mbar_init(slot_full(j), 1);
+      mbar_init(slot_free(j), kWgThreads);
+    }
+    for (int g = 0; g < kStages; ++g) {
+      mbar_init(stage_full(g), 1);
+      mbar_init(stage_free(g), kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// dQ and delta.  Thread 0 loads: an item's Q and dO into its slot once
+// every thread has released the item kSlots back (thread 0 asks right after
+// its own release, so it never waits for itself), and the K / V ring, tile
+// g + kStages - 2 in its turn on tile g, into the stage of tile g - 2: the
+// other warpgroup is done with it, so thread 0 does not wait for it to
+// finish the tile just before.
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tdo,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const __nv_bfloat16* __restrict__ o,
+                                    const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
+                                    float* __restrict__ delta, int64_t sq, int h, int kv, int d,
+                                    Mask mask, float scale, int n_items) {
+  using C = BwdQTile<DP>;
+  constexpr int kBK = C::kBK, kBQ = C::kBQ, kSlots = C::kSlots, kStages = C::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const Bars<kSlots, kStages> bar{base + C::kBars};
+
+  const int n_qt = static_cast<int>((sq + kBQ - 1) / kBQ);
+  const int n_bh = n_items / n_qt;
+  const int n_mine = (n_items - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  auto weight = [&](int qt) {
+    int64_t kt0;
+    return key_span<kBK>(mask, sq, static_cast<int64_t>(qt) * kBQ, kBQ, kt0);
+  };
+  struct Item {
+    int b, hh, n;
+    int64_t q0, kt0;
+  };
+  // item j of this CTA, its query tile qt; the walkers find qt
+  auto item_at = [&](int j, int qt) {
+    const int w = static_cast<int>(blockIdx.x) + j * static_cast<int>(gridDim.x);
+    Item it;
+    it.b = w % n_bh / h;
+    it.hh = w % n_bh % h;
+    it.q0 = static_cast<int64_t>(qt) * kBQ;
+    it.n = key_span<kBK>(mask, sq, it.q0, kBQ, it.kt0);
+    return it;
+  };
+  auto item = [&](int j, Heaviest& order) {
+    const int w = static_cast<int>(blockIdx.x) + j * static_cast<int>(gridDim.x);
+    return item_at(j, order.seek(w / n_bh, weight));
+  };
+
+  // thread 0's walk lives in shared memory, out of every thread's registers
+  struct Producer {
+    Heaviest slot_order, ring_order;
+    int slot_tile[2];  // the query tile of the item in each slot, for every thread
+    Item ri;
+    int rj, rt;      // the ring's item, and its next tile
+    int gl;          // tiles loaded so far
+    int nb, nh, nk;  // the next tile's batch row, KV head, first key (nb < 0: none)
+  };
+  static_assert(sizeof(Producer) <= 256, "the producer's room");
+  uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
+  Producer& pr = *reinterpret_cast<Producer*>(smem + C::kProducer);
+  auto slot_load = [&](int jj) {
+    if (jj >= n_mine) return;
+    const Item it = item(jj, pr.slot_order);
+    if (jj >= kSlots) mbar_wait(bar.slot_free(jj), (jj / kSlots - 1) & 1);
+    pr.slot_tile[jj % kSlots] = static_cast<int>(it.q0 / kBQ);  // seen once the slot is full
+    const uint32_t qs = base + (jj % kSlots) * 2 * C::kQBytes;
+    mbar_expect_tx(bar.slot_full(jj), 2 * C::kQBytes);
+#pragma unroll
+    for (int p = 0; p < C::kPanels; ++p) {
+      tma_load(qs + p * kBQ * 128, &tq, bar.slot_full(jj), 64 * p, it.hh,
+               static_cast<int>(it.q0), it.b);
+      tma_load(qs + C::kQBytes + p * kBQ * 128, &tdo, bar.slot_full(jj), 64 * p, it.hh,
+               static_cast<int>(it.q0), it.b);
+    }
+  };
+  // the ring's next tile: found ahead (ring_find), copied when its turn
+  // comes (ring_issue), so the copy costs warpgroup 0 little
+  auto ring_find = [&]() {
+    while (pr.rj < n_mine && pr.rt == pr.ri.n) {  // items with no key tile load none
+      pr.rt = 0;
+      if (++pr.rj < n_mine) pr.ri = item(pr.rj, pr.ring_order);
+    }
+    pr.nb = pr.rj < n_mine ? pr.ri.b : -1;
+    pr.nh = pr.ri.hh / (h / kv);
+    pr.nk = static_cast<int>((pr.ri.kt0 + pr.rt++) * kBK);
+  };
+  auto ring_issue = [&]() {
+    const int nb = pr.nb, nh = pr.nh, nk = pr.nk, gl = pr.gl;
+    if (nb < 0) return;
+    if (gl >= kStages) mbar_wait(bar.stage_free(gl), (gl / kStages - 1) & 1);
+    const uint32_t ks = base + C::kRing + (gl % kStages) * 2 * C::kKVBytes;
+    mbar_expect_tx(bar.stage_full(gl), 2 * C::kKVBytes);
+#pragma unroll
+    for (int p = 0; p < C::kPanels; ++p) {
+      tma_load(ks + p * kBK * 128, &tk, bar.stage_full(gl), 64 * p, nh, nk, nb);
+      tma_load(ks + C::kKVBytes + p * kBK * 128, &tv, bar.stage_full(gl), 64 * p, nh, nk, nb);
+    }
+    pr.gl = gl + 1;
+  };
+
+  if (threadIdx.x == 0) {
+    bar.init();
+    pr.slot_order.start(n_qt, weight);
+    pr.ring_order.start(n_qt, weight);
+    pr.ri = item(0, pr.ring_order);
+    pr.rj = pr.rt = pr.gl = 0;
+    for (int jj = 0; jj < kSlots; ++jj) slot_load(jj);
+    ring_find();
+    for (int i = 0; i < kStages - 1; ++i) {
+      ring_issue();
+      ring_find();
+    }
+  }
+  __syncthreads();
+
+  // this thread's rows of an item: row and row + 8; of every 8-column chunk
+  // ch of a tile, columns 8 ch + cq and + 1
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int row = wg * 64 + (t / 32) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float sl = scale * kLog2e;
+
+  int g = 0;  // key tiles walked so far, over all items
+  for (int j = 0; j < n_mine; ++j) {
+    mbar_wait(bar.slot_full(j), (j / kSlots) & 1);
+    const Item it = item_at(j, pr.slot_tile[j % kSlots]);
+    const int64_t bh = static_cast<int64_t>(it.b) * h + it.hh;
+    const uint32_t qs = base + (j % kSlots) * 2 * C::kQBytes;
+    const uint64_t qa = sw128_desc(qs + wg * 64 * 128, 16);
+    const uint64_t doa = sw128_desc(qs + C::kQBytes + wg * 64 * 128, 16);
+    int64_t qr[2], klo[2], khi[2];  // this thread's rows, the keys [klo, khi] each attends
+    float l2[2], dl[2] = {0.0f, 0.0f};  // lse log2e and delta of this thread's rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      qr[r] = it.q0 + row + 8 * r;
+      l2[r] = qr[r] < sq ? lse[bh * sq + qr[r]] * kLog2e : 0.0f;
+      klo[r] = qr[r] < sq ? mask.lo(qr[r] + mask.q_offset) : 1;
+      khi[r] = qr[r] < sq ? mask.hi(qr[r] + mask.q_offset) : 0;
+    }
+    float dqa[DP / 2];  // dQ's accumulator
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) dqa[e] = 0.0f;
+
+    // delta = rowsum(dO * O): a row's quad splits its 16-byte chunks, O
+    // from memory (every load asked for before the first is used), dO from
+    // the slot (chunk c of row r sits at chunk c ^ (r % 8) of the row's 128
+    // bytes: the swizzle)
+    auto row_delta = [&]() {
+      constexpr int kChunks = DP / 32;           // a thread's chunks of a row
+      constexpr int kBatch = DP == 256 ? 1 : 2;  // rows loaded at once (registers)
+#pragma unroll
+      for (int r0 = 0; r0 < 2; r0 += kBatch) {
+        uint4 ov[kBatch][kChunks];
+#pragma unroll
+        for (int r = r0; r < r0 + kBatch; ++r) {
+          const __nv_bfloat16* orow =
+              o + ((it.b * sq + min64(qr[r], sq - 1)) * h + it.hh) * static_cast<int64_t>(d);
+#pragma unroll
+          for (int i = 0; i < kChunks; ++i) {
+            const int c = lane % 4 + 4 * i;
+            ov[r - r0][i] = qr[r] < sq && 8 * c < d
+                                ? *reinterpret_cast<const uint4*>(orow + 8 * c)
+                                : make_uint4(0, 0, 0, 0);
+          }
+        }
+#pragma unroll
+        for (int r = r0; r < r0 + kBatch; ++r) {
+          const int rl = row + 8 * r;
+          float sum = 0.0f;
+#pragma unroll
+          for (int i = 0; i < kChunks; ++i) {
+            const int c = lane % 4 + 4 * i;
+            sum = dot8(ov[r - r0][i],
+                       lds128(qs + C::kQBytes + (c / 8) * kBQ * 128 + rl * 128 +
+                              ((c % 8) ^ (rl % 8)) * 16),
+                       sum);
+          }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          dl[r] = sum;
+          if (lane % 4 == 0 && qr[r] < sq) delta[bh * sq + qr[r]] = sum;
+        }
+      }
+    };
+    auto release_slot = [&]() {
+      mbar_arrive(bar.slot_free(j));
+      if (threadIdx.x == 0) slot_load(j + kSlots);
+      if (wg == 0) wg_bar(1);
+    };
+
+    if (it.n == 0) {
+      row_delta();
+      release_slot();
+    }
+    const int64_t qlo = it.q0 + mask.q_offset, qhi = min64(it.q0 + kBQ, sq) - 1 + mask.q_offset;
+    for (int i = 0; i < it.n; ++i, ++g) {
+      const uint32_t ks = base + C::kRing + (g % kStages) * 2 * C::kKVBytes;
+      const int64_t k0 = (it.kt0 + i) * kBK;
+      // S = Q . K^T and dP = dO . V^T: DP / 64 panels of 4 k16 steps each
+      float st[kBK / 2], dpt[kBK / 2];
+      const uint64_t kb = sw128_desc(ks, 16), vb = sw128_desc(ks + C::kKVBytes, 16);
+      mbar_wait(bar.stage_full(g), (g / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<kBK>(st, qa + (p * kBQ * 128 + kk * 32) / 16,
+                        kb + (p * kBK * 128 + kk * 32) / 16, p | kk);
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<kBK>(dpt, doa + (p * kBQ * 128 + kk * 32) / 16,
+                        vb + (p * kBK * 128 + kk * 32) / 16, p | kk);
+      wgmma_commit();
+      if (i == 0) row_delta();  // while the products run
+      // the next tile; warpgroup 0 meets after thread 0 may have waited, so
+      // no warp asks for a wgmma its warpgroup's other warps have not
+      if (threadIdx.x == 0 && g >= 1) ring_issue();
+      if (wg == 0) wg_bar(1);
+      wgmma_wait();
+      fence_regs(st);
+      fence_regs(dpt);
+      if (i == it.n - 1) release_slot();
+
+      // dS = P (dP - delta), 0 where the pair does not attend; only an edge
+      // tile masks
+      const bool edge = k0 + kBK > mask.skv || it.q0 + kBQ > sq ||
+                        (mask.causal && k0 + kBK - 1 > qlo) ||
+                        (mask.window >= 0 && k0 <= qhi - mask.window);
+      const int lo[2] = {local(klo[0], k0, kBK), local(klo[1], k0, kBK)};
+      const int hi[2] = {local(khi[0], k0, kBK), local(khi[1], k0, kBK)};
+      uint32_t dsa[kBK / 16][4];  // dS in bf16, the A fragments (pack_p's layout)
+      auto grads = [&](auto masked) {
+#pragma unroll
+        for (int ch = 0; ch < kBK / 8; ++ch) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e / 2, c = 8 * ch + cq + e % 2;
+            ds[e] = exp2_ftz(fmaf(st[4 * ch + e], sl, -l2[r])) * (dpt[4 * ch + e] - dl[r]);
+            if (decltype(masked)::value && (c < lo[r] || c > hi[r])) ds[e] = 0.0f;
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            dsa[ch / 2][2 * (ch % 2) + r] = pack_bf16(ds[2 * r], ds[2 * r + 1]);
+        }
+      };
+      if (edge) grads(Flag<true>{});
+      else grads(Flag<false>{});
+
+      // dQ += dS . K: K (keys x D) the MN-major B operand, 16 keys a step
+      const uint64_t kmn = sw128_desc(ks, kBK * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int ks16 = 0; ks16 < kBK / 16; ++ks16)
+        wgmma_rs<DP>(dqa, dsa[ks16], kmn + ks16 * 2048 / 16);
+      wgmma_commit();
+      if (threadIdx.x == 0 && g >= 1) ring_find();  // while the product runs
+      wgmma_wait();
+      fence_regs(dqa);
+      mbar_arrive(bar.stage_free(g));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qr[r] >= sq) continue;
+      __nv_bfloat16* out = dq + ((it.b * sq + qr[r]) * h + it.hh) * static_cast<int64_t>(d);
+#pragma unroll
+      for (int ch = 0; ch < DP / 8; ++ch) {
+        const int col = 8 * ch + cq;
+        if (col < d)  // a row with no key tile stores zeros
+          *reinterpret_cast<__nv_bfloat162*>(out + col) =
+              __floats2bfloat162_rn(dqa[4 * ch + 2 * r] * scale, dqa[4 * ch + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+// dK and dV.  Thread 0 loads: an item's K and V into its slot as the dQ
+// kernel loads Q and dO, and the Q / dO ring as the dQ kernel its K / V
+// ring.  Each thread of a warpgroup fetches one value of the tile's rows' lse
+// and delta before the products and leaves it in shared memory; the
+// warpgroup meets before reading them.
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ delta,
+                                     __nv_bfloat16* __restrict__ dk,
+                                     __nv_bfloat16* __restrict__ dv, int64_t sq, int h, int kv,
+                                     int d, Mask mask, float scale, int n_items) {
+  using C = BwdKVTile<DP>;
+  constexpr int kBQ = C::kBQ, kBK = C::kBK, kSlots = C::kSlots, kStages = C::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
+  const Bars<kSlots, kStages> bar{base + C::kBars};
+
+  const int groups = h / kv;
+  const int n_kt = static_cast<int>((mask.skv + kBK - 1) / kBK);
+  const int n_bk = n_items / n_kt;
+  const int n_mine = (n_items - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  auto weight = [&](int kt) {
+    return query_span<kBQ>(mask, sq, static_cast<int64_t>(kt) * kBK).m;
+  };
+  struct Item {
+    int b, kvh, n;
+    int64_t k0;
+    QuerySpan s;
+  };
+  // item j of this CTA, its key tile kt; the walkers find kt
+  auto item_at = [&](int j, int kt) {
+    const int w = static_cast<int>(blockIdx.x) + j * static_cast<int>(gridDim.x);
+    Item it;
+    it.b = w % n_bk / kv;
+    it.kvh = w % n_bk % kv;
+    it.k0 = static_cast<int64_t>(kt) * kBK;
+    it.s = query_span<kBQ>(mask, sq, it.k0);
+    it.n = C::kPasses * groups * it.s.m;
+    return it;
+  };
+  auto item = [&](int j, Heaviest& order) {
+    const int w = static_cast<int>(blockIdx.x) + j * static_cast<int>(gridDim.x);
+    return item_at(j, order.seek(w / n_bk, weight));
+  };
+  using Cursor = QueryCursor<kBQ>;
+
+  struct Producer {
+    Heaviest slot_order, ring_order;
+    int slot_tile[2];  // the key tile of the item in each slot, for every thread
+    Item ri;
+    Cursor rc;
+    int rj, rt;     // the ring's item, and its next tile
+    int gl;         // tiles loaded so far
+    int nb, nh;     // the next tile's batch row (nb < 0: none), query head, first row
+    int64_t nq;
+  };
+  static_assert(sizeof(Producer) <= 256, "the producer's room");
+  Producer& pr = *reinterpret_cast<Producer*>(smem + C::kProducer);
+  auto slot_load = [&](int jj) {
+    if (jj >= n_mine) return;
+    const Item it = item(jj, pr.slot_order);
+    if (jj >= kSlots) mbar_wait(bar.slot_free(jj), (jj / kSlots - 1) & 1);
+    pr.slot_tile[jj % kSlots] = static_cast<int>(it.k0 / kBK);  // seen once the slot is full
+    const uint32_t ks = base + (jj % kSlots) * 2 * C::kKVBytes;
+    mbar_expect_tx(bar.slot_full(jj), 2 * C::kKVBytes);
+#pragma unroll
+    for (int p = 0; p < C::kPanels; ++p) {
+      tma_load(ks + p * kBK * 128, &tk, bar.slot_full(jj), 64 * p, it.kvh,
+               static_cast<int>(it.k0), it.b);
+      tma_load(ks + C::kKVBytes + p * kBK * 128, &tv, bar.slot_full(jj), 64 * p, it.kvh,
+               static_cast<int>(it.k0), it.b);
+    }
+  };
+  // the ring's next tile: found ahead (ring_find), copied when its turn
+  // comes (ring_issue), so the copy costs warpgroup 0 little
+  auto ring_find = [&]() {
+    while (pr.rj < n_mine && pr.rt == pr.ri.n) {  // items no query tile reaches load none
+      pr.rt = 0;
+      pr.rc = Cursor{0, 0};
+      if (++pr.rj < n_mine) pr.ri = item(pr.rj, pr.ring_order);
+    }
+    pr.nb = pr.rj < n_mine ? pr.ri.b : -1;
+    if (pr.nb < 0) return;
+    int head;
+    int64_t q0;
+    pr.rc.next(pr.ri, groups, head, q0);
+    pr.nh = head;
+    pr.nq = q0;
+    ++pr.rt;
+  };
+  auto ring_issue = [&]() {
+    const int nb = pr.nb, nh = pr.nh, gl = pr.gl, nq = static_cast<int>(pr.nq);
+    if (nb < 0) return;
+    if (gl >= kStages) mbar_wait(bar.stage_free(gl), (gl / kStages - 1) & 1);
+    const uint32_t qs = base + C::kRing + (gl % kStages) * 2 * C::kQBytes;
+    mbar_expect_tx(bar.stage_full(gl), 2 * C::kQBytes);
+#pragma unroll
+    for (int p = 0; p < C::kPanels; ++p) {
+      tma_load(qs + p * kBQ * 128, &tq, bar.stage_full(gl), 64 * p, nh, nq, nb);
+      tma_load(qs + C::kQBytes + p * kBQ * 128, &tdo, bar.stage_full(gl), 64 * p, nh, nq, nb);
+    }
+    pr.gl = gl + 1;
+  };
+
+  if (threadIdx.x == 0) {
+    bar.init();
+    pr.slot_order.start(n_kt, weight);
+    pr.ring_order.start(n_kt, weight);
+    pr.ri = item(0, pr.ring_order);
+    pr.rc = Cursor{0, 0};
+    pr.rj = pr.rt = pr.gl = 0;
+    for (int jj = 0; jj < kSlots; ++jj) slot_load(jj);
+    ring_find();
+    for (int i = 0; i < kStages - 1; ++i) {
+      ring_issue();
+      ring_find();
+    }
+  }
+  __syncthreads();
+
+  // this thread's keys of an item: row and row + 8; of every 8-column chunk
+  // ch of a query tile, columns (query rows) 8 ch + cq and + 1
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int row = wg * 64 + (t / 32) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float sl = scale * kLog2e, uniform = 1.0f / static_cast<float>(mask.skv);
+  const int64_t empty_from = first_empty_row(mask, sq);
+
+  int g = 0;  // query tiles walked so far, over all items
+  for (int j = 0; j < n_mine; ++j) {
+    mbar_wait(bar.slot_full(j), (j / kSlots) & 1);
+    const Item it = item_at(j, pr.slot_tile[j % kSlots]);
+    const uint32_t ks = base + (j % kSlots) * 2 * C::kKVBytes;
+    const uint64_t ka = sw128_desc(ks + wg * 64 * 128, 16);
+    const uint64_t va = sw128_desc(ks + C::kKVBytes + wg * 64 * 128, 16);
+    auto release_slot = [&]() {
+      mbar_arrive(bar.slot_free(j));
+      if (threadIdx.x == 0) slot_load(j + kSlots);
+      if (wg == 0) wg_bar(1);
+    };
+    if (it.n == 0) release_slot();
+
+    Cursor cur{0, 0};
+
+    // dV and dK: two accumulators, or at D_pad = 256 one for each pass
+    constexpr int kN = C::kN;
+    float accs[C::kPasses == 1 ? 2 : 1][kN / 2];
+    float(&dva)[kN / 2] = accs[0];
+    float(&dka)[kN / 2] = accs[C::kPasses == 1 ? 1 : 0];
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) dva[e] = dka[e] = 0.0f;
+
+    // query tile i
+    auto walk = [&](int i) {
+      const int pass = C::kPasses == 1 ? 0 : i / (it.n / C::kPasses);
+      const bool with_dv = C::kPasses == 1 || pass < 2;
+      const bool with_dk = C::kPasses == 1 || pass >= 2;
+      const uint32_t col0 = (pass % 2) * kN / 64 * kBQ * 128;  // the pass's first B panel
+      int head;
+      int64_t q0;
+      cur.next(it, groups, head, q0);
+      const int64_t bh = static_cast<int64_t>(it.b) * h + head;
+      float rv = 0.0f;  // this thread's value of the tile's lse log2e | delta
+      if (t < 2 * kBQ && q0 + t % kBQ < sq)
+        rv = t < kBQ ? lse[bh * sq + q0 + t] * kLog2e : delta[bh * sq + q0 + t - kBQ];
+      const uint32_t qs = base + C::kRing + (g % kStages) * 2 * C::kQBytes;
+
+      // S^T = K . Q^T and dP^T = V . dO^T: DP / 64 panels of 4 k16 steps
+      float sct[kBQ / 2], dpt[kBQ / 2];
+      const uint64_t qb = sw128_desc(qs, 16), dob = sw128_desc(qs + C::kQBytes, 16);
+      mbar_wait(bar.stage_full(g), (g / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<kBQ>(sct, ka + (p * kBK * 128 + kk * 32) / 16,
+                        qb + (p * kBQ * 128 + kk * 32) / 16, p | kk);
+      if (with_dk) {
+#pragma unroll
+        for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<kBQ>(dpt, va + (p * kBK * 128 + kk * 32) / 16,
+                          dob + (p * kBQ * 128 + kk * 32) / 16, p | kk);
+      }
+      wgmma_commit();
+      float* rows = reinterpret_cast<float*>(smem + C::kRows) + (wg * 2 + g % 2) * 2 * kBQ;
+      if (t < 2 * kBQ) rows[t] = rv;
+      if (threadIdx.x == 0 && g >= 1) ring_issue();
+      wg_bar(2 + wg);  // the rows' values in place; warpgroup 0 also meets thread 0
+      wgmma_wait();
+      fence_regs(sct);
+      if (with_dk) fence_regs(dpt);
+      if (i == it.n - 1) release_slot();  // K and V are read by the products above only
+
+      // P^T and dS^T, rounded to bf16 as the A fragments of the k16 steps
+      // (as pack_p lays them out) chunk by chunk; only an edge tile masks
+      const bool edge = it.k0 + kBK > mask.skv || q0 + kBQ > sq ||
+                        (mask.causal && it.k0 + kBK - 1 > q0 + mask.q_offset) ||
+                        (mask.window >= 0 && it.k0 <= q0 + kBQ - 1 + mask.q_offset - mask.window);
+      // per key row, in tile columns: the valid query rows [lo, hi]; rows
+      // [ue, end] have no valid key and take the mean (keys < Skv only)
+      const int64_t origin = q0 + mask.q_offset;
+      const int end = local(sq - 1, q0, kBQ);
+      int lo[2], hi[2], ue[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int64_t key = it.k0 + row + 8 * r;
+        const bool in = key < mask.skv;
+        lo[r] = in ? (mask.causal ? local(key, origin, kBQ) : 0) : kBQ;
+        hi[r] = min(end, mask.window >= 0 ? local(key + mask.window - 1, origin, kBQ) : kBQ);
+        ue[r] = in ? local(empty_from, q0, kBQ) : kBQ;
+      }
+      uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int ch = 0; ch < kBQ / 8; ++ch) {
+          const float2 lr = *reinterpret_cast<const float2*>(rows + 8 * ch + cq);
+          const float2 dr = *reinterpret_cast<const float2*>(rows + kBQ + 8 * ch + cq);
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = exp2_ftz(fmaf(sct[4 * ch + e], sl, -(e % 2 ? lr.y : lr.x)));
+            ds[e] = 0.0f;
+            if (with_dk) ds[e] = p[e] * (dpt[4 * ch + e] - (e % 2 ? dr.y : dr.x));
+            const int r = e / 2, c = 8 * ch + cq + e % 2;
+            if (decltype(masked)::value && (c < lo[r] || c > hi[r])) {
+              p[e] = c >= ue[r] && c <= end ? uniform : 0.0f;
+              ds[e] = 0.0f;
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            pa[ch / 2][2 * (ch % 2) + r] = pack_bf16(p[2 * r], p[2 * r + 1]);
+            sa[ch / 2][2 * (ch % 2) + r] = pack_bf16(ds[2 * r], ds[2 * r + 1]);
+          }
+        }
+      };
+      if (edge) probs(Flag<true>{});
+      else probs(Flag<false>{});
+
+      // dV += P^T . dO, dK += dS^T . Q: dO and Q (query rows x D) the
+      // MN-major B operand, 16 rows a step
+      const uint64_t qmn = sw128_desc(qs, kBQ * 128), domn = sw128_desc(qs + C::kQBytes, kBQ * 128);
+      wgmma_fence();
+      if (with_dv) {
+#pragma unroll
+        for (int jj = 0; jj < kBQ / 16; ++jj)
+          wgmma_rs<kN>(dva, pa[jj], domn + (col0 + jj * 2048) / 16);
+      }
+      if (with_dk) {
+#pragma unroll
+        for (int jj = 0; jj < kBQ / 16; ++jj)
+          wgmma_rs<kN>(dka, sa[jj], qmn + (col0 + jj * 2048) / 16);
+      }
+      wgmma_commit();
+      if (threadIdx.x == 0 && g >= 1) ring_find();  // while the products run
+      wgmma_wait();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(bar.stage_free(g));
+      ++g;
+    };
+
+    // this thread's rows of dK or dV, columns [c0, c0 + kN), times mul
+    auto store = [&](__nv_bfloat16* out, const float (&a)[kN / 2], float mul, int c0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int64_t key = it.k0 + row + 8 * r;
+        if (key >= mask.skv) continue;
+        __nv_bfloat16* dst =
+            out + ((it.b * mask.skv + key) * kv + it.kvh) * static_cast<int64_t>(d);
+#pragma unroll
+        for (int ch = 0; ch < kN / 8; ++ch) {
+          const int col = c0 + 8 * ch + cq;
+          if (col < d)
+            *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+                __floats2bfloat162_rn(a[4 * ch + 2 * r] * mul, a[4 * ch + 2 * r + 1] * mul);
+        }
+      }
+    };
+
+    if constexpr (C::kPasses == 1) {
+      for (int i = 0; i < it.n; ++i) walk(i);
+      store(dv, dva, 1.0f, 0);
+      store(dk, dka, scale, 0);
+    } else {
+      const int per = it.n / C::kPasses;
+      for (int pass = 0; pass < C::kPasses; ++pass) {
+        for (int i = pass * per; i < (pass + 1) * per; ++i) walk(i);
+        store(pass < 2 ? dv : dk, dva, pass < 2 ? 1.0f : scale, (pass % 2) * kN);
+#pragma unroll
+        for (int e = 0; e < kN / 2; ++e) dva[e] = 0.0f;
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_bwd_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                     const __nv_bfloat16* o, const float* lse, const __nv_bfloat16* dout,
+                     __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, float* delta,
+                     int64_t b, int64_t sq, int64_t skv, int64_t h, int64_t kv, int64_t d,
+                     Mask mask, float scale, int parts, cudaStream_t stream) {
+  using CQ = BwdQTile<DP>;
+  using CKV = BwdKVTile<DP>;
+  static bool dq_ready = false, dkv_ready = false;
+  cudaError_t err = allow_smem(flash_attention_bwd_dq_kernel_wgmma<DP>, CQ::kSmem, dq_ready);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_attention_bwd_dkv_kernel_wgmma<DP>, CKV::kSmem, dkv_ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static int n_sms = 0;  // one persistent CTA an SM
+  if (n_sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t n_dq = (sq + CQ::kBQ - 1) / CQ::kBQ * b * h;
+  const int64_t n_dkv = (skv + CKV::kBK - 1) / CKV::kBK * b * kv;
+  if (n_dq > INT32_MAX || n_dkv > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tdo, tk, tv;
+  if (parts & 1) {  // dQ (and delta) first: the dK / dV kernel reads delta
+    int rc = tensor_map(&tq, q, b, sq, h, d, CQ::kBQ);
+    if (rc == 0) rc = tensor_map(&tdo, dout, b, sq, h, d, CQ::kBQ);
+    if (rc == 0) rc = tensor_map(&tk, k, b, skv, kv, d, CQ::kBK);
+    if (rc == 0) rc = tensor_map(&tv, v, b, skv, kv, d, CQ::kBK);
+    if (rc != 0) return rc;
+    flash_attention_bwd_dq_kernel_wgmma<DP>
+        <<<static_cast<unsigned>(n_dq < n_sms ? n_dq : n_sms), kWgThreads, CQ::kSmem, stream>>>(
+            tq, tdo, tk, tv, o, lse, dq, delta, sq, static_cast<int>(h), static_cast<int>(kv),
+            static_cast<int>(d), mask, scale, static_cast<int>(n_dq));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (parts & 2) {
+    int rc = tensor_map(&tq, q, b, sq, h, d, CKV::kBQ);
+    if (rc == 0) rc = tensor_map(&tdo, dout, b, sq, h, d, CKV::kBQ);
+    if (rc == 0) rc = tensor_map(&tk, k, b, skv, kv, d, CKV::kBK);
+    if (rc == 0) rc = tensor_map(&tv, v, b, skv, kv, d, CKV::kBK);
+    if (rc != 0) return rc;
+    flash_attention_bwd_dkv_kernel_wgmma<DP>
+        <<<static_cast<unsigned>(n_dkv < n_sms ? n_dkv : n_sms), kWgThreads, CKV::kSmem,
+           stream>>>(tq, tdo, tk, tv, lse, delta, dk, dv, sq, static_cast<int>(h),
+                     static_cast<int>(kv), static_cast<int>(d), mask, scale,
+                     static_cast<int>(n_dkv));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // q: (b, sq, h, d), k, v: (b, skv, kv, d), o: (b, sq, h, d), all contiguous
 // and 16-byte aligned; h % kv == 0, d % 8 == 0, 8 <= d <= 256, skv >= 1;
 // window < 0 means no window; scale = d ** -0.5 as an fp32 value.  lse:
@@ -1450,12 +2359,35 @@ extern "C" int repro_flash_attention_bwd_f32(const float* q, const float* k, con
                            causal, window, q_offset, scale, stream);
 }
 
+// The bf16 backward's kernels by `parts`: 1 the dQ kernel (and delta), 2
+// the dK / dV kernel (reading delta), 3 both.  repro_flash_attention_bwd_bf16
+// runs both; chip_smoke.py times each part alone.
+extern "C" int repro_flash_attention_bwd_bf16_parts(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* o, const float* lse, const __nv_bfloat16* dout, __nv_bfloat16* dq,
+    __nv_bfloat16* dk, __nv_bfloat16* dv, float* delta, int64_t b, int64_t sq, int64_t skv,
+    int64_t h, int64_t kv, int64_t d, int64_t causal, int64_t window, int64_t q_offset,
+    float scale, int64_t parts, cudaStream_t stream) {
+  if (b == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
+  const Mask mask{skv, window, q_offset, static_cast<int>(causal)};
+  const int which = static_cast<int>(parts);
+  if (d <= 64)
+    return launch_bwd_wgmma<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, skv, h, kv, d,
+                                mask, scale, which, stream);
+  if (d <= 128)
+    return launch_bwd_wgmma<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, skv, h, kv, d,
+                                 mask, scale, which, stream);
+  return launch_bwd_wgmma<256>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, skv, h, kv, d,
+                               mask, scale, which, stream);
+}
+
 extern "C" int repro_flash_attention_bwd_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* o, const float* lse, const __nv_bfloat16* dout, __nv_bfloat16* dq,
     __nv_bfloat16* dk, __nv_bfloat16* dv, float* delta, int64_t b, int64_t sq, int64_t skv,
     int64_t h, int64_t kv, int64_t d, int64_t causal, int64_t window, int64_t q_offset,
     float scale, cudaStream_t stream) {
-  return launch_bwd<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, skv, h, kv,
-                                   d, causal, window, q_offset, scale, stream);
+  return repro_flash_attention_bwd_bf16_parts(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq,
+                                              skv, h, kv, d, causal, window, q_offset, scale, 3,
+                                              stream);
 }

@@ -17,12 +17,18 @@ each row's log-sum-exp (B, H, Sq) fp32; ``flash_attention`` (serving)
 passes a null pointer and writes none.
 
 The backward (``flash_attention_bwd``, one counted launch: a dQ kernel
-that first writes delta = rowsum(dO * O), then a dK / dV kernel) runs on
-the CUDA cores in fp32 for both dtypes, recomputing S and P from lse; each
-CTA owns its rows of dQ, or of dK and dV over a KV head's G query heads,
-so there are no atomics and the result is deterministic.  The JAX package
-has no backward kernel: JAX differentiates its attention oracle.  CUDA
-tensors only; ``ops`` routes CPU tensors to ``ref``.
+that also writes delta = rowsum(dO * O), then a dK / dV kernel) recomputes
+S and P from lse; each CTA owns its rows of dQ, or of dK and dV over a KV
+head's G query heads, so there are no atomics and two calls give the same
+bits.  The dtype picks its kernels too.  bf16 runs every product on the
+tensor cores (wgmma, bf16 operands, fp32 sums, P^T, dS^T and dS rounded to
+bf16 before their products), one persistent CTA an SM walking its items
+heaviest first, tiles arriving by TMA: dQ a 128-row query tile an item
+with K and V streaming, dK / dV a 128-key tile an item with Q and dO of
+the group's heads streaming, transposed (S^T = K . Q^T).  fp32 runs the
+CUDA-core kernels in fp32 throughout.  The JAX package has no backward
+kernel: JAX differentiates its attention oracle.  CUDA tensors only;
+``ops`` routes CPU tensors to ``ref``.
 """
 from __future__ import annotations
 
@@ -41,10 +47,10 @@ _BWD_ENTRY = {
 NO_WINDOW = -1          # ``window=None`` as the kernel reads it
 MAX_HEAD_DIM = 256
 # fp32: the grid's y extent (65,535) times the 64-row query tile; bf16: TMA's
-# int32 row coordinate (one persistent CTA an SM walks the 128-row tiles);
-# the backward's grids hold 64 query rows a tile on y, as the fp32 forward's
+# int32 row coordinate (one persistent CTA an SM walks the tiles), forward
+# and backward; fp32's backward grids hold 64 query rows a tile on y
 MAX_SQ = {torch.float32: 65_535 * 64, torch.bfloat16: 2**31 - 1}
-MAX_SQ_BWD = 65_535 * 64
+MAX_SQ_BWD = {torch.float32: 65_535 * 64, torch.bfloat16: 2**31 - 1}
 
 
 def check_heads(h: int, kv: int, d: int) -> None:
@@ -59,7 +65,7 @@ def _check(q, k, v, window, q_offset, *, backward: bool) -> tuple[int, ...]:
     """Raise on what the kernels do not take; -> (b, sq, skv, h, kv, d)."""
     if q.dtype not in _ENTRY:
         raise TypeError(f"q has dtype {q.dtype}, expected one of {tuple(_ENTRY)}")
-    max_sq = MAX_SQ_BWD if backward else MAX_SQ[q.dtype]
+    max_sq = (MAX_SQ_BWD if backward else MAX_SQ)[q.dtype]
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention takes q (B,Sq,H,D) and k, v (B,Skv,KV,D); got "

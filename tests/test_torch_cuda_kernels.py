@@ -42,6 +42,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.utils.pytree import safe_weight_sum, tree_leaves
 from torch_kernel_models import (dequant_reduce_composition, dequant_reduce_one_launch,
                                  fedavg_one_launch, fedbuff_weights, reduce_error_units)
+from torch_kernel_models import FLASH_BWD_CASES as MODEL_FLASH_BWD_CASES
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -671,20 +672,10 @@ def test_cuda_flash_attention(cuda, b, sq, skv, h, kv, d, dtype, window, q_offse
     torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
 
 
-# the training shapes of chip_smoke.py phase 17 (a): qwen3-0.6b's layer at
-# 4 clients x 2 sequences of 512 folded into B = 8, and the other heads and
-# masks the backward takes
-FLASH_BWD_CASES = [  # b, sq, skv, h, kv, d, dtype, window, q_offset, causal
-    (8, 512, 512, 16, 8, 128, torch.bfloat16, None, 0, True),
-    (8, 512, 512, 16, 8, 128, torch.float32, None, 0, True),
-    (2, 512, 512, 32, 8, 128, torch.bfloat16, None, 0, True),     # GQA 32 / 8
-    (2, 256, 256, 32, 32, 80, torch.bfloat16, None, 0, True),     # stablelm-3b's D = 80
-    (2, 256, 256, 8, 2, 64, torch.float32, None, 0, True),
-    (2, 128, 384, 8, 4, 64, torch.bfloat16, 100, 256, True),      # window at q_offset
-    (2, 300, 300, 16, 8, 128, torch.bfloat16, None, 0, True),     # ragged S
-    (1, 65, 130, 4, 4, 256, torch.float32, None, 0, False),       # not causal, D = 256
-    (1, 8, 24, 2, 1, 40, torch.float32, 3, 20, True),             # rows with no valid key
-]
+# the training shapes of chip_smoke.py phase 17 (a) and the other heads and
+# masks the backward takes (``torch_kernel_models.FLASH_BWD_CASES``, labels
+# dropped): b, sq, skv, h, kv, d, dtype, window, q_offset, causal
+FLASH_BWD_CASES = [case[1:] for case in MODEL_FLASH_BWD_CASES]
 
 
 def _max_rel(got, want):
@@ -724,6 +715,25 @@ def test_cuda_flash_attention_backward(cuda, b, sq, skv, h, kv, d, dtype, window
         assert got.dtype == dtype and got.shape == want.shape
         assert bool(torch.isfinite(got.float()).all())
         assert _max_rel(got, want) <= tol and _max_rel(got, auto) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,kv", [(128, 16, 8), (256, 8, 1), (64, 24, 24)])
+def test_cuda_flash_attention_backward_is_bitwise_repeatable(cuda, d, h, kv):
+    """bf16's two wgmma kernels own their rows of dQ, dK and dV (no
+    atomics): two calls on the same inputs give the same bits, at each
+    head-dim bucket, under a window with rows that have no valid key."""
+    from repro_torch.kernels import flash_attention as fk
+
+    kw = dict(causal=True, window=48, q_offset=300)
+    q, k, v, dout = _attn_inputs(cuda, d + h, [(2, 200, h, d), (2, 380, kv, d),
+                                               (2, 380, kv, d), (2, 200, h, d)], torch.bfloat16)
+    out, lse = fk.flash_attention_fwd(q, k, v, **kw)
+    first = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    second = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second, strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -301,3 +301,153 @@ def collective_per_leaf(ds, wf, rs, live, pack, unpack, block: int = 256):
             new = torch.where(live, new, r)
         out.append((absmax, s, q, total, new))
     return out
+
+
+# ---------------- the flash backward's bf16 route (csrc/flash_attention.cu) ----------------
+# label, B, Sq, Skv, H, KV, D, dtype, window, q_offset, causal: the training
+# shapes of chip_smoke.py phase 17 (a) (qwen3-0.6b's layer at 4 clients x 2
+# sequences of 512 folded into B = 8) and the other heads and masks the
+# backward takes, new cases last (the card test's ids number them in order)
+FLASH_BWD_CASES = [
+    ("training shape", 8, 512, 512, 16, 8, 128, torch.bfloat16, None, 0, True),
+    ("fp32, training shape", 8, 512, 512, 16, 8, 128, torch.float32, None, 0, True),
+    ("GQA 32/8", 2, 512, 512, 32, 8, 128, torch.bfloat16, None, 0, True),
+    ("stablelm-3b's D = 80", 2, 256, 256, 32, 32, 80, torch.bfloat16, None, 0, True),
+    ("fp32 D = 64", 2, 256, 256, 8, 2, 64, torch.float32, None, 0, True),
+    ("window 100 at q_offset 256", 2, 128, 384, 8, 4, 64, torch.bfloat16, 100, 256, True),
+    ("ragged S = 300", 2, 300, 300, 16, 8, 128, torch.bfloat16, None, 0, True),
+    ("fp32 not causal, D = 256", 1, 65, 130, 4, 4, 256, torch.float32, None, 0, False),
+    ("fp32 rows with no valid key", 1, 8, 24, 2, 1, 40, torch.float32, 3, 20, True),
+    ("paligemma-3b's 8 over 1 at D = 256", 2, 512, 512, 8, 1, 256, torch.bfloat16, None, 0, True),
+    ("MLA's qk 96", 2, 512, 512, 16, 16, 96, torch.bfloat16, None, 0, True),
+    ("musicgen-medium's 24 x 64", 2, 512, 512, 24, 24, 64, torch.bfloat16, None, 0, True),
+    ("bf16 rows with no valid key", 1, 8, 24, 2, 1, 40, torch.bfloat16, 3, 20, True),
+    # rows from 115 on have no valid key; D = 256: two passes, 32-row tiles
+    ("bf16 rows with no valid key, window 16, D = 256", 2, 200, 300, 4, 2, 256, torch.bfloat16,
+     16, 200, True),
+]
+
+
+def _d_pad(d: int) -> int:
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+class Heaviest:
+    """The kernels' ``Heaviest``: tiles by weight, heaviest first, as the
+    merge of the two sides of the first heaviest tile (the left one on a
+    tie); ``seek(r)`` moves on to rank r, ranks only growing."""
+
+    def __init__(self, weights):
+        self.w = list(weights)
+        self.at = max(range(len(self.w)), key=lambda t: (self.w[t], -t))
+        self.left, self.right, self.rank = self.at - 1, self.at + 1, 0
+
+    def seek(self, r: int) -> int:
+        for self.rank in range(self.rank, r):
+            if self.left >= 0 and (self.right >= len(self.w)
+                                   or self.w[self.left] >= self.w[self.right]):
+                self.at, self.left = self.left, self.left - 1
+            else:
+                self.at, self.right = self.right, self.right + 1
+        self.rank = max(self.rank, r)
+        return self.at
+
+
+def _key_span(bk, sq, skv, q0, rows, window, q_offset, causal):
+    """The key tiles (kt0, n) the rows [q0, q0 + rows) reach (``key_span``)."""
+    qlo, qhi = q0 + q_offset, min(q0 + rows, sq) - 1 + q_offset
+    lo = max(qlo - window + 1, 0) if window is not None else 0
+    hi = min(qhi, skv - 1) if causal else skv - 1
+    return lo // bk, (hi // bk + 1 - lo // bk if hi >= lo else 0)
+
+
+def _query_span(bq, sq, skv, k0, window, q_offset, causal):
+    """(f, n1, qe, m): the query tiles keys [k0, k0 + 128) reach, [f, f + n1)
+    then [qe, n_qt) (``query_span``)."""
+    n_qt = -(-sq // bq)
+    k1 = min(k0 + 128, skv) - 1
+    r_lo = max(k0 - q_offset if causal else 0, 0)
+    r_hi = min(k1 + window - 1 - q_offset if window is not None else sq - 1, sq - 1)
+    r_e = sq
+    if window is not None:
+        r_e = 0 if causal and window == 0 else max(skv + window - 1 - q_offset, 0)
+    qe = n_qt if r_e >= sq else r_e // bq
+    a0, a1 = (r_lo // bq, r_hi // bq + 1) if r_lo <= r_hi else (0, 0)
+    f = min(a0, qe)
+    n1 = max(0, min(a1, qe) - f)
+    return f, n1, qe, n1 + n_qt - qe
+
+
+def flash_bwd_dq_walk(b, sq, skv, h, kv, d, window, q_offset, causal, n_sms=132):
+    """The dQ kernel's work: per persistent CTA its items in order, each
+    (b, h, query tile of 128 rows, [the key tiles it walks], its weight)."""
+    bk = 32 if _d_pad(d) == 256 else 64
+    n_qt = -(-sq // 128)
+    spans = [_key_span(bk, sq, skv, qt * 128, 128, window, q_offset, causal)
+             for qt in range(n_qt)]
+    n_items = n_qt * b * h
+    ctas = []
+    for c in range(min(n_items, n_sms)):
+        order, items = Heaviest(n for _, n in spans), []
+        for w in range(c, n_items, min(n_items, n_sms)):
+            qt = order.seek(w // (b * h))
+            kt0, n = spans[qt]
+            items.append((w % (b * h) // h, w % (b * h) % h, qt, list(range(kt0, kt0 + n)), n))
+        ctas.append(items)
+    return ctas
+
+
+def flash_bwd_dkv_walk(b, sq, skv, h, kv, d, window, q_offset, causal, n_sms=132):
+    """The dK / dV kernel's work: per persistent CTA its items in order, each
+    (b, KV head, key tile of 128, [(pass, query head, query tile)] in the
+    order it walks them, its weight), query tiles of 64 rows (32 and four
+    passes at D_pad = 256: dV's column halves, then dK's)."""
+    bq, passes = (32, 4) if _d_pad(d) == 256 else (64, 1)
+    g = h // kv
+    n_kt = -(-skv // 128)
+    spans = [_query_span(bq, sq, skv, kt * 128, window, q_offset, causal) for kt in range(n_kt)]
+    n_items = n_kt * b * kv
+    ctas = []
+    for c in range(min(n_items, n_sms)):
+        order, items = Heaviest(s[3] for s in spans), []
+        for w in range(c, n_items, min(n_items, n_sms)):
+            kt = order.seek(w // (b * kv))
+            f, n1, qe, m = spans[kt]
+            kvh = w % (b * kv) % kv
+            tiles = []
+            for i in range(passes * g * m):
+                rem = i % (g * m)
+                qi = rem % m
+                tiles.append((i // (g * m), kvh * g + rem // m, f + qi if qi < n1 else qe + qi - n1))
+            items.append((w % (b * kv) // kv, kvh, kt, tiles, m))
+        ctas.append(items)
+    return ctas
+
+
+def flash_bwd_bf16_model(q, k, v, out, lse, dout, *, causal=True, window=None, q_offset=0):
+    """The bf16 route's arithmetic in plain torch: bf16 operands, fp32 sums;
+    delta = rowsum(dO * O) in fp32; P = exp(S scale - lse) (1 / Skv across a
+    row with no valid key) and dS = P (dP - delta) where the pair attends,
+    each rounded to bf16 before its product (P^T . dO, dS^T . Q, dS . K), as
+    the kernels round P^T and dS^T (and the dQ kernel dS) in registers; the
+    scale on dQ and dK at the end.  -> (dq, dk, dv) in q's dtype."""
+    from repro_torch.kernels.ref import attention_mask
+
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g, scale, f32, bf16 = h // kv, d ** -0.5, torch.float32, torch.bfloat16
+    qf = q.to(f32).transpose(1, 2)
+    kf = torch.repeat_interleave(k.to(f32), g, dim=2).transpose(1, 2)
+    vf = torch.repeat_interleave(v.to(f32), g, dim=2).transpose(1, 2)
+    do = dout.to(f32).transpose(1, 2)
+    mask = attention_mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
+                          device=q.device)
+    delta = (do * out.to(f32).transpose(1, 2)).sum(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None]), 0.0)
+    p = torch.where(mask.any(-1, keepdim=True), p, 1.0 / skv)
+    ds = torch.where(mask, p * (do @ vf.transpose(-1, -2) - delta), 0.0)
+    pb, dsb = p.to(bf16).to(f32), ds.to(bf16).to(f32)
+    dq = dsb @ kf * scale
+    dk = (dsb.transpose(-1, -2) @ qf).reshape(b, kv, g, skv, d).sum(2) * scale
+    dv = (pb.transpose(-1, -2) @ do).reshape(b, kv, g, skv, d).sum(2)
+    return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))
