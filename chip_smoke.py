@@ -288,7 +288,24 @@ Phases (any failure exits non-zero):
    and a profiled fourth Int8 round (card idle share, the flash backward's
    share of card time; DIR/lm_finetune_round_trace.json.gz); (d) the
    example at its defaults on the card (8 rounds): the last round's loss
-   below the first's.
+   below the first's;
+18. MoE fine-tuning (MoE transformer training): (a) one deepseek-moe-16b
+   MoE layer at full width (64 experts of 1408 top-6 + 2 shared, d 2048)
+   under vmap(grad_and_value) over C = 2 clients of 2 x 512 tokens, fp32
+   and bf16, with no host sync: two evaluations bitwise equal, the routes
+   against the CPU's (flips reported), fp32 gradients within relative L2
+   1e-4 of the CPU's where a client's routes agree, the bf16 step's device
+   ms by stage (router, dispatch, expert products, combine, shared
+   experts; forward and backward); (b) deepseek-moe-16b at full width cut
+   to 2 layers (1,595,156,480 params, bf16) on make_round_step as phase
+   17's leg c with C = 2 and the fp32, Int8 and LoRA wires: exactly 4
+   flash forward and 4 backward launches a round and the codec's, each
+   MoE layer's aux terms and drop fraction, peak memory under 76 GB, a
+   profiled fourth Int8 round with its MoE stages' shares
+   (DIR/moe_finetune_round_trace.json.gz); (c) the example at --arch
+   mixtral-8x7b --codec lora --rank 4 on the card (reduced, 8 rounds):
+   finite losses, the last below the first.  Phase 17's leg a times the
+   flash backward at this path's 16 x 16 x 128.
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
@@ -298,8 +315,9 @@ DIR/fedadam_mixed_fleet_round3_trace.json, DIR/resnet_round3_trace.json.gz
 and DIR/population_round3_trace.json.gz, the serving traces to
 DIR/<leg>_{prefill,decode}_trace.json.gz for the legs serving, hybrid,
 deepseek, mixtral16, granite, stablelm, minicpm, paligemma, musicgen and
-xlstm, phase 17's profiled round to DIR/lm_finetune_round_trace.json.gz
-(DIR defaults to smoke_out).  If
+xlstm, phase 17's profiled round to DIR/lm_finetune_round_trace.json.gz and
+phase 18's to DIR/moe_finetune_round_trace.json.gz (DIR defaults to
+smoke_out).  If
 ``repro_torch`` cannot be imported (the script run away from the
 repository's ``src/``), it says so on stdout and exits 1.
 """
@@ -2245,14 +2263,16 @@ def export_trace_or_summary(prof, trace: Path) -> dict:
     return {"trace_gz_bytes": size, "summary": str(summary)}
 
 
-def device_time(prof) -> tuple[float, dict]:
+def device_time(prof, skip=()) -> tuple[float, dict]:
     """A profiler run's card busy time (the union of its device intervals,
-    us) and device time by kernel name."""
+    us) and device time by kernel name, leaving out the device events named
+    in ``skip``: a ``record_function`` range under CPU activity also lays
+    its span on the device timeline, gaps included."""
     from torch.autograd import DeviceType
 
     spans, by_kernel = [], {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in skip:
             spans.append((e.time_range.start, e.time_range.end))
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     return union_us(spans), by_kernel
@@ -4942,12 +4962,13 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 class MoEProbe:
     """While active, records every call of the port's MoE layer: each
     token's chosen experts (sorted; their order moves no pair of the
-    dispatch), the drop fraction, and the first call's params and input.
+    dispatch), the drop fraction, the aux terms, and the first call's
+    params and input.
     It wraps ``router_topk`` and ``moe_forward`` in their module, where
     the transformer looks them up; the tensors stay on their device."""
 
     def __init__(self):
-        self.routes, self.drops, self.first = [], [], None
+        self.routes, self.drops, self.aux, self.first = [], [], [], None
 
     def __enter__(self):
         from repro_torch.models.layers import moe
@@ -4964,6 +4985,7 @@ class MoEProbe:
                 self.first = (params, x.clone())
             out, aux = self._forward(cfg, params, x, **kw)
             self.drops.append(aux["moe_drop_frac"])
+            self.aux.append(aux)
             return out, aux
 
         moe.router_topk, moe.moe_forward = router, forward
@@ -6008,7 +6030,12 @@ FLASH_BWD_CASES = [
     # four passes and 32-row tiles
     ("bf16 rows with no valid key, window 16, D = 256", 2, 200, 300, 4, 2, 256, torch.bfloat16,
      16, 200, True),
+    # phase 18's shape: the vmapped cohort of 2 clients x 2 sequences (MHA)
+    ("deepseek-moe-16b's 16 x 16 x 128", 4, 512, 512, 16, 16, 128, torch.bfloat16, None, 0,
+     True),
 ]
+# the cases timed beside their bounds and SDPA; the first is the kernel row's
+FLASH_BWD_TIMED = ("training shape", "fp32, training shape", "deepseek-moe-16b's 16 x 16 x 128")
 
 
 def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -6067,7 +6094,7 @@ def flash_backward_checks(dev) -> dict:
                   for g, p in zip(grads, plain)) and max(errs.values()) <= tol and bitwise,
               bitwise=bitwise, **errs)
         del qr, kr, vr, auto, exp_out, exp_lse
-        if label not in ("training shape", "fp32, training shape"):
+        if label not in FLASH_BWD_TIMED:
             continue
         pairs = attention_pairs(sq, skv, causal, window, q_off)
         peak = bf16_peak if dtype == torch.bfloat16 else FP32_FLOP_PER_S
@@ -6135,7 +6162,7 @@ def flash_backward_checks(dev) -> dict:
               f"{timing['fwd_lse_ms'] * 1e3:.2f} us (bare {timing['fwd_lse_launch_ms'] * 1e3:.2f}, "
               f"without lse {timing['fwd_ms'] * 1e3:.2f}), bound {f_ms * 1e3:.2f} us ({f_by}), "
               f"SDPA's forward {timing['sdpa_fwd_ms'] * 1e3:.2f} us{parts}", flush=True)
-        if dtype == torch.bfloat16:
+        if label == FLASH_BWD_TIMED[0]:
             row = timing
         else:
             REPORT["timings"].append({"name": "flash_attention_bwd", "case": label, **timing})
@@ -6261,16 +6288,20 @@ class RefTrap:
         return False
 
 
-def lm_round_leg(card: str, out_dir: Path, cfg, params, name: str, dev="cuda") -> dict:
+def lm_round_leg(card: str, out_dir: Path, cfg, params, name: str, dev="cuda", *,
+                 clients: int = LM_C, trace: str = "lm_finetune_round_trace.json") -> dict:
     """Leg c for one codec: ``make_round_step`` (parallel, ``sgd(0.1)``,
-    FedAvg) with the example's ``build_codec(name, params, LM_RANK)``, C =
-    4 clients, batch 2 x 512 tokens, 2 local steps, 3 rounds of the
-    example's batches, each round synchronized and timed, its launch counts
-    set to 0 just before and read just after: exactly n_layers flash
+    FedAvg) with the example's ``build_codec(name, params, LM_RANK)``,
+    ``clients`` clients (C), batch 2 x 512 tokens, 2 local steps, 3 rounds
+    of the example's batches, each round synchronized and timed, its launch
+    counts set to 0 just before and read just after: exactly n_layers flash
     forward and backward launches a local step for the cohort (the vmap
     fold), ``codec_launches`` a round, nothing else, and no ``kernels.ref``
-    call; finite losses and params.  The profiled codec runs a fourth round
-    under the profiler."""
+    call; finite losses and params.  An MoE config also reports each
+    layer's aux terms and drop fraction on client 0's first batch at the
+    trained params.  The profiled codec runs a fourth round under the
+    profiler (``DIR/<trace>.gz``): busy, idle, the flash kernels' and the
+    codec kernels' shares, and an MoE config's stages (``moe_stage_us``)."""
     from repro_torch.core import FedAvg, RoundSpec, make_round_step
     from repro_torch.examples.federated_llm_finetune import build_codec
     from repro_torch.kernels import ops
@@ -6286,9 +6317,9 @@ def lm_round_leg(card: str, out_dir: Path, cfg, params, name: str, dev="cuda") -
     round_step = make_round_step(build_model(cfg, device=dev).loss_fn, sgd(0.1), strategy,
                                  RoundSpec(max_steps=LM_STEPS, execution_mode="parallel",
                                            codec=codec))
-    weights = torch.ones((LM_C,), device=dev)
-    budgets = torch.full((LM_C,), LM_STEPS, dtype=torch.int32, device=dev)
-    state, client_state = strategy.init_state(params), codec.init_client_state(LM_C, n,
+    weights = torch.ones((clients,), device=dev)
+    budgets = torch.full((clients,), LM_STEPS, dtype=torch.int32, device=dev)
+    state, client_state = strategy.init_state(params), codec.init_client_state(clients, n,
                                                                                device=dev)
     per_round = {"flash_attention": cfg.n_layers * LM_STEPS,
                  "flash_attention_bwd": cfg.n_layers * LM_STEPS, **codec_launches(codec, name)}
@@ -6296,7 +6327,7 @@ def lm_round_leg(card: str, out_dir: Path, cfg, params, name: str, dev="cuda") -
     torch.cuda.reset_peak_memory_stats()
     with RefTrap():
         for rnd in range(1, LM_ROUNDS + 1):
-            batch = lm_batch(cfg, rnd, dev)
+            batch = lm_batch(cfg, rnd, dev, clients=clients)
             torch.cuda.synchronize()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
@@ -6308,64 +6339,88 @@ def lm_round_leg(card: str, out_dir: Path, cfg, params, name: str, dev="cuda") -
             losses.append(float(metrics["client_loss_mean"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finite = all(bool(torch.isfinite(t.float()).all()) for t in tree_leaves(g))
-    check(f"lm fine-tune [{name}]: {LM_ROUNDS} rounds of C = {LM_C} at full width: finite "
-          f"losses and params; exactly {per_round} a round, nothing else, no kernels.ref call",
+    check(f"lm fine-tune [{name}] {cfg.name}: {LM_ROUNDS} rounds of C = {clients} at full "
+          f"width ({cfg.n_layers} layers): finite losses and params; exactly {per_round} a "
+          f"round, nothing else, no kernels.ref call",
           finite and all(math.isfinite(x) for x in losses)
           and all(c == per_round for c in launches),
           losses=losses, launches=launches, expected=per_round)
     round_s = statistics.median(walls)
-    tokens = LM_C * LM_STEPS * LM_B * LM_SEQ
+    tokens = clients * LM_STEPS * LM_B * LM_SEQ
     out = {"round_s": walls, "round_s_median": round_s, "losses": losses,
            "launches_a_round": launches[0], "peak_memory_gb": peak_gb,
            "trained_tokens_per_s": tokens / round_s,
            "wire_bytes_a_client": codec.wire_bytes(n), "int8_wire_bytes": int8.wire_bytes(n)}
-    print(f"lm fine-tune [{name}] qwen3-0.6b full width ({n:,} params), C={LM_C} x {LM_STEPS} "
-          f"steps x {LM_B} x {LM_SEQ}: round s {[round(w, 4) for w in walls]} (median "
+    print(f"lm fine-tune [{name}] {cfg.name} full width, {cfg.n_layers} layers ({n:,} params), "
+          f"C={clients} x {LM_STEPS} steps x {LM_B} x {LM_SEQ}: round s "
+          f"{[round(w, 4) for w in walls]} (median "
           f"{round_s:.4f}, {out['trained_tokens_per_s']:.0f} trained tokens/s), losses "
           f"{[round(x, 4) for x in losses]}, launches a round {launches[0]}, peak "
           f"{peak_gb:.2f} GB, wire {out['wire_bytes_a_client']:,} B a client "
           f"({out['int8_wire_bytes'] / out['wire_bytes_a_client']:.1f}x under Int8's) "
           f"({card})", flush=True)
+    if cfg.moe is not None:
+        out["moe_layers"] = moe_layer_terms(cfg, g, lm_batch(cfg, 1, dev, clients=1))
+        print(f"  {cfg.name} [{name}] each MoE layer at the trained params (client 0's first "
+              f"batch): {json.dumps(out['moe_layers'])} ({card})", flush=True)
     if name == LM_PROFILED:
-        batch = lm_batch(cfg, LM_ROUNDS + 1, dev)
-        prof = profile(activities=[ProfilerActivity.CUDA])
+        batch = lm_batch(cfg, LM_ROUNDS + 1, dev, clients=clients)
+        moe = cfg.moe is not None
+        prof = profile(activities=[ProfilerActivity.CUDA, ProfilerActivity.CPU] if moe else
+                       [ProfilerActivity.CUDA])
         torch.cuda.synchronize()
-        prof.start()
-        g, state, client_state, _ = round_step(g, state, client_state, batch, weights, budgets,
-                                               LM_ROUNDS + 1)
-        torch.cuda.synchronize()
-        prof.stop()
-        busy_us, by_kernel = device_time(prof)
+        with MoEStages() if moe else contextlib.nullcontext():
+            prof.start()
+            g, state, client_state, _ = round_step(g, state, client_state, batch, weights,
+                                                   budgets, LM_ROUNDS + 1)
+            torch.cuda.synchronize()
+            prof.stop()
+        busy_us, by_kernel = device_time(prof, MoEStages.WINDOWS)
         check(f"lm fine-tune [{name}]: the profiled round recorded card time", busy_us > 0,
               device_busy_us=busy_us)
         bwd_us = sum(us for k, us in by_kernel.items() if "flash_attention_bwd" in k)
         fwd_us = sum(us for k, us in by_kernel.items() if "flash_attention_kernel" in k)
+        codec_us = sum(us for k, us in by_kernel.items()
+                       if "quantize_int8" in k or "dequant_reduce" in k)
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
         out["profile"] = {
             "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e6 / round_s,
             "flash_bwd_ms": bwd_us / 1e3, "flash_bwd_share": bwd_us / busy_us,
-            "flash_fwd_ms": fwd_us / 1e3, "top_device_us": top,
+            "flash_fwd_ms": fwd_us / 1e3, "flash_fwd_share": fwd_us / busy_us,
+            "codec_ms": codec_us / 1e3, "codec_share": codec_us / busy_us,
+            "top_device_us": top,
             "device_events": sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA),
-            **export_trace_or_summary(prof, out_dir / "lm_finetune_round_trace.json"),
         }
+        if moe:
+            out["profile"]["moe_stage_ms"] = {
+                st: {k: us / 1e3 for k, us in v.items()} for st, v in moe_stage_us(prof).items()}
+            out["profile"]["moe_stage_share"] = {
+                st: (v["fwd"] + v["bwd"]) * 1e3 / busy_us
+                for st, v in out["profile"]["moe_stage_ms"].items()}
+        out["profile"].update(export_trace_or_summary(prof, out_dir / trace))
         p = out["profile"]
-        print(f"lm fine-tune [{name}] round {LM_ROUNDS + 1} profiled: card busy "
+        print(f"lm fine-tune [{name}] {cfg.name} round {LM_ROUNDS + 1} profiled: card busy "
               f"{p['device_busy_ms']:.2f} ms, idle {p['idle_share']:.4f} of the unprofiled "
               f"median {round_s * 1e3:.2f} ms; flash backward {p['flash_bwd_ms']:.2f} ms "
-              f"({p['flash_bwd_share']:.4f} of busy), forward {p['flash_fwd_ms']:.2f} ms; "
-              f"{p['device_events']} device events, trace {p['trace_gz_bytes']} B gzipped "
-              f"({card})", flush=True)
+              f"({p['flash_bwd_share']:.4f} of busy), forward {p['flash_fwd_ms']:.2f} ms "
+              f"({p['flash_fwd_share']:.4f}); codec kernels {p['codec_ms']:.2f} ms "
+              f"({p['codec_share']:.4f}); {p['device_events']} device events, trace "
+              f"{p['trace_gz_bytes']} B gzipped ({card})", flush=True)
+        if moe:
+            print(f"  MoE stages, device ms (forward, backward) and share of busy: "
+                  f"{json.dumps(p['moe_stage_ms'])}; {json.dumps(p['moe_stage_share'])}",
+                  flush=True)
         for k, us in top:
             print(f"  {us:10.1f} us  {k[:100]}", flush=True)
     del g, state, client_state
     return out
 
 
-def lm_reduced_leg(card: str) -> dict:
+def lm_reduced_leg(card: str, argv: tuple = ()) -> dict:
     """Leg d: the example itself on the card at its defaults (qwen3-0.6b
     reduced to d_model 128 and 2 layers, 4 clients, 4 local steps of 2 x 64
-    tokens, 8 rounds, fp32 wire): the loss of the last round below the
-    first's, all finite."""
+    tokens, 8 rounds, fp32 wire), or with ``argv``: the loss of the last
+    round below the first's, all finite."""
     import contextlib
     import io
     import re
@@ -6375,13 +6430,14 @@ def lm_reduced_leg(card: str) -> dict:
     text = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(text):
-        params, last = example.main([])
+        params, last = example.main(list(argv))
     seconds = time.perf_counter() - t0
     losses = [float(x) for x in re.findall(r"mean client CE loss: (\S+)", text.getvalue())]
-    check("lm fine-tune example at its defaults on the card: 8 finite round losses, the last "
+    args = " ".join(argv) or "its defaults"
+    check(f"lm fine-tune example at {args} on the card: 8 finite round losses, the last "
           "below the first", len(losses) == 8 and all(math.isfinite(x) for x in losses)
           and losses[-1] < losses[0] and losses[-1] == round(last, 4), losses=losses)
-    print(f"lm fine-tune example (defaults) on the card: losses {losses}, {seconds:.2f} s "
+    print(f"lm fine-tune example ({args}) on the card: losses {losses}, {seconds:.2f} s "
           f"({card})", flush=True)
     return {"losses": losses, "seconds": seconds}
 
@@ -6416,6 +6472,304 @@ def lm_finetune_phase(card: str, out_dir: Path) -> dict:
     out["reduced"] = lm_reduced_leg(card)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 17 (LM fine-tuning): {out['seconds']:.2f} s ({card})", flush=True)
+    return out
+
+
+# ---------------- phase 18: MoE fine-tuning (MoE transformer training) ----------------
+# deepseek-moe-16b at full width (d_model 2048, MHA 16 x 128, 64 routed
+# experts of 1408 top-6 + 2 shared, vocab 102,400), its depth cut 28 -> 2,
+# on make_round_step, parallel mode, as the example builds it: 28 layers
+# are 16.4B params, which do not train client-parallel on one card
+MOE_FT_ARCH = "deepseek-moe-16b"
+MOE_FT_LAYERS = 2
+MOE_FT_PARAMS = 1_595_156_480   # JAX's init shapes at 2 layers (tests/test_torch_moe_train.py)
+MOE_FT_C = 2
+MOE_FT_PEAK_GB = 76.0           # the peak the 2-layer cut must stay under (else 1 layer)
+MOE_LAYER_C, MOE_LAYER_B, MOE_LAYER_S = 2, 2, 512   # leg a: one layer's cohort
+# leg a's bound, set before the first card run: phase 17 leg b's fp32 bound
+# (fp32 sums in other orders on the card and the CPU), a gradient leaf's
+# relative L2, held for each client whose routes agree
+MOE_LAYER_BOUND = 1e-4
+MOE_EXAMPLE_ARGV = ("--arch", "mixtral-8x7b", "--codec", "lora", "--rank", "4")
+
+
+class MoEStages:
+    """While active, each stage of the port's MoE layer runs inside
+    ``record_function("moe <stage>")``: the router (``router_topk``), the
+    dispatch, the expert products (``expert_ffn``), the combine and the
+    shared experts (the MoE module's ``mlp_forward``)."""
+
+    NAMES = {"router": "router_topk", "dispatch": "dispatch", "experts": "expert_ffn",
+             "combine": "combine", "shared": "mlp_forward"}
+    WINDOWS = tuple(f"moe {st}" for st in NAMES)
+
+    def __enter__(self):
+        from repro_torch.models.layers import moe
+
+        self.saved = {st: getattr(moe, fn) for st, fn in self.NAMES.items()}
+
+        def wrap(stage, fn):
+            def run(*args, **kwargs):
+                with torch.profiler.record_function(f"moe {stage}"):
+                    return fn(*args, **kwargs)
+            return run
+
+        for st, fn in self.saved.items():
+            setattr(moe, self.NAMES[st], wrap(st, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.layers import moe
+
+        for st, fn in self.saved.items():
+            setattr(moe, self.NAMES[st], fn)
+        return False
+
+
+def moe_stage_us(prof, cost=lambda e: sum(k.duration for k in e.kernels if k.name != e.name)
+                 ) -> dict:
+    """Device us of each MoE stage's forward and backward kernels in a
+    profile (CPU and CUDA activity) taken under ``MoEStages``; ``cost`` is
+    what a CPU op adds (its kernels' device us, not the span its own
+    ``record_function`` lays on the device timeline; its own CPU us in a
+    CPU rehearsal).  A kernel belongs to the CPU op that launched it; an op
+    under a ``moe <stage>``
+    window is that stage's forward.  A backward op runs under autograd's
+    ``evaluate_function`` of a node whose sequence number is that of the
+    forward op that made it: the last forward op to start with that number
+    (the ops after it see the counter it moved on).  -> {stage: {"fwd",
+    "bwd"}}."""
+    from torch.autograd import DeviceType
+
+    windows = dict(zip(MoEStages.WINDOWS, MoEStages.NAMES))
+
+    def ancestry(e):
+        stage = node = None
+        while e is not None:
+            if e.name in windows and stage is None:
+                stage = windows[e.name]
+            if e.name.startswith("autograd::engine::evaluate_function") and node is None:
+                node = e.sequence_nr
+            e = e.cpu_parent
+        return stage, node
+
+    cpu = sorted((e for e in prof.events() if e.device_type == DeviceType.CPU),
+                 key=lambda e: e.time_range.start)
+    # the forward's thread: autograd's device threads count sequence numbers of their own
+    forward = {e.thread for e in cpu if e.name in windows}
+    stage_of_node, out = {}, {st: {"fwd": 0.0, "bwd": 0.0} for st in MoEStages.NAMES}
+    seen = []
+    for e in cpu:
+        stage, node = ancestry(e)
+        seen.append((e, stage, node))
+        if node is None and e.sequence_nr >= 0 and e.thread in forward:
+            stage_of_node[e.sequence_nr] = stage
+    for e, stage, node in seen:
+        us = cost(e)
+        if not us:
+            continue
+        if stage is not None and node is None:
+            out[stage]["fwd"] += us
+        elif node is not None and stage_of_node.get(node) is not None:
+            out[stage_of_node[node]]["bwd"] += us
+    return out
+
+
+def moe_layer_terms(cfg, params, batch) -> dict:
+    """Each MoE layer's ``moe_aux``, ``moe_z`` and drop fraction in
+    ``loss_fn`` (no gradient) on one client's first local batch."""
+    from repro_torch.models import build_model
+
+    one = {k: v[0, 0] for k, v in batch.items()}
+    with torch.no_grad(), MoEProbe() as probe:
+        build_model(cfg, device=one["tokens"].device).loss_fn(params, one)
+    return {k: [float(a[k]) for a in probe.aux] for k in ("moe_aux", "moe_z", "moe_drop_frac")}
+
+
+def moe_layer_loss(cfg):
+    """One MoE layer's training loss for a client: its output against a
+    fixed weight, plus ``moe_loss`` -> (loss, (the chosen experts, sorted,
+    the drop fraction))."""
+    from repro_torch.models.layers import moe
+
+    def loss(params, x, w):
+        routes = []
+        router = moe.router_topk
+
+        def recorded(cfg_, p, xf):
+            topv, topi, aux = router(cfg_, p, xf)
+            routes.append(torch.sort(topi, dim=-1).values)
+            return topv, topi, aux
+
+        moe.router_topk = recorded
+        try:
+            out, aux = moe.moe_forward(cfg, params, x)
+        finally:
+            moe.router_topk = router
+        return ((out.float() * w).mean() + moe.moe_loss(aux, cfg),
+                (routes[0], aux["moe_drop_frac"]))
+    return loss
+
+
+def moe_layer_train_leg(card: str, dev="cuda") -> dict:
+    """Leg a: one deepseek-moe-16b MoE layer at full width under
+    ``vmap(grad_and_value)`` over C = 2 clients of 2 x 512 tokens, params
+    shared (a round's first step), in fp32 and bf16, on the card under
+    ``set_sync_debug_mode("error")``: two evaluations bitwise equal; each
+    client's chosen experts against the port's CPU route on the same
+    inputs (flips reported; none where the k-th / (k+1)-th router-logit gap
+    exceeds MOE_GAP_EPS); in fp32 each routed-alike client's loss within
+    1e-5 and every gradient leaf within relative L2 MOE_LAYER_BOUND of the
+    CPU's.  The bf16 step timed, and its device ms by stage, forward and
+    backward, from one profiler session."""
+    import dataclasses
+    import types
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import moe
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    from torch.profiler import ProfilerActivity, profile
+
+    base = get_config(MOE_FT_ARCH)
+    d, k = base.d_model, base.moe.top_k
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        dt = torch.float32 if dtype == "float32" else torch.bfloat16
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(18)
+        params = moe.init_moe(gen, cfg, dt, device=dev)
+        x = torch.randn((MOE_LAYER_C, MOE_LAYER_B, MOE_LAYER_S, d), generator=gen,
+                        device=dev).to(dt)
+        w = torch.randn(x.shape, generator=gen, device=dev)
+        step = torch.func.vmap(torch.func.grad_and_value(moe_layer_loss(cfg), has_aux=True),
+                               in_dims=(None, 0, 0))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, (loss, (routes, drop)) = step(params, x, w)
+            again, (again_loss, _) = step(params, x, w)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        bitwise = torch.equal(loss, again_loss) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(again), strict=True))
+        del again
+        cpu_p = tree_map(lambda t: t.cpu(), params)
+        xc = x.cpu()
+        logits = torch.matmul(xc.float().reshape(MOE_LAYER_C, -1, d), cpu_p["router"])
+        top = torch.sort(logits, dim=-1, descending=True).values
+        gap = top[..., k - 1] - top[..., k]
+        r = {"bitwise": bitwise, "drop_frac": [float(v) for v in drop],
+             "loss": [float(v) for v in loss]}
+        t0 = time.perf_counter()
+        if dtype == "float32":
+            want, (want_loss, (want_routes, _)) = step(cpu_p, xc, w.cpu())
+        else:
+            want_routes = torch.stack([
+                torch.sort(moe.router_topk(cfg, cpu_p, xc[c].reshape(-1, d))[1], -1).values
+                for c in range(MOE_LAYER_C)])
+        r["cpu_s"] = time.perf_counter() - t0
+        differ = (routes.cpu() != want_routes).any(-1)
+        r["routing_flips"] = [int(v) for v in differ.sum(-1)]
+        r["flips_above_eps"] = int((differ & (gap > MOE_GAP_EPS)).sum())
+        r["smallest_gap"] = float(gap.min())
+        ok = bitwise and r["flips_above_eps"] == 0 and all(math.isfinite(v) for v in r["loss"])
+        if dtype == "float32":
+            alike = [c for c in range(MOE_LAYER_C) if not bool(differ[c].any())]
+            r["clients_compared"] = alike
+            r["loss_rel_err"] = [abs(float(loss[c]) - float(want_loss[c])) / abs(
+                float(want_loss[c])) for c in alike]
+            r["leaf_rel_l2"] = [max(rel_l2(g[c], h[c]) for g, h in zip(
+                tree_leaves(got), tree_leaves(want), strict=True)) for c in alike]
+            ok = (ok and bool(alike) and max(r["loss_rel_err"]) <= 1e-5
+                  and max(r["leaf_rel_l2"]) <= MOE_LAYER_BOUND)
+            del want
+        check(f"moe layer training [{dtype}]: deepseek-moe-16b's layer at full width, "
+              f"vmap(grad) over C = {MOE_LAYER_C} x {MOE_LAYER_B} x {MOE_LAYER_S} tokens, no host "
+              f"sync: two evaluations bitwise equal, routes equal to the CPU's where the gap "
+              f"exceeds {MOE_GAP_EPS}" + ("" if dtype == "bfloat16" else
+                                           f", loss within 1e-5 and every gradient leaf within "
+                                           f"relative L2 {MOE_LAYER_BOUND} of the CPU's for each "
+                                           f"client routed alike"), ok, **r)
+        r["step_ms"] = time_ms(lambda: step(params, x, w), iters=5)
+        if dtype == "bfloat16":
+            # the second of two steps: the session's first launches can reach
+            # the trace without the CPU op that made them
+            active = []
+            prof = profile(activities=[ProfilerActivity.CUDA, ProfilerActivity.CPU],
+                           schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                           on_trace_ready=lambda p: active.append(p.events()))
+            torch.cuda.synchronize()
+            with MoEStages():
+                prof.start()
+                for _ in range(2):
+                    step(params, x, w)
+                    torch.cuda.synchronize()
+                    prof.step()
+                prof.stop()
+            seen = types.SimpleNamespace(events=lambda: active[0])
+            busy_us, _ = device_time(seen, MoEStages.WINDOWS)
+            r["profiled_busy_ms"] = busy_us / 1e3
+            r["stage_ms"] = {st: {kk: us / 1e3 for kk, us in v.items()}
+                             for st, v in moe_stage_us(seen).items()}
+            check("moe layer training [bfloat16]: the profiled step's stages recorded card time",
+                  busy_us > 0 and all(v["fwd"] > 0 and v["bwd"] > 0
+                                      for v in r["stage_ms"].values()), stage_ms=r["stage_ms"])
+        print(f"moe layer training [{dtype}] deepseek-moe-16b full-width layer, C={MOE_LAYER_C} x "
+              f"{MOE_LAYER_B} x {MOE_LAYER_S}: step {r['step_ms']:.3f} ms (forward and backward, "
+              f"the cohort), bitwise {bitwise}, drop {r['drop_frac']}, route flips against the "
+              f"CPU {r['routing_flips']} (smallest gap {r['smallest_gap']:.2e})"
+              + (f", loss rel err {r['loss_rel_err']}, max leaf rel L2 {r['leaf_rel_l2']}"
+                 if dtype == "float32" else
+                 f"; device ms by stage (forward, backward) {json.dumps(r['stage_ms'])} of "
+                 f"{r['profiled_busy_ms']:.3f} busy") + f"; CPU {r['cpu_s']:.1f} s ({card})",
+              flush=True)
+        out[dtype] = r
+        del params, x, w, got, cpu_p, xc
+    return out
+
+
+def moe_finetune_phase(card: str, out_dir: Path) -> dict:
+    """Phase 18: MoE training.  (a) one deepseek-moe-16b MoE layer at full
+    width under ``vmap(grad)`` (``moe_layer_train_leg``); (b) deepseek-moe-16b
+    at full width cut to ``MOE_FT_LAYERS`` layers (bf16, 1,595,156,480
+    params) on the round engine with the fp32, Int8 and LoRA wires, C = 2
+    (``lm_round_leg``), its peak memory under MOE_FT_PEAK_GB; (c) the
+    reference's documented MoE command, the example at ``--arch
+    mixtral-8x7b --codec lora --rank 4`` (reduced) on the card
+    (``lm_reduced_leg``).  Phase 17's leg a holds the flash backward at
+    this path's head shape."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_size
+
+    t0 = time.perf_counter()
+    out = {"layer": moe_layer_train_leg(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MOE_FT_ARCH), n_layers=MOE_FT_LAYERS)
+    params = build_model(cfg).init(0)
+    n = tree_size(params)
+    check(f"moe fine-tune: {MOE_FT_ARCH} at full width cut to {MOE_FT_LAYERS} layers has JAX's "
+          f"{MOE_FT_PARAMS:,} params", n == MOE_FT_PARAMS, params=n)
+    out["rounds"] = {name: lm_round_leg(card, out_dir, cfg, params, name, clients=MOE_FT_C,
+                                        trace="moe_finetune_round_trace.json")
+                     for name in LM_CODECS}
+    peak = max(r["peak_memory_gb"] for r in out["rounds"].values())
+    check(f"moe fine-tune: peak memory under {MOE_FT_PEAK_GB} GB at {MOE_FT_LAYERS} layers",
+          peak <= MOE_FT_PEAK_GB, peak_gb=peak)
+    out["launches"] = {k: LM_ROUNDS * v
+                       for k, v in out["rounds"][LM_PROFILED]["launches_a_round"].items()}
+    out.update(arch=MOE_FT_ARCH, depth_cut=MOE_FT_LAYERS, params=n, clients=MOE_FT_C)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["example"] = lm_reduced_leg(card, MOE_EXAMPLE_ARGV)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18 (MoE fine-tuning): {out['seconds']:.2f} s ({card})", flush=True)
     return out
 
 
@@ -6498,6 +6852,7 @@ def main() -> int:
     REPORT["xlstm_serving"] = xlstm_serving_phase(card, args.out)
     lm = REPORT["lm_finetune"] = lm_finetune_phase(card, args.out)
     rows["flash_attention_bwd"] = lm["flash_bwd_row"]
+    REPORT["moe_finetune"] = moe_finetune_phase(card, args.out)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):

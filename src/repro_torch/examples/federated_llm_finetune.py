@@ -10,13 +10,19 @@ plain Int8.  ``--codec int8`` / ``fp32`` run the same loop on the dense wire
 for comparison.  The model's attention trains through the hand-written
 flash forward and backward kernels on the card.
 
-Runs a reduced dense model by default (``--d-model``, ``--layers``);
-``--full`` runs the config unreduced (qwen3-0.6b: 596M params, on the
-card).  The port trains the dense family: ``--arch mixtral-8x7b`` (MoE)
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+Runs a reduced model by default (``--d-model``, ``--layers``); ``--full``
+runs the config unreduced (qwen3-0.6b: 596M params, on the card).  The
+port trains the dense family (qwen3-0.6b, granite-8b, stablelm-3b) and the
+MoE family (``--arch mixtral-8x7b`` or ``deepseek-moe-16b``: the loss adds
+the router's aux and z terms, and LoRA folds the stacked expert leaves
+into matrix segments).  An MoE arch at ``--full`` does not fit one card
+(deepseek-moe-16b's 28 layers are 16.4B params, Mixtral's 32 are 46.7B):
+train those reduced.  The other families (MLA, frontend tokens, mamba,
+xLSTM) raise ``NotImplementedError`` naming their ROADMAP.md item.
 
   python -m repro_torch.examples.federated_llm_finetune --rounds 8
   python -m repro_torch.examples.federated_llm_finetune --device cpu --codec lora
+  python -m repro_torch.examples.federated_llm_finetune --arch mixtral-8x7b --codec lora --rank 4
 """
 from __future__ import annotations
 
@@ -53,7 +59,9 @@ def build_codec(name: str, params, rank: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    help="a dense (qwen3-0.6b, granite-8b, stablelm-3b) or MoE "
+                         "(mixtral-8x7b, deepseek-moe-16b) transformer")
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--local-steps", type=int, default=4)
@@ -64,7 +72,8 @@ def main(argv=None):
     ap.add_argument("--codec", default="fp32", choices=["fp32", "int8", "lora"])
     ap.add_argument("--rank", type=int, default=4)
     ap.add_argument("--full", action="store_true",
-                    help="the config unreduced (ignores --d-model and --layers)")
+                    help="the config unreduced (ignores --d-model and --layers); an MoE "
+                         "arch unreduced does not fit one card")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 

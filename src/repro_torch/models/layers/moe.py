@@ -11,8 +11,17 @@ one at a time in the output dtype, in the sorted pairs' order: the
 sequential fold that XLA's scatter-add ``.at[].add`` makes.  JAX vmaps
 the dispatch over sequences; here the batch is one more tensor axis.
 Nothing in the layer reads a value back to the host: ``capacity`` comes
-from shapes, and the per-expert counts are a ``scatter_add_`` (on the
+from shapes, and the per-expert counts are a ``scatter_add`` (on the
 card ``torch.bincount`` reads its maximum back).
+
+The layer trains under ``torch.func.vmap(grad)``, as the round engine
+runs a cohort: every scatter is out of place on a fresh tensor, so vmap
+batches it.  A gradient repeats bit for bit on the card: in the backward
+no two values meet in an atomic add, except in the discarded drop row.
+The dispatch copies each token's k rows out of ``x`` expanded along k, in
+token-major order, so the gradient of ``x`` is a gather of the buffer's
+gradient and a sum over k (the expand's backward), never a scatter-add of
+k rows into one token.
 
 The buffer is laid out expert-major, (E, B, capacity, d), so each expert's
 rows of all sequences are one matrix for the batched products; JAX's
@@ -85,7 +94,7 @@ def router_topk(cfg, params: dict, x_flat: torch.Tensor):
 
     # load-balance aux (Switch): E * sum_e f_e * p_e
     flat = topi.reshape(-1)
-    assign = torch.zeros(e, dtype=torch.float32, device=x_flat.device).scatter_add_(
+    assign = torch.zeros(e, dtype=torch.float32, device=x_flat.device).scatter_add(
         0, flat, torch.ones(flat.shape, dtype=torch.float32, device=x_flat.device))
     f_e = assign / max(1.0, float(topi.numel()))
     p_e = torch.mean(probs_full, dim=0)
@@ -119,7 +128,7 @@ def dispatch(x: torch.Tensor, topi: torch.Tensor, topv: torch.Tensor, *, e: int,
     flat_e = topi.reshape(b, n)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = torch.gather(flat_e, 1, order)
-    counts = torch.zeros((b, e), dtype=torch.int64, device=x.device).scatter_add_(
+    counts = torch.zeros((b, e), dtype=torch.int64, device=x.device).scatter_add(
         1, sorted_e, torch.ones_like(sorted_e))
     seg_start = torch.cumsum(counts, dim=1) - counts
     pos = torch.arange(n, device=x.device) - torch.gather(seg_start, 1, sorted_e)
@@ -127,10 +136,12 @@ def dispatch(x: torch.Tensor, topi: torch.Tensor, topv: torch.Tensor, *, e: int,
     dst = torch.where(keep, sorted_e * capacity + pos, e * capacity)
     src_tok = torch.div(order, k, rounding_mode="floor")
     scale = torch.gather(topv.reshape(b, n), 1, order)
-    seq = torch.arange(b, device=x.device)[:, None]
-    buf = torch.zeros((e * b * capacity + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, _buffer_rows(dst, capacity, e).reshape(-1),
-                    x.reshape(b * s, d)[(seq * s + src_tok).reshape(-1)])
+    # each pair's buffer row in token-major order (pair t * k + j), the
+    # order of x expanded along k
+    rows = _buffer_rows(dst, capacity, e)
+    rows = torch.empty_like(rows).scatter(1, order, rows)
+    buf = torch.zeros((e * b * capacity + 1, d), dtype=x.dtype, device=x.device).index_copy(
+        0, rows.reshape(-1), x[:, :, None, :].expand(b, s, k, d).reshape(b * n, d))
     return buf[:-1].view(e, b, capacity, d), dst, scale, src_tok, keep
 
 

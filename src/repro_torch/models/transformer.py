@@ -24,11 +24,12 @@ JAX's ``_run_stack`` sums them: ``forward`` returns them beside the
 logits; prefill and decode drop them, as JAX's do.  The capacity factor
 is JAX's: 1.25 in ``block_forward`` and prefill, 2.0 in ``block_decode``.
 
-Training (``loss_fn``: CE over the final residual stream, ``cross_entropy``)
-runs the dense family: attention through ``ops.flash_attention``, whose
-backward is a hand-written kernel on the card.  ``loss_fn`` refuses, with
-``NotImplementedError`` naming ROADMAP.md queue 1 item 15, the families
-whose training is not ported yet (``_training_gaps``): MoE, MLA, the
+Training (``loss_fn``: CE over the final residual stream, ``cross_entropy``,
+plus ``moe_loss`` of the summed aux terms where ``cfg.moe`` is set) runs
+the dense and MoE families: attention through ``ops.flash_attention``,
+whose backward is a hand-written kernel on the card.  ``loss_fn`` refuses,
+with ``NotImplementedError`` naming ROADMAP.md queue 1 item 15, the
+families whose training is not ported yet (``_training_gaps``): MLA, the
 frontend tokens, mamba and xLSTM layers.
 """
 from __future__ import annotations
@@ -260,12 +261,9 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, window=None):
 # ---------------- losses ----------------
 def _training_gaps(cfg: ArchConfig) -> list[str]:
     """What the port lacks to train ``cfg``, one line a family; empty for
-    the dense family."""
+    the dense and MoE families."""
     kinds = {spec.kind for spec in cfg.layer_plan()}
     gaps = []
-    if cfg.moe is not None:
-        gaps.append("MoE: the aux and z losses (moe_loss) and the feed-forward's dispatch "
-                    "under torch.func")
     if cfg.mla is not None:
         gaps.append("MLA: its forward and backward held against the reference's "
                     "(flash with V zero-padded to the qk width)")
@@ -311,13 +309,15 @@ def cross_entropy(cfg: ArchConfig, params: dict, x_final: torch.Tensor, labels: 
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, ce_chunk: int = 0):
-    """FL-client local loss: CE over next-token ``batch["labels"]`` ->
-    (loss, metrics {"ce", the MoE aux keys}).  Raises for a family whose
-    training is not ported (``_training_gaps``)."""
+    """FL-client local loss: CE over next-token ``batch["labels"]``, plus
+    ``moe_loss`` of the aux terms summed over the MoE layers where the
+    config has experts -> (loss, metrics {"ce", the MoE aux keys}).  Raises
+    for a family whose training is not ported (``_training_gaps``)."""
     gaps = _training_gaps(cfg)
     if gaps:
         raise NotImplementedError(
-            f"{cfg.name}: transformer training (loss_fn) is ported for the dense family; "
+            f"{cfg.name}: transformer training (loss_fn) is ported for the dense and MoE "
+            f"families; "
             f"missing here: {'; '.join(gaps)} ({_ITEM})")
     x = _embed_inputs(cfg, params, batch)
     x, aux = _run_stack(cfg, params, x)
@@ -330,7 +330,8 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, ce_chunk: int = 0):
         labels = torch.cat([pad, labels], dim=1)
 
     ce = cross_entropy(cfg, params, x, labels, chunk=ce_chunk)
-    return ce, {"ce": ce, **aux}
+    loss = ce if cfg.moe is None else ce + moe_lib.moe_loss(aux, cfg)
+    return loss, {"ce": ce, **aux}
 
 
 # ---------------- prefill / decode ----------------

@@ -1049,6 +1049,73 @@ def test_cuda_moe_forward_matches_the_cpu_without_a_host_sync(cuda, arch):
             assert float(aux["moe_drop_frac"]) == float(want_aux["moe_drop_frac"])
 
 
+@pytest.mark.cuda
+def test_cuda_moe_layer_vmap_grad_is_repeatable_and_matches_the_cpu(cuda):
+    """The MoE layer's training step as the round engine runs it:
+    ``vmap`` over 2 clients of ``grad_and_value`` of ``moe_forward`` +
+    ``moe_loss``, at deepseek's router (64 experts top-6, 2 shared), width
+    256, fp32, S = 64 at cf 1.25 (pairs dropped), on the card under
+    ``set_sync_debug_mode("error")``: two calls bitwise equal; each
+    client's chosen experts against the CPU's on the same inputs (equal
+    wherever the router-logit gap exceeds 1e-3), and where a client's
+    routes agree its loss within 1e-5 and every gradient within 1e-4 of
+    its max-abs (the sums run in other orders)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import moe
+    from repro_torch.utils.pytree import tree_map
+
+    full = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(full.reduced(d_model=256), dtype="float32",
+                              moe=dataclasses.replace(full.moe, d_expert=256))
+    router = moe.router_topk
+
+    def loss(p, x, w):
+        routes = []
+
+        def recorded(cfg_, params, xf):
+            topv, topi, aux = router(cfg_, params, xf)
+            routes.append(torch.sort(topi, -1).values)
+            return topv, topi, aux
+
+        moe.router_topk = recorded
+        try:
+            out, aux = moe.moe_forward(cfg, p, x)
+        finally:
+            moe.router_topk = router
+        return (out * w).mean() + moe.moe_loss(aux, cfg), (routes[0], aux["moe_drop_frac"])
+
+    step = torch.func.vmap(torch.func.grad_and_value(loss, has_aux=True), in_dims=(None, 0, 0))
+    gen = torch.Generator().manual_seed(3)
+    params = moe.init_moe(gen, cfg, torch.float32)
+    x, w = (torch.randn((2, 2, 64, cfg.d_model), generator=gen) for _ in range(2))
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    xc, wc = x.to(cuda), w.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, (got_loss, (got_routes, drop)) = step(card_params, xc, wc)
+        again, (again_loss, _) = step(card_params, xc, wc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got_loss, again_loss) and float(drop.min()) > 0
+    for g, a in zip(tree_leaves(got), tree_leaves(again), strict=True):
+        assert torch.equal(g, a)
+    want, (want_loss, (want_routes, _)) = step(params, x, w)
+    logits = x.reshape(2, -1, cfg.d_model) @ params["router"]
+    top = torch.sort(logits, -1, descending=True).values
+    gap = top[..., 5] - top[..., 6]
+    differ = (got_routes.cpu() != want_routes).any(-1)
+    assert not bool((differ & (gap > 1e-3)).any())
+    alike = [c for c in range(2) if not bool(differ[c].any())]
+    assert alike, "both clients' routes flipped"
+    for c in alike:
+        torch.testing.assert_close(got_loss[c].cpu(), want_loss[c], rtol=1e-5, atol=0)
+        for g, w_ in zip(tree_leaves(got), tree_leaves(want), strict=True):
+            assert _max_rel(g[c].cpu(), w_[c]) <= 1e-4
+
+
 # ---------------- the ResNet's convs (the TF32 guard) ----------------
 @pytest.mark.cuda
 def test_cuda_resnet_conv_and_forward_are_fp32(cuda):

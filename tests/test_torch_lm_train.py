@@ -447,6 +447,13 @@ def test_llm_finetune_twin_lora_wire_beats_int8_10x():
         _example().build_codec("zstd", params, rank=4)
 
 
-def test_llm_finetune_twin_refuses_an_moe_arch():
-    with pytest.raises(NotImplementedError, match=f"MoE.*{ITEM}"):
-        _example().main(TINY + ["--arch", "mixtral-8x7b", "--codec", "lora", "--rank", "2"])
+# each family whose training is not ported, and the gap its refusal names
+# (the MoE family trains: tests/test_torch_moe_train.py)
+UNPORTED = [("minicpm3-4b", "MLA"), ("paligemma-3b", "frontend tokens"),
+            ("jamba-1.5-large-398b", "mamba"), ("xlstm-1.3b", "xLSTM")]
+
+
+@pytest.mark.parametrize("arch,gap", UNPORTED, ids=[a for a, _ in UNPORTED])
+def test_llm_finetune_twin_refuses_an_unported_family(arch, gap):
+    with pytest.raises(NotImplementedError, match=f"{gap}.*{ITEM}"):
+        _example().main(TINY + ["--arch", arch, "--codec", "lora", "--rank", "2"])

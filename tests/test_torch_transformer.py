@@ -483,9 +483,9 @@ def test_mamba_layers_need_an_ssm_config():
 
 
 # (arch, config change): one config of each family whose training waits;
-# the dense family trains (tests/test_torch_lm_train.py)
+# the dense and MoE families train (tests/test_torch_lm_train.py,
+# tests/test_torch_moe_train.py)
 UNTRAINED = {
-    "MoE": ("mixtral-8x7b", {}),
     "MLA": ("minicpm3-4b", {}),
     "frontend": ("paligemma-3b", {}),
     "mamba": ("jamba-1.5-large-398b", {"moe": None}),
