@@ -141,12 +141,14 @@ Phases (any failure exits non-zero):
    BandwidthCodecPolicy, 3 rounds each: 4 quantize, 4 dequantize and 1
    dequant_reduce a round, the Int8 wires billed at N, the cutoff's
    budgets, accuracy rising), its round 2 split by host stage and round 3
-   profiled, and its reduced-width card run replayed through a CPU FedTau
-   and held against the CPU run; (b) the mixed fleet of 2 phones (TopK), 2
-   Jetsons (Int8) and 2 datacenter-class clients (Null) under FedAvg, 2
-   rounds, every FL kernel once a reduce; (c) the round engine as phase 6;
+   profiled, and its reduced-width card run (1 round a tau run) replayed
+   through a CPU FedTau and held against the CPU run; (b) the mixed fleet
+   of 2 phones (TopK), 2 Jetsons (Int8) and 2 datacenter-class clients
+   (Null) under FedAvg, 2 rounds, every FL kernel once a reduce; (c) the
+   round engine as phase 6 at 2 rounds a case, parallel Int8's profiled;
    (d) the mesh's int8 collective with the Int8 uplink on phase 7's 4
-   gloo ranks, 2 rounds, held against the vmap fp32 round step.
+   gloo ranks, 2 rounds, held against the vmap fp32 round step.  Each
+   leg's seconds printed.
 11. population mode on mobilenet-head-office31 at full width (N =
    1,974,303): (a) Population.synthetic(1,000,000) of the mixed fleet's
    seven classes, the from_profiles churn trace, cohort 16, FedAvg under
@@ -265,9 +267,11 @@ Phases (any failure exits non-zero):
    512, H 16 over KV 8, D 128, causal) in bf16 and fp32, GQA 32/8, D = 80
    and 64, a window at a q_offset, ragged S = 300, not causal at D = 256,
    rows with no valid key (also bf16 at D = 256 under a window), and the
-   widths the next training slices launch (paligemma's 8 over 1 at D =
-   256, MLA's qk 96, musicgen's 24 x 64); at the training shape the
-   backward and the forward with lse timed through the wrapper and as a
+   widths the training slices launch (paligemma's 8 over 1 at D = 256,
+   also over phase 19's 768 positions, MLA's qk 96, at 16 heads and at
+   phase 19's 40, musicgen's 24 x 64); at the training shape, phase 18's
+   and phase 19's two, the backward and the forward with lse timed
+   through the wrapper and as a
    bare launch, bf16's dQ and dK / dV kernels also alone, beside their
    bounds, the plain backward and scaled_dot_product_attention's forward
    and backward; ptxas' registers and spills of the 12 backward kernels,
@@ -306,6 +310,29 @@ Phases (any failure exits non-zero):
    mixtral-8x7b --codec lora --rank 4 on the card (reduced, 8 rounds):
    finite losses, the last below the first.  Phase 17's leg a times the
    flash backward at this path's 16 x 16 x 128.
+19. MLA and frontend-token fine-tuning: (a) one minicpm3-4b MLA layer at
+   full width (d 2560, 40 heads, qk 64 + 32 over v 64 zero-padded to 96,
+   ranks 768 / 256) under vmap(grad_and_value) over C = 2 clients of 2 x
+   512 tokens, fp32 and bf16, with no host sync and no kernels.ref call:
+   two evaluations bitwise equal, one flash forward and one backward
+   launch each, fp32 loss and every gradient (x's too) within relative
+   L2 2e-5 of the CPU's; (b) minicpm3-4b at full width cut to 8 layers
+   (689,428,992 params, bf16) on make_round_step as phase 17's leg c with
+   C = 2 and the fp32, Int8 and LoRA wires: exactly 16 flash forward and
+   16 backward launches a round and the codec's, a profiled fourth Int8
+   round (DIR/mla_finetune_round_trace.json.gz); (c) paligemma-3b whole
+   (2,511,022,080 params, bf16): one grad_and_value(loss_fn) step on 2 x
+   512 tokens after the 256 frontend positions and SGD(0.01), the loss
+   finite and positive, every updated leaf finite, frontend_proj.w's
+   gradient finite and nonzero, exactly 18 flash forward and 18 backward
+   launches (8 heads over 1 at D = 256); (d) 2-layer cuts of paligemma-3b
+   and musicgen-medium at full width in fp32, 1 x 128 text tokens after
+   the frontend positions: the loss and every gradient leaf within
+   relative L2 2e-5 of the CPU's.  Phase 17's leg a holds and times the
+   flash backward at this path's 40 x 96 and paligemma's 8 over 1 at D =
+   256 over 768 positions.
+
+Every phase's seconds are printed after it and again at the end.
 
 Prints the card's nvidia-smi name and power limit and a {"kernels": [...]}
 line, and ends with {"ok": true, "device": {...}}.  The full report goes
@@ -315,9 +342,9 @@ DIR/fedadam_mixed_fleet_round3_trace.json, DIR/resnet_round3_trace.json.gz
 and DIR/population_round3_trace.json.gz, the serving traces to
 DIR/<leg>_{prefill,decode}_trace.json.gz for the legs serving, hybrid,
 deepseek, mixtral16, granite, stablelm, minicpm, paligemma, musicgen and
-xlstm, phase 17's profiled round to DIR/lm_finetune_round_trace.json.gz and
-phase 18's to DIR/moe_finetune_round_trace.json.gz (DIR defaults to
-smoke_out).  If
+xlstm, phase 17's profiled round to DIR/lm_finetune_round_trace.json.gz,
+phase 18's to DIR/moe_finetune_round_trace.json.gz and phase 19's to
+DIR/mla_finetune_round_trace.json.gz (DIR defaults to smoke_out).  If
 ``repro_torch`` cannot be imported (the script run away from the
 repository's ``src/``), it says so on stdout and exits 1.
 """
@@ -2587,13 +2614,15 @@ ENGINE_BUDGETS = [8, 7, 6, 5, 4, 3, 2, 8]   # the tau cutoff, in local steps
 ENGINE_DROP = 3                             # the client masked out of round 2
 
 
-def round_engine_phase(card: str, arch="mobilenet-head-office31") -> dict:
+def round_engine_phase(card: str, arch="mobilenet-head-office31", rounds: int = 3,
+                       profiled=None) -> dict:
     """Phase 6 (and phase 10's leg c): make_round_step on ``arch`` at full
-    width, parallel and sequential x Null / Int8 / TopK, 3 rounds each (8
-    clients, 8 local steps of batch 32).  Every round starts from launch
-    counts of 0 and ends synchronized.  A fourth round, the same work as
-    round 3, runs under torch.profiler for the card's busy time; its idle
-    share is taken against round 3."""
+    width, parallel and sequential x Null / Int8 / TopK, ``rounds`` rounds
+    each (8 clients, 8 local steps of batch 32; round 2 masks a client).
+    Every round starts from launch counts of 0 and ends synchronized.  In
+    each (mode, codec) case of ``profiled`` (every case where None) one
+    more round, the same work as the last, runs under torch.profiler for
+    the card's busy time; its idle share is taken against the last."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import (
@@ -2632,7 +2661,7 @@ def round_engine_phase(card: str, arch="mobilenet-head-office31") -> dict:
                                trainable_mask=trainable_mask_of(model, params))
         g, state = params, codec.init_client_state(c, n)
         losses, host_s, counts = [], [], []
-        for rnd in range(3):
+        for rnd in range(rounds):
             mask = drop if rnd == 1 else None
             state_in = state
             torch.cuda.synchronize()
@@ -2649,30 +2678,34 @@ def round_engine_phase(card: str, arch="mobilenet-head-office31") -> dict:
                 check(f"{label} {mode} {name}: the dropped client's residual row is bitwise "
                       "unchanged",
                       torch.equal(state[ENGINE_DROP], state_in[ENGINE_DROP]))
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        prof.start()
-        step(g, (), state, batches, weights, budgets, 3, None)
-        torch.cuda.synchronize()
-        prof.stop()
-        busy_us, by_kernel = device_time(prof)
-        ours_us = sum(us for k, us in by_kernel.items() if any(p in k for p in PORT_KERNELS))
-        idle = 1.0 - busy_us / 1e6 / host_s[2]
         got = [(k["quantize_int8"], k["dequantize_int8"], k["dequant_reduce"],
                 k["topk_scatter_reduce"]) for k in counts]
         check(f"{label} {mode} {name}: launches per round {want} "
               "(quantize, dequantize, dequant_reduce, topk_scatter_reduce), no fedavg_reduce",
               all(x == want for x in got) and all(k["fedavg_reduce"] == 0 for k in counts),
               launches=got)
-        check(f"{label} {mode} {name}: client loss falls over 3 rounds",
+        check(f"{label} {mode} {name}: client loss falls over {rounds} rounds",
               all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], loss=losses)
         check(f"{label} {mode} {name}: global params finite on cuda",
               bool(torch.isfinite(tree_flatten_to_vector(g)).all()) and tree_flatten_to_vector(g).is_cuda)
-        print(f"{label} {mode} {name}: host s per round {[round(x, 4) for x in host_s]}; "
-              f"profiled round: card busy {busy_us / 1e3:.3f} ms (the port's kernels "
-              f"{ours_us:.1f} us), idle {idle:.4f} of round 3 ({card})", flush=True)
-        out[f"{mode}/{name}"] = {"host_s": host_s, "loss": losses, "launches": got,
-                                 "device_busy_ms": busy_us / 1e3, "port_kernels_us": ours_us,
-                                 "device_idle_share_vs_round3": idle}
+        out[f"{mode}/{name}"] = {"host_s": host_s, "loss": losses, "launches": got}
+        seen = ""
+        if profiled is None or (mode, name) in profiled:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            step(g, (), state, batches, weights, budgets, rounds, None)
+            torch.cuda.synchronize()
+            prof.stop()
+            busy_us, by_kernel = device_time(prof)
+            ours_us = sum(us for k, us in by_kernel.items()
+                          if any(p in k for p in PORT_KERNELS))
+            idle = 1.0 - busy_us / 1e6 / host_s[-1]
+            out[f"{mode}/{name}"].update(device_busy_ms=busy_us / 1e3, port_kernels_us=ours_us,
+                                         device_idle_share_vs_last_round=idle)
+            seen = (f"; profiled round: card busy {busy_us / 1e3:.3f} ms (the port's kernels "
+                    f"{ours_us:.1f} us), idle {idle:.4f} of round {rounds}")
+        print(f"{label} {mode} {name}: host s per round {[round(x, 4) for x in host_s]}{seen} "
+              f"({card})", flush=True)
     par, seq = first_round[("parallel", "NullCodec")], first_round[("sequential", "NullCodec")]
     check(f"{label}: parallel Null = sequential Null after round 1 within the bf16 "
           "accumulator's atol=rtol=2e-3 (tests/test_fl_engine.py:94)",
@@ -3221,6 +3254,9 @@ RESNET_INT8_WIRE = 11_348_558  # Int8Codec().wire_bytes(RESNET_N): N + 4 ceil(N 
 RESNET_MIXED_FLEET = ["pixel-4", "pixel-3", "jetson-tx2-gpu", "jetson-tx2-cpu",
                       "tpu-v5e-chip", "tpu-v5e-chip"]
 RESNET_MESH_CASES = (("int8", "Int8Codec"),)
+# leg c: the one engine case profiled (reading every case's profile took
+# about a minute of the phase on an H100 host)
+RESNET_ENGINE_PROFILED = (("parallel", "Int8Codec"),)
 # cuDNN's convolution kernels, as the profiler names them
 CONV_KERNELS = ("conv", "xmma", "implicit", "fprop", "dgrad", "wgrad", "cudnn")
 
@@ -3554,7 +3590,7 @@ def resnet_example_leg(card: str, out_dir: Path) -> dict:
 
 
 def resnet_example_replay(card: str) -> dict:
-    """Leg (a) at reduced width on the card and on the CPU, 2 rounds each:
+    """Leg (a) at reduced width on the card and on the CPU, 1 round each:
     every round's uploads that reached the card's ``aggregate_fit`` replayed
     through a CPU FedTau against the same global (rtol=atol=1e-6, the
     reduces' summation order), and the two runs' labels, budgets, comm
@@ -3567,8 +3603,8 @@ def resnet_example_replay(card: str) -> dict:
 
     card_log: list = []
     with instrumented_example(agg_log=card_log):
-        on_card = example.run(CNN_CONFIG.reduced(), device="cuda", rounds=2)
-    on_cpu = example.run(CNN_CONFIG.reduced(), device="cpu", rounds=2)
+        on_card = example.run(CNN_CONFIG.reduced(), device="cuda", rounds=1)
+    on_cpu = example.run(CNN_CONFIG.reduced(), device="cpu", rounds=1)
     worst, strategy = 0.0, FedTau(local_epochs=3, local_lr=0.05)
     for rnd, results, g_in, g_out, _ in card_log:
         want = tree_flatten_to_vector(strategy.aggregate_fit(rnd, results, g_in))
@@ -3598,8 +3634,9 @@ def resnet_phase(card: str, out_dir: Path, head_rows: dict) -> dict:
     """Phase 10: ResNet-18 / CIFAR-10 at full width (N = 11,173,962, 62
     leaves) from init(0): the FL kernels at its shapes, then legs (a) the
     heterogeneous-cutoff example, its reduced-width card-vs-CPU replay, (b)
-    the mixed fleet under FedAvg, 2 rounds, (c) the round engine, (d) the
-    mesh's int8 collective with the Int8 uplink, 2 rounds."""
+    the mixed fleet under FedAvg, 2 rounds, (c) the round engine, 2 rounds
+    a case, (d) the mesh's int8 collective with the Int8 uplink, 2 rounds;
+    each leg's seconds."""
     from repro_torch.models import build_model
     from repro_torch.utils.pytree import tree_leaves, tree_size
 
@@ -3609,14 +3646,25 @@ def resnet_phase(card: str, out_dir: Path, head_rows: dict) -> dict:
           tree_size(params) == RESNET_N and len(tree_leaves(params)) == 62
           and all(t.is_cuda for t in tree_leaves(params)), n_params=tree_size(params))
     del params
-    out = {"kernels": resnet_kernel_checks(torch.device("cuda"), card, head_rows)}
-    out["example"] = resnet_example_leg(card, out_dir)
-    out["example_replay"] = resnet_example_replay(card)
-    out["mixed_fleet"] = mixed_fleet_phase(RESNET, RESNET_MIXED_FLEET, 2)
-    out["engine"] = round_engine_phase(card, RESNET)
-    *_, out["mesh"], out["mesh_wall_s"] = mesh_cases(card, RESNET, RESNET_MESH_CASES, 2, False)
+    out = {"leg_seconds": {}}
+
+    def leg(name, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        out["leg_seconds"][name] = time.perf_counter() - t
+        return result
+
+    out["kernels"] = leg("kernels", resnet_kernel_checks, torch.device("cuda"), card, head_rows)
+    out["example"] = leg("a", resnet_example_leg, card, out_dir)
+    out["example_replay"] = leg("a replay", resnet_example_replay, card)
+    out["mixed_fleet"] = leg("b", mixed_fleet_phase, RESNET, RESNET_MIXED_FLEET, 2)
+    out["engine"] = leg("c", round_engine_phase, card, RESNET, 2, RESNET_ENGINE_PROFILED)
+    *_, out["mesh"], out["mesh_wall_s"] = leg("d", mesh_cases, card, RESNET, RESNET_MESH_CASES,
+                                              2, False)
     out["seconds"] = time.perf_counter() - t0
-    print(f"phase 10 (ResNet-18): {out['seconds']:.2f} s ({card})", flush=True)
+    print(f"phase 10 (ResNet-18): {out['seconds']:.2f} s, by leg "
+          f"{json.dumps({k: round(v, 2) for k, v in out['leg_seconds'].items()})} ({card})",
+          flush=True)
     return out
 
 
@@ -6033,9 +6081,16 @@ FLASH_BWD_CASES = [
     # phase 18's shape: the vmapped cohort of 2 clients x 2 sequences (MHA)
     ("deepseek-moe-16b's 16 x 16 x 128", 4, 512, 512, 16, 16, 128, torch.bfloat16, None, 0,
      True),
+    # phase 19's: minicpm3-4b's cohort of 2 x 2 sequences at 40 heads of qk 96
+    # (V zero-padded from 64), and paligemma-3b's step, 256 frontend + 512
+    # text positions
+    ("minicpm3-4b's 40 x 96", 4, 512, 512, 40, 40, 96, torch.bfloat16, None, 0, True),
+    ("paligemma-3b's 8 over 1 at D = 256, 768 positions", 2, 768, 768, 8, 1, 256,
+     torch.bfloat16, None, 0, True),
 ]
 # the cases timed beside their bounds and SDPA; the first is the kernel row's
-FLASH_BWD_TIMED = ("training shape", "fp32, training shape", "deepseek-moe-16b's 16 x 16 x 128")
+FLASH_BWD_TIMED = ("training shape", "fp32, training shape", "deepseek-moe-16b's 16 x 16 x 128",
+                   "minicpm3-4b's 40 x 96", "paligemma-3b's 8 over 1 at D = 256, 768 positions")
 
 
 def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -6773,6 +6828,284 @@ def moe_finetune_phase(card: str, out_dir: Path) -> dict:
     return out
 
 
+# ---------------- phase 19: MLA and frontend-token fine-tuning ----------------
+# minicpm3-4b at full width (d 2560, 40 heads, qk 64 + 32 over v 64, ranks
+# 768 / 256, vocab 73,448), its depth cut 62 -> 8 (the 62 layers' 4.07B
+# params do not train client-parallel on one card), on make_round_step as
+# phase 17's leg c with C = 2; paligemma-3b whole (18 layers, 256 frontend
+# positions of 1152, 8 heads over 1 at D = 256, vocab 257,216) for one
+# value_and_grad step, as tests/test_models_smoke.py:43 trains it
+MLA_FT_ARCH = "minicpm3-4b"
+MLA_FT_LAYERS = 8
+MLA_FT_PARAMS = 689_428_992     # JAX's init shapes at 8 layers (tests/test_torch_mla_train.py)
+MLA_FT_C = 2
+VLM_FT_ARCH = "paligemma-3b"
+VLM_FT_PARAMS = 2_511_022_080   # JAX's init shapes, whole
+VLM_FT_B, VLM_FT_SEQ, VLM_FT_LR = 2, 512, 0.01
+# leg d: 2-layer cuts at full width, card against CPU in fp32, B = 1 and 128
+# text tokens after the frontend positions (the CPU side stays short)
+FRONTEND_CPU_LAYERS = 2
+FRONTEND_CPU_PARAMS = {"paligemma-3b": 749_348_864, "musicgen-medium": 82_983_936}
+FRONTEND_CPU_TOKENS = (1, 128)
+MLA_LAYER_C, MLA_LAYER_B, MLA_LAYER_S = 2, 2, 512   # leg a: one layer's cohort
+# legs a and d's bound, set before the first card run: flash's fp32
+# tolerance (ATTN_TOL), a gradient's relative L2 against the CPU's (fp32 sums
+# in other orders: the flash kernels, cuBLAS against the CPU's GEMMs)
+MLA_FT_BOUND = ATTN_TOL[torch.float32]
+
+
+def mla_layer_loss(cfg):
+    """One MLA layer's training loss for a client: its output against a
+    fixed fp32 weight."""
+    from repro_torch.models.layers import mla
+
+    def loss(params, x, w):
+        return (mla.mla_forward(cfg, params, x)[0].float() * w).sum()
+    return loss
+
+
+def mla_layer_train_leg(card: str, dev="cuda") -> dict:
+    """Leg a: one minicpm3-4b MLA layer at full width under
+    ``vmap(grad_and_value)`` over C = 2 clients of 2 x 512 tokens, params
+    shared (a round's first step), the norm scales drawn away from zero,
+    in fp32 and bf16, on the card under ``set_sync_debug_mode("error")``:
+    two evaluations bitwise equal, one flash forward and one backward
+    launch an evaluation (the cohort folded into B), no ``kernels.ref``
+    call; in fp32 each client's loss and the gradient of x and of every
+    leaf within relative L2 MLA_FT_BOUND of the port's CPU route on the
+    same inputs.  Each step timed."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import mla
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    base = get_config(MLA_FT_ARCH)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        dt = torch.float32 if dtype == "float32" else torch.bfloat16
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(19)
+        params = mla.init_mla(gen, cfg, dt, device=dev)
+        for key in ("q_norm", "kv_norm"):
+            params[key] = 0.1 * torch.randn(params[key].shape, generator=gen, device=dev)
+        x = torch.randn((MLA_LAYER_C, MLA_LAYER_B, MLA_LAYER_S, cfg.d_model), generator=gen,
+                        device=dev).to(dt)
+        w = torch.randn(x.shape, generator=gen, device=dev)
+        step = torch.func.vmap(torch.func.grad_and_value(mla_layer_loss(cfg), argnums=(0, 1)),
+                               in_dims=(None, 0, 0))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with RefTrap():
+                got, loss = step(params, x, w)
+                again, again_loss = step(params, x, w)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        bitwise = torch.equal(loss, again_loss) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(again), strict=True))
+        del again
+        r = {"bitwise": bitwise, "launches_two_evaluations": launches,
+             "loss": [float(v) for v in loss]}
+        ok = (bitwise and launches == {"flash_attention": 2, "flash_attention_bwd": 2}
+              and all(math.isfinite(v) for v in r["loss"])
+              and all(bool(torch.isfinite(t.float()).all()) for t in tree_leaves(got)))
+        if dtype == "float32":
+            t0 = time.perf_counter()
+            want, want_loss = step(tree_map(lambda t: t.cpu(), params), x.cpu(), w.cpu())
+            r["cpu_s"] = time.perf_counter() - t0
+            r["loss_rel_err"] = max(abs(float(a) - float(b)) / abs(float(b))
+                                    for a, b in zip(loss, want_loss))
+            r["leaf_rel_l2"] = {k: rel_l2(g, h) for k, g, h in zip(
+                ["x"] + sorted(params), [got[1]] + [got[0][k] for k in sorted(params)],
+                [want[1]] + [want[0][k] for k in sorted(params)])}
+            worst = max(r["leaf_rel_l2"].values())
+            ok = ok and r["loss_rel_err"] <= MLA_FT_BOUND and worst <= MLA_FT_BOUND
+            del want
+        check(f"mla layer training [{dtype}]: minicpm3-4b's layer at full width (40 heads, qk "
+              f"96 over v 64), vmap(grad) over C = {MLA_LAYER_C} x {MLA_LAYER_B} x "
+              f"{MLA_LAYER_S} tokens, no host sync, no kernels.ref call: two evaluations "
+              f"bitwise equal, 1 flash forward and 1 backward launch each"
+              + ("" if dtype == "bfloat16" else
+                 f", each client's loss and the gradient of x and every leaf within relative "
+                 f"L2 {MLA_FT_BOUND} of the CPU's"), ok, **r)
+        r["step_ms"] = time_ms(lambda: step(params, x, w), iters=5)
+        print(f"mla layer training [{dtype}] minicpm3-4b full-width layer, C={MLA_LAYER_C} x "
+              f"{MLA_LAYER_B} x {MLA_LAYER_S}: step {r['step_ms']:.3f} ms (forward and backward, "
+              f"the cohort), bitwise {bitwise}, launches {launches}"
+              + (f", loss rel err {r['loss_rel_err']:.2e}, max leaf rel L2 "
+                 f"{max(r['leaf_rel_l2'].values()):.2e}; CPU {r['cpu_s']:.1f} s"
+                 if dtype == "float32" else "") + f" ({card})", flush=True)
+        out[dtype] = r
+        del params, x, w, got
+    return out
+
+
+def frontend_step_leg(card: str, dev="cuda") -> dict:
+    """Leg c: paligemma-3b whole (18 layers, bf16) for the reference smoke
+    test's step: ``grad_and_value(loss_fn)`` on B = 2 of 512 tokens after
+    the 256 frontend positions, then p - 0.01 g.  The loss finite and
+    positive, every updated leaf finite, ``frontend_proj.w``'s gradient
+    finite and nonzero; 18 flash forward and 18 backward launches (8 heads
+    over 1 at D = 256) and nothing else, no ``kernels.ref`` call; the step
+    timed (synchronized), its peak memory."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_size
+
+    cfg = get_config(VLM_FT_ARCH)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    n = tree_size(params)
+    batch = lm_batch(cfg, 1, dev, clients=1, steps=1, batch=VLM_FT_B, seq=VLM_FT_SEQ)
+    batch = {k: v[0, 0] for k, v in batch.items()}
+    batch.update(frontend_of(cfg, np.random.default_rng(19), VLM_FT_B, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    with RefTrap():
+        for _ in range(2):   # the first step builds, the second is timed
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            grads, (loss, met) = torch.func.grad_and_value(model.loss_fn, has_aux=True)(
+                params, batch)
+            new = tree_map(lambda p, g: p - VLM_FT_LR * g.to(p.dtype), params, grads)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fgrad = grads["frontend_proj"]["w"]
+    want = {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    r = {"params": n, "loss": float(loss), "ce": float(met["ce"]), "launches": launches,
+         "step_s": walls, "peak_memory_gb": peak_gb,
+         "frontend_grad_abs_max": float(fgrad.float().abs().max()),
+         "tokens": VLM_FT_B * (cfg.frontend_tokens + VLM_FT_SEQ)}
+    check(f"frontend fine-tune: {VLM_FT_ARCH} whole ({n:,} params = JAX's {VLM_FT_PARAMS:,}), "
+          f"one value_and_grad step and SGD({VLM_FT_LR}) on {VLM_FT_B} x ({cfg.frontend_tokens} "
+          f"frontend + {VLM_FT_SEQ}) tokens: loss finite and positive, every updated leaf "
+          f"finite, frontend_proj.w's gradient finite and nonzero, exactly {want} and no "
+          f"kernels.ref call",
+          n == VLM_FT_PARAMS and math.isfinite(r["loss"]) and r["loss"] > 0
+          and all(bool(torch.isfinite(t.float()).all()) for t in tree_leaves(new))
+          and bool(torch.isfinite(fgrad.float()).all()) and r["frontend_grad_abs_max"] > 0
+          and launches == want, **r)
+    print(f"frontend fine-tune {VLM_FT_ARCH} whole ({n:,} params), {VLM_FT_B} x "
+          f"({cfg.frontend_tokens} + {VLM_FT_SEQ}) tokens: loss {r['loss']:.4f}, step s "
+          f"{[round(x, 4) for x in walls]}, {r['tokens'] / walls[-1]:.0f} trained tokens/s, "
+          f"peak {peak_gb:.2f} GB, launches {launches}, |grad frontend_proj.w|max "
+          f"{r['frontend_grad_abs_max']:.3e} ({card})", flush=True)
+    del params, grads, new, model
+    return r
+
+
+def frontend_card_vs_cpu(card: str, arch: str) -> dict:
+    """Leg d: ``arch`` at full width cut to FRONTEND_CPU_LAYERS layers, fp32,
+    one client's batch of FRONTEND_CPU_TOKENS text tokens after the
+    frontend positions: ``loss_fn``'s value and every leaf's gradient
+    (``frontend_proj.w`` included) on the card within relative L2
+    MLA_FT_BOUND of the port's CPU route on identical params and inputs;
+    one flash forward and one backward launch a layer, no ``kernels.ref``
+    call on the card."""
+    import dataclasses
+    import os
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_size
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    cfg = dataclasses.replace(get_config(arch), n_layers=FRONTEND_CPU_LAYERS, dtype="float32")
+    card_m, cpu_m = build_model(cfg), build_model(cfg, device="cpu")
+    params = card_m.init(0)
+    n = tree_size(params)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    b, s = FRONTEND_CPU_TOKENS
+    batch = {k: v[0, 0] for k, v in lm_batch(cfg, 1, "cpu", clients=1, steps=1, batch=b,
+                                             seq=s).items()}
+    batch.update(frontend_of(cfg, np.random.default_rng(20), b, "cpu"))
+    t0 = time.perf_counter()
+    want, (want_loss, _) = torch.func.grad_and_value(cpu_m.loss_fn, has_aux=True)(
+        cpu_params, batch)
+    cpu_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    with RefTrap():
+        got, (got_loss, _) = torch.func.grad_and_value(card_m.loss_fn, has_aux=True)(
+            params, {k: v.cuda() for k, v in batch.items()})
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+    torch.cuda.synchronize()
+    loss_err = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+    leaf_errs = [rel_l2(g, w) for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True)]
+    front = rel_l2(got["frontend_proj"]["w"], want["frontend_proj"]["w"])
+    per_layer = {"flash_attention": FRONTEND_CPU_LAYERS,
+                 "flash_attention_bwd": FRONTEND_CPU_LAYERS}
+    check(f"frontend fine-tune, fp32: {arch} at full width cut to {FRONTEND_CPU_LAYERS} layers "
+          f"({n:,} params = JAX's {FRONTEND_CPU_PARAMS[arch]:,}), {b} x ({cfg.frontend_tokens} "
+          f"frontend + {s}) tokens, card against CPU: loss and every gradient leaf "
+          f"(frontend_proj.w included) within relative L2 {MLA_FT_BOUND}; exactly {per_layer}, "
+          f"no kernels.ref call",
+          n == FRONTEND_CPU_PARAMS[arch] and loss_err <= MLA_FT_BOUND
+          and max(leaf_errs) <= MLA_FT_BOUND and launches == per_layer,
+          loss=float(got_loss), cpu_loss=float(want_loss), loss_rel_err=loss_err,
+          max_leaf_rel_l2=max(leaf_errs), frontend_proj_rel_l2=front, launches=launches,
+          cpu_s=cpu_s)
+    print(f"frontend fine-tune card vs CPU ({arch}, fp32, {FRONTEND_CPU_LAYERS} layers, {b} x "
+          f"({cfg.frontend_tokens} + {s}) tokens): loss {float(got_loss):.6f} vs "
+          f"{float(want_loss):.6f} ({loss_err:.2e}), leaves' relative L2 max "
+          f"{max(leaf_errs):.2e} median {statistics.median(leaf_errs):.2e}, frontend_proj.w "
+          f"{front:.2e}; CPU {cpu_s:.1f} s ({card})", flush=True)
+    del params, got, cpu_params, want
+    return {"loss_rel_err": loss_err, "leaf_rel_l2": leaf_errs, "frontend_proj_rel_l2": front,
+            "cpu_s": cpu_s}
+
+
+def mla_frontend_finetune_phase(card: str, out_dir: Path) -> dict:
+    """Phase 19: MLA and frontend-token training.  (a) one minicpm3-4b MLA
+    layer at full width under ``vmap(grad)`` (``mla_layer_train_leg``); (b)
+    minicpm3-4b at full width cut to ``MLA_FT_LAYERS`` layers (bf16,
+    689,428,992 params) on the round engine with the fp32, Int8 and LoRA
+    wires, C = 2 (``lm_round_leg``); (c) paligemma-3b whole, one
+    value_and_grad step and an SGD update (``frontend_step_leg``); (d)
+    2-layer cuts of paligemma-3b and musicgen-medium at full width, the
+    card against the CPU in fp32 (``frontend_card_vs_cpu``).  Phase 17's
+    leg a holds and times the flash backward at this path's MLA and
+    paligemma shapes."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_size
+
+    out = {"layer": mla_layer_train_leg(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MLA_FT_ARCH), n_layers=MLA_FT_LAYERS)
+    params = build_model(cfg).init(0)
+    n = tree_size(params)
+    check(f"mla fine-tune: {MLA_FT_ARCH} at full width cut to {MLA_FT_LAYERS} layers has JAX's "
+          f"{MLA_FT_PARAMS:,} params", n == MLA_FT_PARAMS, params=n)
+    out["rounds"] = {name: lm_round_leg(card, out_dir, cfg, params, name, clients=MLA_FT_C,
+                                        trace="mla_finetune_round_trace.json")
+                     for name in LM_CODECS}
+    out["launches"] = {k: LM_ROUNDS * v
+                       for k, v in out["rounds"][LM_PROFILED]["launches_a_round"].items()}
+    out.update(arch=MLA_FT_ARCH, depth_cut=MLA_FT_LAYERS, params=n, clients=MLA_FT_C)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["frontend_step"] = frontend_step_leg(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = {arch: frontend_card_vs_cpu(card, arch) for arch in FRONTEND_CPU_PARAMS}
+    return out
+
+
 def aside(r: dict) -> str:
     """A timing's yardsticks beside the kernel's own: the TopK reduce's
     output fill, the copy floor (FedAvg reduce, codec), the codec's encode
@@ -6826,41 +7159,55 @@ def main() -> int:
     REPORT["build_s"] = build_s
 
     args.out.mkdir(parents=True, exist_ok=True)
-    rows = kernel_phase(rng)
-    loop = main_path_phase()
-    mixed = mixed_fleet_phase()
-    reduced_parity_phase()
-    reduced_parity_phase(MIXED_FLEET)
-    REPORT["profile"] = profile_phase(card, args.out)
-    REPORT["profile_mixed_fleet"] = profile_phase(card, args.out, MIXED_FLEET)
-    t0 = time.perf_counter()
-    family = REPORT["strategy_family"] = strategy_family_phase(card, args.out)
-    family["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    tables = REPORT["paper_tables"] = paper_tables_phase(card)
-    tables["seconds"] = time.perf_counter() - t0
-    REPORT["engine"] = round_engine_phase(card)
-    mesh = REPORT["mesh"] = mesh_phase(card)
-    serving = REPORT["serving"] = dense_serving_phase(card, args.out)
-    hybrid = REPORT["hybrid"] = hybrid_serving_phase(card, args.out)
-    REPORT["resnet"] = resnet_phase(card, args.out, rows)
-    population = REPORT["population"] = population_phase(card, args.out)
-    REPORT["scanned"] = scanned_trainer_phase(card, args.out)
-    REPORT["segmented"] = segmented_wire_phase(card, args.out)
-    REPORT["moe_serving"] = moe_dense_serving_phase(card, args.out)
-    REPORT["mla_frontend_serving"] = mla_frontend_serving_phase(card, args.out)
-    REPORT["xlstm_serving"] = xlstm_serving_phase(card, args.out)
-    lm = REPORT["lm_finetune"] = lm_finetune_phase(card, args.out)
+    seconds = REPORT["phase_seconds"] = {}
+
+    def timed(label: str, fn, *fn_args):
+        """Run one phase; print and keep its seconds."""
+        t = time.perf_counter()
+        result = fn(*fn_args)
+        seconds[label] = time.perf_counter() - t
+        print(f"phase {label}: {seconds[label]:.2f} s ({card})", flush=True)
+        return result
+
+    rows = timed("2 (kernels)", kernel_phase, rng)
+    loop = timed("3 (Flower loop)", main_path_phase)
+    mixed = timed("3b (mixed fleet)", mixed_fleet_phase)
+    timed("4 (reduced-width parity)", reduced_parity_phase)
+    timed("4b (mixed fleet's parity)", reduced_parity_phase, MIXED_FLEET)
+    REPORT["profile"] = timed("5 (profile)", profile_phase, card, args.out)
+    REPORT["profile_mixed_fleet"] = timed("5b (mixed fleet's profile)", profile_phase, card,
+                                          args.out, MIXED_FLEET)
+    REPORT["strategy_family"] = timed("3c (strategy family)", strategy_family_phase,
+                                               card, args.out)
+    REPORT["paper_tables"] = timed("3d (paper tables)", paper_tables_phase, card)
+    REPORT["engine"] = timed("6 (round engine)", round_engine_phase, card)
+    mesh = REPORT["mesh"] = timed("7 (mesh)", mesh_phase, card)
+    serving = REPORT["serving"] = timed("8 (dense serving)", dense_serving_phase, card, args.out)
+    hybrid = REPORT["hybrid"] = timed("9 (hybrid serving)", hybrid_serving_phase, card,
+                                      args.out)
+    REPORT["resnet"] = timed("10 (ResNet-18)", resnet_phase, card, args.out, rows)
+    population = REPORT["population"] = timed("11 (population)", population_phase, card,
+                                              args.out)
+    REPORT["scanned"] = timed("12 (scanned trainer)", scanned_trainer_phase, card, args.out)
+    REPORT["segmented"] = timed("13 (segmented wire)", segmented_wire_phase, card, args.out)
+    REPORT["moe_serving"] = timed("14 (MoE and dense serving)", moe_dense_serving_phase, card,
+                                  args.out)
+    REPORT["mla_frontend_serving"] = timed("15 (MLA and frontend serving)",
+                                           mla_frontend_serving_phase, card, args.out)
+    REPORT["xlstm_serving"] = timed("16 (xLSTM serving)", xlstm_serving_phase, card, args.out)
+    lm = REPORT["lm_finetune"] = timed("17 (LM fine-tuning)", lm_finetune_phase, card, args.out)
     rows["flash_attention_bwd"] = lm["flash_bwd_row"]
-    REPORT["moe_finetune"] = moe_finetune_phase(card, args.out)
+    REPORT["moe_finetune"] = timed("18 (MoE fine-tuning)", moe_finetune_phase, card, args.out)
+    REPORT["mla_frontend_finetune"] = timed("19 (MLA and frontend fine-tuning)",
+                                            mla_frontend_finetune_phase, card, args.out)
     for k, s in enumerate(loop["round_wall_s"], 1):
         print(f"round {k}: {s:.4f} s host wall ({card})", flush=True)
     for k, s in enumerate(mixed["round_wall_s"], 1):
         print(f"mixed fleet round {k}: {s:.4f} s host wall, eval acc "
               f"{mixed['eval_acc'][k - 1]:.4f} ({card})", flush=True)
 
-    print(f"phase 3c (strategy family): {family['seconds']:.2f} s; phase 3d (paper tables): "
-          f"{tables['seconds']:.2f} s ({card})", flush=True)
+    for label, t in seconds.items():
+        print(f"phase {label}: {t:.2f} s ({card})", flush=True)
     pop_launches = {k: v for k, v in population["scale"]["launches"].items() if v}
     print(f"phase 11 (population, {POP_N:,} devices, 3 rounds) launches: "
           f"{json.dumps(pop_launches)} ({card})", flush=True)

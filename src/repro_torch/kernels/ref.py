@@ -219,7 +219,8 @@ def attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=None, q_offset
     fp32, (dq, dk, dv) in the inputs' dtypes.  Masked pairs pass no
     gradient to the scores (dS = 0, as autograd through ``attention``'s
     where()); a row with no valid key took the mean of V, so it adds dO /
-    Skv to every key's dV and nothing to dQ or dK: zeros, never NaN."""
+    Skv to every key's dV and nothing to dQ or dK: zeros, never NaN.  V may
+    be narrower than Q and K (MLA's unpadded V), as in ``attention``."""
     b, sq, h, d = q.shape
     _, skv, kv, _ = k.shape
     groups = h // kv
@@ -239,7 +240,7 @@ def attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=None, q_offset
                      torch.zeros((), device=q.device))
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qs).reshape(b, kv, groups, skv, d).sum(2)
-    dv = torch.matmul(p.transpose(-1, -2), do).reshape(b, kv, groups, skv, d).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), do).reshape(b, kv, groups, skv, -1).sum(2)
     return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
             dv.transpose(1, 2).to(v.dtype))
 

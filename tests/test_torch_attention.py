@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jdecode_pallas

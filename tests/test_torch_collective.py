@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 
 from repro.core import CompressedPsum as JCompressedPsum
 from repro.core.compression import fp32_collective_bytes as jfp32_collective_bytes

@@ -768,6 +768,46 @@ def test_cuda_flash_pair_folds_a_vmapped_cohort_into_one_launch(cuda, monkeypatc
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_pair_at_mlas_padded_width_under_vmap_grad(cuda, dtype, monkeypatch):
+    """MLA's attention as ``mla_forward`` runs it: qk width 96, V 64
+    zero-padded to 96 and the output's first 64 columns kept, under vmap
+    over 2 clients of grad_and_value: one forward and one backward launch,
+    nothing reaches ``ref``, and the loss and gradients within 2e-5 (fp32)
+    / 2e-2 (bf16) of the plain attention's autograd on the unpadded V."""
+    import torch.nn.functional as F
+
+    q, k, v, w = _attn_inputs(cuda, 96, [(2, 2, 256, 8, 96), (2, 2, 256, 8, 96),
+                                         (2, 2, 256, 8, 64), (2, 2, 256, 8, 64)], dtype)
+    w = w.float()
+
+    def padded(qq, kk, vv, ww):
+        return (ops.flash_attention(qq, kk, F.pad(vv, (0, 32)))[..., :64].float() * ww).sum()
+
+    def unpadded(qq, kk, vv, ww):
+        return (ref.attention(qq, kk, vv).float() * ww).sum()
+
+    plain, pval = torch.func.vmap(torch.func.grad_and_value(unpadded, argnums=(0, 1, 2)))(
+        q, k, v, w)
+
+    def trap(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("attention", "attention_with_lse", "attention_bwd"):
+        monkeypatch.setattr(ref, name, trap)
+    ops.reset_launch_counts()
+    got, val = torch.func.vmap(torch.func.grad_and_value(padded, argnums=(0, 1, 2)))(q, k, v, w)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    assert _max_rel(val, pval) <= tol
+    for g, want, x in zip(got, plain, (q, k, v), strict=True):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert bool(torch.isfinite(g.float()).all()) and _max_rel(g, want) <= tol
+
+
+@pytest.mark.cuda
 def test_cuda_serving_kernels_refuse_a_gradient(cuda):
     """decode_attention and selective_scan have no backward kernel: on the
     card, an input that needs a gradient raises naming item 15."""

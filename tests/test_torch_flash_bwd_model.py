@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref

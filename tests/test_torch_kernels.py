@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 
 from repro.kernels import ref as jref
 from repro.kernels.dequant_reduce import dequant_reduce as pallas_dequant_reduce

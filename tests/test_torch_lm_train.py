@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 
 import repro.core as J
 import repro.data.loader as jloader
@@ -448,9 +449,9 @@ def test_llm_finetune_twin_lora_wire_beats_int8_10x():
 
 
 # each family whose training is not ported, and the gap its refusal names
-# (the MoE family trains: tests/test_torch_moe_train.py)
-UNPORTED = [("minicpm3-4b", "MLA"), ("paligemma-3b", "frontend tokens"),
-            ("jamba-1.5-large-398b", "mamba"), ("xlstm-1.3b", "xLSTM")]
+# (the MoE family trains: tests/test_torch_moe_train.py; MLA and the frontend
+# tokens: tests/test_torch_mla_train.py)
+UNPORTED = [("jamba-1.5-large-398b", "mamba"), ("xlstm-1.3b", "xLSTM")]
 
 
 @pytest.mark.parametrize("arch,gap", UNPORTED, ids=[a for a, _ in UNPORTED])

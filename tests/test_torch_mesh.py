@@ -50,6 +50,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as P
 
@@ -516,16 +517,19 @@ def test_collective_validation_errors_match_jax():
              client_axes=("pod", "rack"))
 
 
-@pytest.mark.parametrize("fn,error,match", [
-    (torch_mesh_ranks.fail_on_rank_one, RuntimeError, "rank one fails on purpose"),
-    (torch_mesh_ranks.hang_on_rank_one, TimeoutError, "gave no result within"),
+# a rank that raises reports its own error however slowly the ranks spawn
+# and import torch (the deadline covers the spawn: 120 s); a hang times out
+# after 10 s
+@pytest.mark.parametrize("fn,error,match,timeout_s", [
+    (torch_mesh_ranks.fail_on_rank_one, RuntimeError, "rank one fails on purpose", 120),
+    (torch_mesh_ranks.hang_on_rank_one, TimeoutError, "gave no result within", 10),
 ], ids=["fails", "hangs"])
-def test_run_local_mesh_reports_a_failing_rank(fn, error, match):
+def test_run_local_mesh_reports_a_failing_rank(fn, error, match, timeout_s):
     """A rank that raises or hangs raises here, and no rank outlives the call."""
     import multiprocessing
 
     with pytest.raises(error, match=match):
-        run_local_mesh(fn, pod=1, data=2, backend="gloo", device="cpu", timeout_s=10)
+        run_local_mesh(fn, pod=1, data=2, backend="gloo", device="cpu", timeout_s=timeout_s)
     assert not multiprocessing.active_children()
 
 

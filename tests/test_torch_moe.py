@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 
 from repro.configs import base as jbase
 from repro.configs.base import get_config as jget_config
@@ -327,7 +328,8 @@ def test_forward_returns_jaxs_aux():
         jp = jbuild_model(jcfg).init(jax.random.key(2))
         tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
         toks = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 32)).astype(np.int32)
-        jl, ja = jtfm.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
+        jl, ja = jax.jit(lambda p, b, cfg=jcfg: jtfm.forward(cfg, p, b))(
+            jp, {"tokens": jnp.asarray(toks)})
         with torch.inference_mode():
             tl, ta = tfm.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)})
         _scaled_close(tl, jl, (JAMBA_TOL if arch == JAMBA else MODEL_TOL)["float32"],

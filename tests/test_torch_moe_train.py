@@ -48,6 +48,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 
 import repro.core as J
 import repro.data.loader as jloader

@@ -13,6 +13,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 
 import benchmarks.paper_tables as jtables
 import repro_torch.benchmarks.paper_tables as ttables

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 from hypothesis_compat import given, settings, st
 
 import repro.core as J

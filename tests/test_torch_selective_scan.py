@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (each xdist worker's share of the cores)
 
 from repro.kernels import ref as jref
 from repro.kernels.selective_scan import selective_scan as jscan_pallas
