@@ -10,7 +10,8 @@ into its own library under ``build/scan_ablation/`` (the source stays as it
 is; one nvcc a copy, all started together), with parts of the kernel taken out or changed, and times each beside
 the whole kernel with CUDA events (median of 20 calls, each after a 512 MB
 memset that evicts L2) at the Jamba slice's prefill shape: x (8, 1024,
-16384) bf16, dt fp32, N = 16, no initial state, the reference tests' draws.
+16384) bf16, dt fp32, N = 16, no initial state, one group of A and D, no
+checkpoints (the serving forward), the reference tests' draws.
 A copy without a part computes something else: only the whole kernel's
 output is checked (against the plain version: y within one bf16 ulp, the
 state within 1e-5).  The last variant, the exponential as ``ex2.approx``
@@ -109,6 +110,15 @@ def build_variants(_cuda, texts: dict[str, str]) -> dict[str, tuple[ctypes.CDLL,
     return built
 
 
+def bare_args(x, dt, a, bm, cm, d, y, h, stream) -> tuple:
+    """``repro_selective_scan_bf16``'s arguments for the serving forward:
+    no initial state, no checkpoints, rows of ld = Di, one group."""
+    b, s, di = x.shape
+    return (x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+            d.data_ptr(), None, y.data_ptr(), h.data_ptr(), None, b, s, di, a.shape[-1], di, 1,
+            stream)
+
+
 def time_us(fn, iters: int = 20) -> float:
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
@@ -158,8 +168,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     for name, (so, regs) in variants.items():
         fn = so.repro_selective_scan_bf16
-        args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                d.data_ptr(), None, y.data_ptr(), h.data_ptr(), b, s, di, n, di, stream)
+        args = bare_args(x, dt, a, bm, cm, d, y, h, stream)
 
         def call(fn=fn, args=args):
             rc = fn(*args)

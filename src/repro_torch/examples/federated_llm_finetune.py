@@ -8,26 +8,30 @@ own parameter tree (``SegmentMap.from_tree``): matrix leaves ship
 rank-``--rank`` factors (int8-quantized), everything else falls back to
 plain Int8.  ``--codec int8`` / ``fp32`` run the same loop on the dense wire
 for comparison.  The model's attention trains through the hand-written
-flash forward and backward kernels on the card.
+flash forward and backward kernels on the card, a hybrid's mamba layers
+through the selective scan's forward and backward kernels.
 
 Runs a reduced model by default (``--d-model``, ``--layers``); ``--full``
 runs the config unreduced (qwen3-0.6b: 596M params, on the card).  The
 port trains the dense family (qwen3-0.6b, granite-8b, stablelm-3b), the
 MoE family (``--arch mixtral-8x7b`` or ``deepseek-moe-16b``: the loss adds
 the router's aux and z terms, and LoRA folds the stacked expert leaves
-into matrix segments) and MLA (``--arch minicpm3-4b``: LoRA folds the 3-D
-projections' leading axes into rows).  An MoE arch or minicpm3-4b at
-``--full`` does not fit one card client-parallel (deepseek-moe-16b's 28
-layers are 16.4B params, Mixtral's 32 are 46.7B, minicpm3-4b's 62 are
-4.07B): train those reduced.  The stream carries tokens alone, as the
-reference's does, so a frontend arch (paligemma-3b, musicgen-medium)
-raises ``ValueError`` for want of ``batch["frontend"]``; mamba and xLSTM
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+into matrix segments), MLA (``--arch minicpm3-4b``: LoRA folds the 3-D
+projections' leading axes into rows) and the hybrid Mamba stack (``--arch
+jamba-1.5-large-398b``: reduced, a mamba and an attention layer with its
+4 experts).  An MoE arch, minicpm3-4b or Jamba at ``--full`` does not fit
+one card client-parallel (deepseek-moe-16b's 28 layers are 16.4B params,
+Mixtral's 32 are 46.7B, minicpm3-4b's 62 are 4.07B, Jamba's 72 are 398B):
+train those reduced.  The stream carries tokens alone, as the reference's
+does, so a frontend arch (paligemma-3b, musicgen-medium) raises
+``ValueError`` for want of ``batch["frontend"]``; xLSTM raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
   python -m repro_torch.examples.federated_llm_finetune --rounds 8
   python -m repro_torch.examples.federated_llm_finetune --device cpu --codec lora
   python -m repro_torch.examples.federated_llm_finetune --arch mixtral-8x7b --codec lora --rank 4
   python -m repro_torch.examples.federated_llm_finetune --arch minicpm3-4b --codec lora
+  python -m repro_torch.examples.federated_llm_finetune --arch jamba-1.5-large-398b --codec lora
 """
 from __future__ import annotations
 
@@ -66,8 +70,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen3-0.6b",
                     help="a dense (qwen3-0.6b, granite-8b, stablelm-3b), MoE "
-                         "(mixtral-8x7b, deepseek-moe-16b) or MLA (minicpm3-4b) "
-                         "transformer")
+                         "(mixtral-8x7b, deepseek-moe-16b), MLA (minicpm3-4b) or hybrid "
+                         "Mamba (jamba-1.5-large-398b) transformer")
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--local-steps", type=int, default=4)
@@ -79,7 +83,8 @@ def main(argv=None):
     ap.add_argument("--rank", type=int, default=4)
     ap.add_argument("--full", action="store_true",
                     help="the config unreduced (ignores --d-model and --layers); an MoE "
-                         "arch or minicpm3-4b unreduced does not fit one card")
+                         "arch, minicpm3-4b or jamba-1.5-large-398b (398B) unreduced does "
+                         "not fit one card")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 

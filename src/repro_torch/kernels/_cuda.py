@@ -68,8 +68,10 @@ SIGNATURES = {
         "repro_decode_attention_bf16": (*(_P,) * 6, *(_I64,) * 7, _F, _P),
     },
     "selective_scan": {
-        "repro_selective_scan_f32": (*(_P,) * 9, *(_I64,) * 5, _P),
-        "repro_selective_scan_bf16": (*(_P,) * 9, *(_I64,) * 5, _P),
+        "repro_selective_scan_f32": (*(_P,) * 10, *(_I64,) * 6, _P),
+        "repro_selective_scan_bf16": (*(_P,) * 10, *(_I64,) * 6, _P),
+        "repro_selective_scan_bwd_f32": (*(_P,) * 19, *(_I64,) * 7, _P),
+        "repro_selective_scan_bwd_bf16": (*(_P,) * 19, *(_I64,) * 7, _P),
     },
 }
 
@@ -80,7 +82,7 @@ LAUNCHES = {
     "dequant_reduce": 0, "topk_scatter_reduce": 0,
     "collective_absmax": 0, "collective_pack": 0, "collective_unpack": 0,
     "flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
-    "selective_scan": 0,
+    "selective_scan": 0, "selective_scan_bwd": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -29,6 +29,8 @@ from .quantize import BLOCK, dequantize_int8 as _dequantize_kernel
 from .quantize import quantize_int8 as _quantize_kernel
 from .scatter_reduce import topk_scatter_reduce as _topk_kernel
 from .selective_scan import selective_scan as _scan_kernel
+from .selective_scan import selective_scan_bwd as _scan_bwd_kernel
+from .selective_scan import selective_scan_fwd as _scan_fwd_kernel
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -285,15 +287,102 @@ def decode_attention(q, k_cache, v_cache, *, kv_valid):
     return ref.decode_attention(q, k_cache, v_cache, kv_valid=kv_valid)
 
 
-# ---------------- mamba scan (the hybrid transformer's prefill) ----------------
+# ---------------- mamba scan (the hybrid transformer's prefill and training) ----------------
+def _scan_tensors(*tensors):
+    return tuple(t for t in tensors if t is not None)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """(x, dt, A (G,Di,N), B, C, D (G,Di), h0 or None) -> (y, final state,
+    checkpoints): the forward that keeps what its backward,
+    ``_SelectiveScanBwd``, reads.  The final state is differentiable (its
+    cotangent seeds the reverse recurrence); the checkpoints are not.  On
+    the CPU the plain forward runs and keeps no checkpoint (an empty
+    (B, 0, N, Di)): ``ref.selective_scan_bwd`` recomputes every state.
+    Under ``torch.func.vmap`` the mapped dimension is folded into B and
+    the groups (``vmap`` below): a vmapped cohort is one launch, whether A
+    and D are mapped per client or shared."""
+
+    @staticmethod
+    def forward(x, dt, A, Bm, Cm, D, h0, groups):
+        if _on_card(*_scan_tensors(x, dt, A, Bm, Cm, D, h0)):
+            return _scan_fwd_kernel(x, dt, A, Bm, Cm, D, init_state=h0, groups=groups)
+        y, h = ref.selective_scan(x, dt, A, Bm, Cm, D, init_state=h0, groups=groups)
+        return y, h, h.new_empty((x.shape[0], 0, h.shape[2], h.shape[1]))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, A, Bm, Cm, D, h0, groups = inputs
+        ckpt = output[2]
+        ctx.mark_non_differentiable(ckpt)
+        ctx.groups = groups
+        if any(ctx.needs_input_grad[:7]):
+            ctx.save_for_backward(x, dt, A, Bm, Cm, D, h0, ckpt)
+
+    @staticmethod
+    def backward(ctx, dy, dh, _dckpt):
+        x, dt, A, Bm, Cm, D, h0, ckpt = ctx.saved_tensors
+        grads = _SelectiveScanBwd.apply(x, dt, A, Bm, Cm, D, h0, ckpt, dy, dh, ctx.groups)
+        dh0 = grads[6] if h0 is not None else None
+        return (*(g.to(t.dtype) for g, t in zip(grads[:6], (x, dt, A, Bm, Cm, D))), dh0, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, Bm, Cm, D, h0, groups):
+        n = info.batch_size
+        folded = [None if t is None else _fold(t, d, n)
+                  for t, d in zip((x, dt, A, Bm, Cm, D, h0), in_dims[:7])]
+        out = _SelectiveScan.apply(*folded, groups * n)
+        return tuple(_unfold(t, n) for t in out), (0, 0, 0)
+
+
+class _SelectiveScanBwd(torch.autograd.Function):
+    """(x, dt, A, B, C, D, h0, checkpoints, dy, dh_final) -> (dx, ddt, dA,
+    dB, dC, dD[, dh0]): the hand-written backward on the card,
+    ``ref.selective_scan_bwd`` on the CPU.  It has no backward of its own:
+    a double backward raises."""
+
+    @staticmethod
+    def forward(x, dt, A, Bm, Cm, D, h0, ckpt, dy, dh, groups):
+        kw = dict(init_state=h0, dh_final=dh, groups=groups)
+        if _on_card(*_scan_tensors(x, dt, A, Bm, Cm, D, h0, ckpt, dy, dh)):
+            grads = _scan_bwd_kernel(x, dt, A, Bm, Cm, D, ckpt, dy.to(x.dtype), **kw)
+        else:
+            grads = ref.selective_scan_bwd(x, dt, A, Bm, Cm, D, dy, **kw)
+        return grads if h0 is not None else grads[:6]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("selective_scan's backward has no backward: double backward "
+                           "(a gradient of a gradient) through the scan is not supported")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, Bm, Cm, D, h0, ckpt, dy, dh, groups):
+        n = info.batch_size
+        folded = [None if t is None else _fold(t, d, n)
+                  for t, d in zip((x, dt, A, Bm, Cm, D, h0, ckpt, dy, dh), in_dims[:10])]
+        grads = _SelectiveScanBwd.apply(*folded, groups * n)
+        return tuple(_unfold(g, n) for g in grads), (0,) * len(grads)
+
+
 def selective_scan(x, dt, A, B, C, D, *, init_state=None):
     """x, dt (B,S,Di); A (Di,N); B, C (B,S,N); D (Di,); optional initial
     state (B,Di,N) -> (y (B,S,Di) in x's dtype, final state fp32).  Any S:
-    the TPU dispatch's S % 128 gate is not copied.  Serving only on the
-    card: no backward."""
-    tensors = (x, dt, A, B, C, D) + (() if init_state is None else (init_state,))
-    if _on_card(*tensors):
-        _refuse_autograd("selective_scan", *tensors)
+    the TPU dispatch's S % 128 gate is not copied.  Differentiable: where
+    autograd or a ``torch.func`` transform sees the inputs it runs through
+    ``_SelectiveScan`` (the forward with checkpoints, the backward kernel
+    after; the final state's gradient included); otherwise (serving,
+    ``torch.inference_mode``) the forward alone, which keeps nothing."""
+    tensors = _scan_tensors(x, dt, A, B, C, D, init_state)
+    on_card = _on_card(*tensors)
+    if _traced(*tensors):
+        y, h, _ = _SelectiveScan.apply(x, dt, A.unsqueeze(0), B, C, D.unsqueeze(0),
+                                       init_state, 1)
+        return y, h
+    if on_card:
         return _scan_kernel(x, dt, A, B, C, D, init_state=init_state)
     return ref.selective_scan(x, dt, A, B, C, D, init_state=init_state)
 

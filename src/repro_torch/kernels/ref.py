@@ -270,25 +270,50 @@ def decode_attention(
 
 
 # ---------------- mamba selective scan ----------------
+def _scan_rows(A: torch.Tensor, D: torch.Tensor, bsz: int, groups: int):
+    """A, D in fp32 as each batch row reads them: (Di, N) and (Di,) as
+    given when ``groups`` is 1 and A has two dims; else A (G, Di, N) and
+    D (G, Di) repeated to (B, Di, N) and (B, Di), row b taking group
+    b // (B / G)."""
+    f32 = torch.float32
+    if A.dim() == 2:
+        if groups != 1:
+            raise ValueError(f"selective_scan: A (Di, N) has one group, got groups={groups}")
+        return A.to(f32), D.to(f32)
+    if A.shape[0] != groups or D.shape[0] != groups or bsz % groups:
+        raise ValueError(f"selective_scan: A {tuple(A.shape)} and D {tuple(D.shape)} for "
+                         f"groups={groups} over B={bsz}")
+    rows = bsz // groups
+    return (A.to(f32).repeat_interleave(rows, dim=0), D.to(f32).repeat_interleave(rows, dim=0))
+
+
+def _scan_step(h, x_t, dt_t, a, b_t):
+    """One step of the recurrence, fp32: exp(dt A) h + (dt x) B."""
+    return torch.exp(dt_t[..., None] * a) * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
+
+
 def selective_scan(
     x: torch.Tensor,    # (B, S, Di)  input sequence
     dt: torch.Tensor,   # (B, S, Di)  softplus'd step sizes
-    A: torch.Tensor,    # (Di, N)     negative-real state matrix
+    A: torch.Tensor,    # (Di, N)     negative-real state matrix; (G, Di, N) with groups
     Bm: torch.Tensor,   # (B, S, N)   input -> state projection
     Cm: torch.Tensor,   # (B, S, N)   state -> output projection
-    D: torch.Tensor,    # (Di,)       skip
+    D: torch.Tensor,    # (Di,)       skip; (G, Di) with groups
     *,
     init_state: torch.Tensor | None = None,  # (B, Di, N)
+    groups: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t,  y_t = h_t C_t + D x_t:
     the literal recurrence, one step at a time in the Pallas kernel's
     arithmetic (``repro/kernels/selective_scan.py:42-51``), the (B, Di, N)
     state in fp32.  Returns (y in x's dtype, final state fp32).  JAX's
-    oracle sums the same terms by a chunked associative scan instead."""
+    oracle sums the same terms by a chunked associative scan instead.
+    With ``groups`` G, A is (G, Di, N) and D (G, Di), and batch row b reads
+    group b // (B / G): G clients' batches folded into one (the vmapped
+    cohort)."""
     bsz, s, di = x.shape
     f32 = torch.float32
-    a = A.to(f32)
-    d = D.to(f32)
+    a, d = _scan_rows(A, D, bsz, groups)
     h = (init_state.to(f32) if init_state is not None
          else torch.zeros((bsz, di, A.shape[-1]), dtype=f32, device=x.device))
     y = torch.empty_like(x)
@@ -296,9 +321,65 @@ def selective_scan(
         x_t = x[:, t].to(f32)                                   # (B, Di)
         dt_t = dt[:, t].to(f32)
         b_t, c_t = Bm[:, t].to(f32), Cm[:, t].to(f32)           # (B, N)
-        h = torch.exp(dt_t[..., None] * a) * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
+        h = _scan_step(h, x_t, dt_t, a, b_t)
         y[:, t] = ((h * c_t[:, None, :]).sum(-1) + d * x_t).to(x.dtype)
     return y, h
+
+
+def selective_scan_bwd(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dh_final=None,
+                       groups: int = 1):
+    """The gradient of ``selective_scan`` (the hand-written backward's
+    plain version): given dy (B, S, Di) and the final state's cotangent
+    ``dh_final`` (B, Di, N) or None, -> (dx in x's dtype, ddt, dA, dB, dC,
+    dD, dh0 or None), all but dx fp32, by the reverse recurrence
+
+        g_{S-1} = dh_S + dy_{S-1} C_{S-1},  g_{t-1} = a_t g_t + dy_{t-1} C_{t-1}
+        du_t = sum_n g_t B_t,  dx_t = dt_t du_t + D dy_t,
+        ddt_t = x_t du_t + sum_n A a_t h_{t-1} g_t,
+        dB_t = sum_d u_t g_t,  dC_t = sum_d dy_t h_t,
+        dA = sum_{b in g, t} dt_t a_t h_{t-1} g_t,  dD = sum_{b in g, t} dy_t x_t,
+        dh0 = a_0 g_0,
+
+    a_t = exp(dt_t A), u_t = dt_t x_t, sums in fp32.  The states are
+    recomputed by ``selective_scan``'s own steps, so h_{t-1} is bitwise the
+    forward's.  dA, dD have A's and D's shapes (summed over each group's
+    rows); dh0 is None without an initial state."""
+    bsz, s, di = x.shape
+    f32 = torch.float32
+    a, d = _scan_rows(A, D, bsz, groups)
+    h = (init_state.to(f32) if init_state is not None
+         else torch.zeros((bsz, di, A.shape[-1]), dtype=f32, device=x.device))
+    states = [h]                                                # states[t] = h_{t-1}
+    for t in range(s):
+        states.append(_scan_step(states[-1], x[:, t].to(f32), dt[:, t].to(f32), a,
+                                 Bm[:, t].to(f32)))
+    g = (dh_final.to(f32) if dh_final is not None else torch.zeros_like(h))
+    dx = torch.empty((bsz, s, di), dtype=f32, device=x.device)
+    ddt = torch.empty_like(dx)
+    dbm = torch.empty((bsz, s, A.shape[-1]), dtype=f32, device=x.device)
+    dcm = torch.empty_like(dbm)
+    da_rows = torch.zeros_like(h)
+    dd_rows = torch.zeros((bsz, di), dtype=f32, device=x.device)
+    for t in reversed(range(s)):
+        x_t, dt_t, dy_t = x[:, t].to(f32), dt[:, t].to(f32), dy[:, t].to(f32)
+        b_t, c_t = Bm[:, t].to(f32), Cm[:, t].to(f32)
+        g = g + dy_t[..., None] * c_t[:, None, :]               # g_t
+        a_t = torch.exp(dt_t[..., None] * a)
+        du = (g * b_t[:, None, :]).sum(-1)
+        dx[:, t] = dt_t * du + d * dy_t
+        sens = a_t * states[t] * g                              # a_t h_{t-1} g_t
+        ddt[:, t] = x_t * du + (a * sens).sum(-1)
+        da_rows += dt_t[..., None] * sens
+        dbm[:, t] = ((dt_t * x_t)[..., None] * g).sum(1)
+        dcm[:, t] = (dy_t[..., None] * states[t + 1]).sum(1)
+        dd_rows += dy_t * x_t
+        g = a_t * g                                             # a_t g_t
+    if A.dim() == 2:
+        da, dd = da_rows.sum(0), dd_rows.sum(0)
+    else:
+        da = da_rows.reshape(groups, bsz // groups, di, -1).sum(1)
+        dd = dd_rows.reshape(groups, bsz // groups, di).sum(1)
+    return (dx.to(x.dtype), ddt, da, dbm, dcm, dd, g if init_state is not None else None)
 
 
 def selective_scan_step(

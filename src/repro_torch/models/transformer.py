@@ -26,13 +26,13 @@ is JAX's: 1.25 in ``block_forward`` and prefill, 2.0 in ``block_decode``.
 
 Training (``loss_fn``: CE over the final residual stream, ``cross_entropy``,
 plus ``moe_loss`` of the summed aux terms where ``cfg.moe`` is set) runs
-the dense, MoE, MLA and frontend-token families: attention (MLA's with V
-zero-padded to the qk width) through ``ops.flash_attention``, whose
-backward is a hand-written kernel on the card; the F frontend positions
-take the label -1 and predict nothing.  ``loss_fn`` refuses, with
-``NotImplementedError`` naming ROADMAP.md queue 1 item 15, the families
-whose training is not ported yet (``_training_gaps``): mamba and xLSTM
-layers.
+the dense, MoE, MLA, frontend-token and hybrid Mamba families: attention
+(MLA's with V zero-padded to the qk width) through ``ops.flash_attention``
+and the mamba layers' scan through ``ops.selective_scan``, whose backwards
+are hand-written kernels on the card; the F frontend positions take the
+label -1 and predict nothing.  ``loss_fn`` refuses, with
+``NotImplementedError`` naming ROADMAP.md queue 1 item 15, the family whose
+training is not ported yet (``_training_gaps``): xLSTM layers.
 """
 from __future__ import annotations
 
@@ -263,11 +263,9 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, window=None):
 # ---------------- losses ----------------
 def _training_gaps(cfg: ArchConfig) -> list[str]:
     """What the port lacks to train ``cfg``, one line a family; empty for
-    the dense, MoE, MLA and frontend-token families."""
+    the dense, MoE, MLA, frontend-token and hybrid Mamba families."""
     kinds = {spec.kind for spec in cfg.layer_plan()}
     gaps = []
-    if "mamba" in kinds:
-        gaps.append("mamba: a selective_scan backward kernel")
     if kinds & {"mlstm", "slstm"}:
         gaps.append("xLSTM: the mLSTM's and the sLSTM recurrence's backward")
     return gaps
@@ -312,8 +310,9 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, ce_chunk: int = 0):
     gaps = _training_gaps(cfg)
     if gaps:
         raise NotImplementedError(
-            f"{cfg.name}: transformer training (loss_fn) is ported for the dense, MoE, MLA "
-            f"and frontend-token families; missing here: {'; '.join(gaps)} ({_ITEM})")
+            f"{cfg.name}: transformer training (loss_fn) is ported for the dense, MoE, MLA, "
+            f"frontend-token and hybrid Mamba families; missing here: {'; '.join(gaps)} "
+            f"({_ITEM})")
     x = _embed_inputs(cfg, params, batch)
     x, aux = _run_stack(cfg, params, x)
     x = apply_norm(cfg, params["final_norm"], x)

@@ -31,7 +31,10 @@ product and sum of its state update as the plain version's PyTorch ops do
 and calls the same ``expf``; only the output's sum over N runs in another
 order: ``rtol=atol=1e-5`` for fp32 y and the state, and one bf16 ulp
 (``rtol=atol=2**-7``) for bf16 y, whose fp32 sums may straddle a rounding
-edge.
+edge.  Its backward recomputes those states bitwise from the forward's
+checkpoints: it is bitwise ``tests/torch_kernel_models.py``'s
+``scan_bwd_kernel_order``, and within relative L2 1e-5 of the plain
+backward, whose sums run in other orders (a bf16 dx 2**-8).
 """
 import numpy as np
 import pytest
@@ -809,17 +812,152 @@ def test_cuda_flash_pair_at_mlas_padded_width_under_vmap_grad(cuda, dtype, monke
 
 @pytest.mark.cuda
 def test_cuda_serving_kernels_refuse_a_gradient(cuda):
-    """decode_attention and selective_scan have no backward kernel: on the
-    card, an input that needs a gradient raises naming item 15."""
+    """decode_attention has no backward kernel: on the card, an input that
+    needs a gradient, or a ``torch.func`` transform's, raises naming item
+    15."""
     q, kc, vc = _attn_inputs(cuda, 3, [(2, 4, 32), (2, 16, 2, 32), (2, 16, 2, 32)],
                              torch.float32)
     valid = torch.ones(2, 16, dtype=torch.bool, device=cuda)
     with pytest.raises(NotImplementedError, match="decode_attention.*item 15"):
-        ops.decode_attention(q.requires_grad_(), kc, vc, kv_valid=valid)
-    args, _ = _scan_inputs(cuda, 1, 2, 64, 128, 16, torch.float32, False)
-    x = args[0].detach().clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="selective_scan.*item 15"):
-        ops.selective_scan(x, *args[1:])
+        ops.decode_attention(q.detach().clone().requires_grad_(), kc, vc, kv_valid=valid)
+    with pytest.raises(NotImplementedError, match="decode_attention.*item 15"):
+        torch.func.grad(lambda qq: ops.decode_attention(qq, kc, vc, kv_valid=valid).sum())(
+            q.detach())
+
+
+def _scan_bwd_inputs(cuda, seed, b, s, di, n, dtype, groups, init, dh, long_memory=False):
+    """``_scan_inputs`` with A (G, Di, N) and D (G, Di), each group its own,
+    dy ~ N in x's dtype and an optional final-state cotangent."""
+    (x, dt, a, bm, cm, d), h0 = _scan_inputs(cuda, seed, b, s, di, n, dtype, init, long_memory)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    a = torch.stack([a * (1 + 0.05 * k) for k in range(groups)])
+    d = torch.stack([d * (1 - 0.1 * k) for k in range(groups)])
+    dy = torch.randn((b, s, di), generator=gen, device=cuda).to(dtype)
+    dhf = torch.randn((b, di, n), generator=gen, device=cuda) if dh else None
+    return x, dt, a, bm, cm, d, dy, h0, dhf
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n,dtype,groups,init,dh,long_memory", [
+    (2, 37, 300, 16, torch.float32, 1, True, True, False),     # ragged S and Di
+    (4, 20, 130, 5, torch.bfloat16, 2, False, True, False),    # N below its bucket, G = 2
+    (4, 17, 70, 32, torch.float32, 4, True, True, False),      # 2 threads a channel, G = 4
+    (2, 33, 300, 64, torch.float32, 1, True, False, False),    # 4 threads a channel
+    (2, 1, 300, 8, torch.float32, 1, True, True, False),       # S = 1
+    (2, 1024, 128, 16, torch.bfloat16, 2, False, True, True),  # long memory: the model's dt, A
+])
+def test_cuda_selective_scan_backward(cuda, b, s, di, n, dtype, groups, init, dh, long_memory):
+    """The training forward and the backward kernel: one launch each; the
+    checkpoints and every gradient bitwise ``tests/torch_kernel_models.py``'s
+    ``scan_bwd_kernel_order`` (on the card torch's exp is the kernel's
+    expf, and the model rounds where the kernel rounds); within relative L2
+    1e-5 of ``ref.selective_scan_bwd`` (sums in other orders over bitwise
+    equal states; a bf16 dx 2**-8, one rounding); the forward's y and state
+    bitwise the serving forward's; two calls bitwise equal."""
+    from repro_torch.kernels import selective_scan as sk
+    from torch_kernel_models import scan_bwd_kernel_order
+
+    x, dt, a, bm, cm, d, dy, h0, dhf = _scan_bwd_inputs(cuda, s + di + n, b, s, di, n, dtype,
+                                                        groups, init, dh, long_memory)
+    kw = dict(init_state=h0, groups=groups)
+    ops.reset_launch_counts()
+    y, h, ck = sk.selective_scan_fwd(x, dt, a, bm, cm, d, **kw)
+    grads = sk.selective_scan_bwd(x, dt, a, bm, cm, d, ck, dy, dh_final=dhf, **kw)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "selective_scan": 1, "selective_scan_bwd": 1}
+    again = sk.selective_scan_bwd(x, dt, a, bm, cm, d, ck, dy, dh_final=dhf, **kw)
+    ys, hs = sk.selective_scan(x, dt, a, bm, cm, d, **kw)
+    model, model_ck, same_states = scan_bwd_kernel_order(x, dt, a, bm, cm, d, dy, dh_final=dhf,
+                                                         **kw)
+    plain = ref.selective_scan_bwd(x, dt, a, bm, cm, d, dy, dh_final=dhf, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ys) and torch.equal(h, hs)
+    assert same_states and torch.equal(ck, model_ck)
+    assert (grads[6] is None) == (not init)
+    for g, g2, m, p in zip(grads, again, model, plain, strict=True):
+        if g is None:
+            continue
+        assert torch.equal(g, g2) and torch.equal(g, m)
+        assert _rel_l2(g, p) <= (2 ** -8 if g.dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared A, D", "per-client A, D"])
+def test_cuda_scan_pair_folds_a_vmapped_cohort_into_one_launch(cuda, shared, monkeypatch):
+    """``vmap(grad)`` over 3 clients through ``ops.selective_scan`` on the
+    card: one forward and one backward launch for the cohort (the clients
+    folded into B and the groups), never ``ref``; every gradient within
+    relative L2 1e-5 of the CPU route's on the same inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    c, b, s, di, n = 3, 2, 40, 200, 16
+    xs = torch.randn(c, b, s, di, generator=gen, device=cuda) * 0.5
+    dts = torch.nn.functional.softplus(torch.randn(c, b, s, di, generator=gen, device=cuda))
+    a = -torch.exp(0.3 * torch.randn(di, n, generator=gen, device=cuda))
+    d = torch.randn(di, generator=gen, device=cuda)
+    bm, cm = (torch.randn(c, b, s, n, generator=gen, device=cuda) for _ in range(2))
+    w = torch.randn(c, b, s, di, generator=gen, device=cuda)
+    if not shared:
+        a, d = torch.stack([a, 1.01 * a, 0.99 * a]), torch.stack([d, 1.1 * d, 0.9 * d])
+
+    def loss(a, d, x, dt, bm, cm, w):
+        y, h = ops.selective_scan(x, dt, a, bm, cm, d)
+        return (y * w).sum() + h.sum()
+
+    dim = None if shared else 0
+    step = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2, 3, 4, 5)),
+                           in_dims=(dim, dim, 0, 0, 0, 0, 0))
+    want = step(*(t.cpu() for t in (a, d, xs, dts, bm, cm, w)))
+
+    def trap(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("selective_scan", "selective_scan_bwd"):
+        monkeypatch.setattr(ref, name, trap)
+    ops.reset_launch_counts()
+    got = step(a, d, xs, dts, bm, cm, w)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "selective_scan": 1, "selective_scan_bwd": 1}
+    torch.cuda.synchronize()
+    for g, h in zip(got, want, strict=True):
+        assert g.shape == h.shape and _rel_l2(g.cpu(), h) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_training_matches_the_cpu(cuda):
+    """jamba-1.5-large-398b.reduced() without its experts (a routing that
+    flips between the card and the CPU would move whole tokens' gradients)
+    in fp32, plan [mamba, attn], from one set of params: loss_fn's value
+    and every leaf's gradient on the card within 1e-4 of the CPU route's
+    (relative to each leaf's max-abs), one scan and one flash forward and
+    backward launch."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(), dtype="float32",
+                              moe=None)
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu.init(0)
+    rng = np.random.default_rng(0)
+    batch = {k: _t(rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    want, (want_loss, _) = torch.func.grad_and_value(cpu.loss_fn, has_aux=True)(params, batch)
+    ops.reset_launch_counts()
+    got, (got_loss, _) = torch.func.grad_and_value(card.loss_fn, has_aux=True)(
+        tree_map(lambda t: t.to(cuda), params), {k: t.to(cuda) for k, t in batch.items()})
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "selective_scan": 1, "selective_scan_bwd": 1, "flash_attention": 1,
+        "flash_attention_bwd": 1}
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_loss.cpu(), want_loss, rtol=1e-5, atol=0)
+    for g, w_ in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        assert _max_rel(g.cpu(), w_) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -216,9 +216,9 @@ def test_flash_without_autograd_saves_nothing_and_double_backward_raises(counted
 
 
 def test_serving_kernels_refuse_autograd_on_the_card():
-    """decode_attention and selective_scan have no backward: on the card,
-    ``ops._refuse_autograd`` raises for an input that needs a gradient or a
-    functorch wrapper, naming item 15 (the check itself runs on the CPU)."""
+    """decode_attention has no backward: on the card, ``ops._refuse_autograd``
+    raises for an input that needs a gradient or a functorch wrapper,
+    naming item 15 (the check itself runs on the CPU)."""
     x = torch.ones(2, 3)
     ops._refuse_autograd("decode_attention", x, x)  # plain tensors pass
     with torch.no_grad():
@@ -227,12 +227,12 @@ def test_serving_kernels_refuse_autograd_on_the_card():
         ops._refuse_autograd("decode_attention", x, x.clone().requires_grad_())
 
     def under_vmap(row):
-        ops._refuse_autograd("selective_scan", row)
+        ops._refuse_autograd("decode_attention", row)
         return row
 
-    with pytest.raises(NotImplementedError, match=f"selective_scan has no backward.*{ITEM}"):
+    with pytest.raises(NotImplementedError, match=f"decode_attention has no backward.*{ITEM}"):
         torch.func.vmap(under_vmap)(x)
-    with pytest.raises(NotImplementedError, match="selective_scan"):
+    with pytest.raises(NotImplementedError, match="decode_attention"):
         torch.func.grad(lambda r: under_vmap(r).sum())(x)
 
 
@@ -450,8 +450,9 @@ def test_llm_finetune_twin_lora_wire_beats_int8_10x():
 
 # each family whose training is not ported, and the gap its refusal names
 # (the MoE family trains: tests/test_torch_moe_train.py; MLA and the frontend
-# tokens: tests/test_torch_mla_train.py)
-UNPORTED = [("jamba-1.5-large-398b", "mamba"), ("xlstm-1.3b", "xLSTM")]
+# tokens: tests/test_torch_mla_train.py; the hybrid Mamba stack:
+# tests/test_torch_mamba_train.py)
+UNPORTED = [("xlstm-1.3b", "xLSTM")]
 
 
 @pytest.mark.parametrize("arch,gap", UNPORTED, ids=[a for a, _ in UNPORTED])

@@ -30,3 +30,21 @@ def test_the_whole_kernel_keeps_the_plain_roundings():
     that contract."""
     assert scan_ablation._EXP in SOURCE and scan_ablation._UPDATE in SOURCE
     assert "__expf(" not in SOURCE and "ex2.approx" not in SOURCE
+
+
+def test_the_bare_launch_takes_the_forwards_c_signature():
+    """The variants are called through ctypes with ``SIGNATURES``' argtypes:
+    the script's arguments are as many as the entry point takes, the
+    checkpoint pointer NULL (the serving forward) and one group."""
+    import torch
+
+    from repro_torch.kernels import _cuda
+
+    b, s, di, n = 2, 3, 8, 16
+    x, y = torch.zeros(b, s, di, dtype=torch.bfloat16), torch.zeros(b, s, di,
+                                                                    dtype=torch.bfloat16)
+    dt, a, d = torch.zeros(b, s, di), torch.zeros(di, n), torch.zeros(di)
+    bm, cm, h = torch.zeros(b, s, n), torch.zeros(b, s, n), torch.zeros(b, di, n)
+    args = scan_ablation.bare_args(x, dt, a, bm, cm, d, y, h, 0)
+    assert len(args) == len(_cuda.SIGNATURES["selective_scan"]["repro_selective_scan_bf16"])
+    assert args[6] is None and args[9] is None and args[10:16] == (b, s, di, n, di, 1)

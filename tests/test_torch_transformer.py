@@ -486,11 +486,10 @@ def test_mamba_layers_need_an_ssm_config():
 
 
 # (arch, config change): one config of each family whose training waits;
-# the dense, MoE, MLA and frontend-token families train
+# the dense, MoE, MLA, frontend-token and hybrid Mamba families train
 # (tests/test_torch_lm_train.py, tests/test_torch_moe_train.py,
-# tests/test_torch_mla_train.py)
+# tests/test_torch_mla_train.py, tests/test_torch_mamba_train.py)
 UNTRAINED = {
-    "mamba": ("jamba-1.5-large-398b", {"moe": None}),
     "xLSTM": ("xlstm-1.3b", {}),
 }
 
