@@ -7267,8 +7267,9 @@ def scan_bwd_bound(b: int, s: int, di: int, n: int, moved: int) -> dict:
     operations (6 a state element a step to recompute the state, 12 for
     the reverse terms: g, du, a_t h g, ddt's and dA's sums, dB's product,
     the carry; and dC's product and the two channel sums, 3) at 67
-    TFLOP/s; and one exponential a state element a step (a_t, if the
-    recompute's were kept) at 16 a clock per SM; the largest binds."""
+    TFLOP/s; and one exponential a state element a step (a_t, which the
+    kernel keeps from the recompute) at 16 a clock per SM; the largest
+    binds."""
     clock = max_sm_clock_hz()
     steps = b * s * di * n
     flops = 21 * steps + 6 * b * s * di
@@ -7298,8 +7299,14 @@ def scan_bwd_inputs(gen, b, s, di, n, dtype, groups, init, dh, long_memory, shar
 
 def scan_bwd_build_checks() -> dict:
     """ptxas' registers and spills for the eight selective_scan_bwd kernels
-    and the sum kernel: no spill in any."""
+    and the sum kernel: no spill in any, at most 128 registers a backward
+    thread; and the blocks an SM the runtime grants each backward
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its 512 threads
+    and shared memory): one, 16 warps, in each."""
+    import ctypes
     import re
+
+    from repro_torch.kernels import _cuda
 
     def name_of(line):
         entry = re.search(r"Compiling entry function '\S*?selective_scan_bwd_kernelI"
@@ -7309,8 +7316,20 @@ def scan_bwd_build_checks() -> dict:
         return "selective_scan_bwd_sum_kernel" if "selective_scan_bwd_sum_kernel" in line else None
 
     ptxas = ptxas_report("selective_scan", name_of)
-    check("ptxas reports the 8 selective_scan_bwd kernels and the sum kernel, no spill in any",
-          len(ptxas) == 9 and no_spill(ptxas), kernels=ptxas)
+    query = _cuda.library("selective_scan").repro_selective_scan_bwd_blocks_per_sm
+    for name, info in ptxas.items():
+        entry = re.fullmatch(r"selective_scan_bwd_kernel<(\w+), (\d+)>", name)
+        if entry:
+            out = ctypes.c_int64(0)
+            info["query_rc"] = query(int(entry[2]), int(entry[1] == "bf16"), ctypes.byref(out))
+            info["blocks_per_sm"] = out.value
+            info["warps_per_sm"] = out.value * 512 // 32
+    bwd = {k: v for k, v in ptxas.items() if "blocks_per_sm" in v}
+    check("ptxas reports the 8 selective_scan_bwd kernels and the sum kernel, no spill in any, "
+          "at most 128 registers a backward thread, each backward one 512-thread block (16 warps) "
+          "an SM", len(ptxas) == 9 and len(bwd) == 8 and no_spill(ptxas)
+          and all(v.get("registers", 999) <= 128 and v["query_rc"] == 0
+                  and v["blocks_per_sm"] == 1 for v in bwd.values()), kernels=ptxas)
     return ptxas
 
 
@@ -7440,7 +7459,8 @@ def scan_backward_checks(dev) -> dict:
             **scan_bwd_bound(b, sl, di, n, moved),
         )
         print(f"selective_scan_bwd [{label}] {row['shape']}: backward {row['ms'] * 1e3:.2f} us "
-              f"(bare {row['launch_ms'] * 1e3:.2f}), bound {row['bound_ms'] * 1e3:.2f} us "
+              f"(bare {row['launch_ms'] * 1e3:.2f}; {row['ms'] / row['bound_ms']:.2f}x the bound), "
+              f"bound {row['bound_ms'] * 1e3:.2f} us "
               f"({row['bound_by']}: {json.dumps({k: round(v, 2) for k, v in row['bound_terms_us'].items()})} "
               f"us, {moved / 1e6:.2f} MB), plain {row['plain_ms'] * 1e3:.2f} us (one call); the forward "
               f"with checkpoints {row['fwd_ckpt_ms'] * 1e3:.2f} us (bare "

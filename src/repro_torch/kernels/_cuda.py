@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 
 _P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # library -> {C entry point: argtypes}; every entry point returns the
-# cudaError_t of its launch as an int
+# cudaError_t of its launch (or query) as an int
 SIGNATURES = {
     "fedavg_reduce": {
         "repro_fedavg_reduce_f32": (_P, _P, _P, _I64, _I64, _I64, _P),
@@ -72,6 +72,7 @@ SIGNATURES = {
         "repro_selective_scan_bf16": (*(_P,) * 10, *(_I64,) * 6, _P),
         "repro_selective_scan_bwd_f32": (*(_P,) * 19, *(_I64,) * 7, _P),
         "repro_selective_scan_bwd_bf16": (*(_P,) * 19, *(_I64,) * 7, _P),
+        "repro_selective_scan_bwd_blocks_per_sm": (_I64, _I64, ctypes.POINTER(_I64)),
     },
 }
 

@@ -293,96 +293,115 @@ int launch(const T* x, const float* dt, const float* a, const float* bm, const f
 // differentiates its oracle (src/repro/kernels/ref.py:169), a chunked
 // associative scan under jax.checkpoint.
 //
-// Design.  One thread per (b, d) channel and state slice, as the forward:
-// - The states are recomputed, never stored by the forward.  The thread
-//   walks the kSeg-step segments from last to first; for each it reloads
-//   the segment's checkpoint, recomputes its kSeg states with the
-//   forward's exact roundings (__fmul_rn / __fadd_rn, the accurate expf),
-//   so h_{t-1} is the forward's bit for bit, keeps them in shared memory,
-//   and walks them back in time carrying g in registers.  The segment's
-//   x, dt, dy, B and C are staged in shared memory once for both walks.
-// - Shared memory is what limits the block: kSeg * 16 states a thread.
-//   A thread keeps at most 16 of a channel's states (kPer), so N_MAX = 32
-//   and 64 take 2 and 4 threads a channel (kSub), which add their du and
-//   ddt terms by shuffles; a block holds kThreads threads, 128 / kSub
-//   channels, ~83-90 KB: 2 blocks an SM (4 at N_MAX = 8).
-// - dB and dC are sums over the channels, done without atomics in a fixed
-//   order, so two calls are bitwise equal: within a warp a reduce-scatter
-//   (each exchange halves the values a lane keeps: about kPer shuffles for
-//   kPer values, not kPer * 5), the 4 warps' sums added in order through
-//   shared memory, one partial a block and step written to a
-//   (blocks, B, S, 2, N_MAX) buffer, and a second kernel
-//   (selective_scan_bwd_sum_kernel) that adds the blocks' partials in
-//   block order.  dA and dD are summed over t in registers, written per
-//   row, and the second kernel adds each group's rows in row order.
+// Design.  A block of 512 threads (16 warps) takes a slice of channels of
+// one batch row; a thread keeps 4 of a channel's states (kPer), so a
+// channel is kSub = N_MAX / 4 neighbouring lanes and a block holds 512 /
+// kSub channels (128 at N_MAX = 16).
+// - The states are recomputed, never stored by the forward.  The block
+//   walks the kSeg-step segments from last to first; for each, a thread
+//   recomputes its states from the segment's checkpoint with the forward's
+//   exact roundings (__fmul_rn / __fadd_rn, the accurate expf), so every
+//   state is the forward's bit for bit, then walks the segment back in
+//   time carrying g.  Both walks are unrolled over the segment, so what
+//   the recompute keeps for the reverse walk stays in registers: a_t and
+//   the rounded product a_t h_{t-1} of each step and state (2 * 8 * 4
+//   registers).  The reverse walk's a_t h_{t-1} g_t is that kept product
+//   times g_t, the same bits as forming it again, and it needs neither
+//   h_{t-1} nor a second exponential: one expf a state-step.
+// - A segment's x, dt, dy, B and C are staged in shared memory by 16-byte
+//   cp.async, coalesced, into one of two slots, segment k - 1's copies in
+//   flight while segment k is walked; its checkpoint is loaded into
+//   registers from the reverse walk's first step on.  Columns past Di and
+//   the ragged last segment's steps past S read zeros (the slots are
+//   zeroed once; a 16-byte piece across Di is copied element by element):
+//   such a step leaves g, the state and every sum as they are (a_t = 1,
+//   every product 0), so the walks run all kSeg steps with no bounds, and
+//   nothing past Di adds to dB or dC.
+// - Sums in a fixed order, without atomics, so two calls are bitwise
+//   equal.  A thread's du and ddt terms are summed over its states in
+//   order and stored to shared memory each step; after the walks a thread
+//   a channel adds the channel's kSub threads' terms in order and stores
+//   the step's dx and ddt, a row of neighbouring channels a warp.  dB and
+//   dC are sums over the block's channels: each step a thread stores its
+//   4 products u_t g_t (and dy_t h_t) in one 16-byte store; after the
+//   walks a thread adds one 4-state piece of a step over a range of 16
+//   channels in channel order, and in the next segment's first phase the
+//   ranges are added in range order, one partial a block and step written
+//   to a (blocks, B, S, 2, N_MAX) buffer; a second kernel
+//   (selective_scan_bwd_sum_kernel) adds the blocks' partials in block
+//   order.  dA and dD are summed over t in registers, written per row,
+//   and the second kernel adds each group's rows in row order.  Two
+//   barriers a segment.
+// - ptxas holds a thread to 128 registers (__launch_bounds__(512, 1)): one
+//   block, 16 warps, an SM.  The kept values take half of them.
 //
-// Bound: the exponentials, two a state element a step (the recompute's
-// and the reverse walk's a_t), 2 * B*S*Di*N MUFU ex2 at 16 a clock per SM;
-// what binds first is dispatching ~40 instructions a state element a step
-// (the forward's ~15, the reverse walk's products and the two reductions'
-// shuffles).
+// Bound: one exponential a state element a step, B*S*Di*N MUFU ex2 at 16 a
+// clock per SM, and the fp32 operations (21 a state-step) at 67 TFLOP/s.
+// What binds first is issuing the instructions, ~40 a state-step: ~20 of
+// arithmetic (the recompute's 13 with expf's 8, the reverse walk's 7), the
+// rest loads, stores, sums and addresses; and the shared-memory traffic of
+// the dB / dC sums (their products written and read back, 128 KB a block
+// and segment at N_MAX = 16), about a fifth of the kernel's time
+// (scan_ablation.py).
+
+constexpr int kBwdThreads = 512;             // a backward block's threads
+constexpr int kPer = 4;                      // states a thread
+constexpr int kRange = 16;                   // channels a thread of the dB / dC sums adds
 
 template <int NMAX>
 struct BwdShape {
-  static constexpr int kSub = NMAX > 16 ? NMAX / 16 : 1;  // threads a channel
-  static constexpr int kPer = NMAX / kSub;                // states a thread (8 or 16)
-  static constexpr int kChan = kThreads / kSub;           // channels a block
+  static constexpr int kSub = NMAX / kPer;           // threads a channel: 2, 4, 8, 16
+  static constexpr int kChan = kBwdThreads / kSub;   // channels a block: 256, 128, 64, 32
+  static constexpr int kQuads = kSeg * 2 * NMAX / 4; // 4-state pieces of a segment's dB and dC
+  static constexpr int kRanges = kChan / kRange;     // channel ranges a piece is summed in
+  static_assert(kQuads * kRanges == kBwdThreads, "a thread a piece and range");
 };
 
-constexpr int kWarps = kThreads / 32;
-constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
+// One segment's inputs (x and dy in x's dtype), a block's channels.
+template <typename T, int NMAX>
+struct BwdStage {
+  static constexpr int kChan = BwdShape<NMAX>::kChan;
+  alignas(16) T x[kSeg][kChan];
+  alignas(16) float dt[kSeg][kChan];
+  alignas(16) T dy[kSeg][kChan];
+  alignas(16) float b[kSeg][NMAX];
+  alignas(16) float c[kSeg][NMAX];
+};
 
-template <int NMAX>
+template <typename T, int NMAX>
 struct BwdSmem {
   using P = BwdShape<NMAX>;
-  float h[kSeg][P::kPer][kThreads];  // h_{t-1} of each step, a thread's own column
-  float x[kSeg][P::kChan];
-  float dt[kSeg][P::kChan];
-  float dy[kSeg][P::kChan];
-  float b[kSeg][NMAX];
-  float c[kSeg][NMAX];
-  float part[kSeg][2][kWarps][NMAX];  // each warp's sums of dB (0) and dC (1)
+  BwdStage<T, NMAX> in[2];  // segment k, and k - 1 in flight
+  // each thread's products u_t g_t (row 2 tt) and dy_t h_t (row 2 tt + 1),
+  // (channel, state) in a row; NMAX more floats a row keep the sums' reads
+  // of neighbouring rows on other banks
+  alignas(16) float prod[2 * kSeg][P::kChan * NMAX + NMAX];
+  alignas(16) float range_sum[2][P::kRanges][2 * kSeg * NMAX];  // each range's sums, by slot
+  // each thread's du and ddt terms of a step, [sub][channel]: a channel's
+  // kSub terms are a column, read by one thread.  Row q's channels are
+  // swizzled (c ^ (q % (kSub / 2)) * (32 / kSub)) so that a warp's stores
+  // of its kSub rows fill both halves of the banks
+  alignas(16) float2 terms[kSeg][P::kSub][P::kChan];
 };
 
-// Sums v (M of a lane's values) over the lanes that differ in bits OFF,
-// OFF / 2, ..., LO of the lane index, in a fixed order.  While a lane holds
-// more than one value, an exchange halves them: the lane keeps the lower
-// or upper half (by its bit OFF) and adds its partner's copy of that half.
-// Returns the index, in v's first M, of the lane's first kept value.
-template <int N, int M, int OFF, int LO>
-__device__ __forceinline__ int reduce_scatter(float (&v)[N], int lane) {
-  if constexpr (OFF < LO) {
-    return 0;
-  } else if constexpr (M > 1) {
-    constexpr int H = M / 2;
-    const bool up = (lane & OFF) != 0;
+// A 16-byte piece of E elements into shared memory: by cp.async when it
+// lies before column Di (``left`` elements of the row remain), element by
+// element with zeros past Di when it straddles it, not at all past it.
+template <int E, typename T>
+__device__ __forceinline__ void copy_piece(T* dst, const T* src, int64_t left) {
+  if (left >= E) {
+    cp_async16(dst, src);
+  } else if (left > 0) {
 #pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float send = up ? v[i] : v[i + H];
-      const float keep = up ? v[i + H] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    for (int e = 0; e < E; ++e) {
+      if (e < left) dst[e] = src[e];
+      else store(dst + e, 0.0f);
     }
-    return (up ? H : 0) + reduce_scatter<N, H, OFF / 2, LO>(v, lane);
-  } else {
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], OFF);
-    return reduce_scatter<N, 1, OFF / 2, LO>(v, lane);
   }
 }
 
-// After reduce_scatter over a warp's channel lanes (bits kSub .. 16): the
-// values a lane keeps, and the lane bits under which lanes hold the same.
-template <int NMAX>
-struct Scatter {
-  using P = BwdShape<NMAX>;
-  static constexpr int kOffsets = ilog2(32 / P::kSub);
-  static constexpr int kHalvings = ilog2(P::kPer) < kOffsets ? ilog2(P::kPer) : kOffsets;
-  static constexpr int kLeft = P::kPer >> kHalvings;
-  static constexpr int kSame = P::kSub * ((1 << (kOffsets - kHalvings)) - 1);
-};
-
-// 2 blocks an SM by their shared memory (4 at N_MAX = 8): registers to match
 template <typename T, int NMAX>
-__global__ void __launch_bounds__(kThreads, NMAX <= 8 ? 4 : 2)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 selective_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                           const float* __restrict__ a, const float* __restrict__ bm,
                           const float* __restrict__ cm, const float* __restrict__ dskip,
@@ -393,11 +412,10 @@ selective_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                           float* __restrict__ drow, int64_t s, int64_t di, int n, int64_t ld,
                           int64_t rows) {
   using P = BwdShape<NMAX>;
-  using R = Scatter<NMAX>;
-  constexpr int kPer = P::kPer;
+  using Stage = BwdStage<T, NMAX>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdSmem<NMAX>& sm = *reinterpret_cast<BwdSmem<NMAX>*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  BwdSmem<T, NMAX>& sm = *reinterpret_cast<BwdSmem<T, NMAX>*>(smem_raw);
+  const int tid = threadIdx.x;
   const int ch = tid / P::kSub, sub = tid % P::kSub, j0 = sub * kPer;
   const int64_t bsz = gridDim.y, b = blockIdx.y;
   const int64_t d0 = static_cast<int64_t>(blockIdx.x) * P::kChan;
@@ -406,109 +424,194 @@ selective_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int64_t grp = b / rows;
   const int segs = static_cast<int>((s + kSeg - 1) / kSeg);
 
-  float ar[kPer], g[kPer], gda[kPer];
+  // the copies of a segment: rows of x, then of dy, then dt, then B and C
+  constexpr int kXPiece = 16 / sizeof(T);
+  constexpr int kXRow = P::kChan / kXPiece, kDtRow = P::kChan / 4, kBC = kSeg * NMAX / 4;
+  constexpr int kXs = 2 * kSeg * kXRow, kDts = kSeg * kDtRow;
+  auto issue = [&](int k, int slot) {
+    Stage& in = sm.in[slot];
+    const int64_t t0 = static_cast<int64_t>(k) * kSeg, row = (b * s + t0) * ld + d0;
+    const int rows = static_cast<int>(s - t0 < kSeg ? s - t0 : kSeg);
+    const int64_t left = di - d0;  // columns of the block before Di
+#pragma unroll 1  // unrolled, its addresses pushed some N_MAX's walks to spill
+    for (int i = 0; i < (kXs + kDts + 2 * kBC + kBwdThreads - 1) / kBwdThreads; ++i) {
+      const int q = tid + i * kBwdThreads;
+      if (q < kXs) {
+        const int w = q / (kSeg * kXRow), r = q / kXRow % kSeg, c = q % kXRow * kXPiece;
+        if (r < rows)
+          copy_piece<kXPiece>(w ? &in.dy[r][c] : &in.x[r][c], (w ? dy : x) + row + r * ld + c,
+                              left - c);
+      } else if (q < kXs + kDts) {
+        const int r = (q - kXs) / kDtRow, c = (q - kXs) % kDtRow * 4;
+        if (r < rows) copy_piece<4>(&in.dt[r][c], dt + row + r * ld + c, left - c);
+      } else if (q < kXs + kDts + 2 * kBC) {
+        const int e = q - kXs - kDts, w = e / kBC, f = e % kBC * 4;
+        if (f / NMAX < rows)
+          cp_async16((w ? &in.c[0][0] : &in.b[0][0]) + f, (w ? cm : bm) + (b * s + t0) * NMAX + f);
+      }
+    }
+  };
+
+  // the ragged block's columns past Di, and the ragged last segment's steps
+  // past S, read zeros: those steps then leave g, the state and the sums
+  // as they are (a_t = 1, every product 0), so the walks need no bounds
+  if (d0 + P::kChan > di || s % kSeg != 0) {
+    int4* z = reinterpret_cast<int4*>(sm.in);
+    for (int i = tid; i < static_cast<int>(sizeof(sm.in) / 16); i += kBwdThreads)
+      z[i] = make_int4(0, 0, 0, 0);
+    __syncthreads();
+  }
+  issue(segs - 1, 0);
+  cp_async_commit();
+
+  // the checkpoint's states j0 .. j0 + 3 of segment k, read into next
+  bool on[kPer];
+  float ar[kPer], g[kPer], gda[kPer], next[kPer];
+  const float* ck = ckpt + (b * segs * n + j0) * di + d;  // state j0 of segment 0
+  const int64_t seg_stride = n * di;
+  auto load_checkpoint = [&](int k) {
+    const float* p = ck + k * seg_stride;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i, p += di) next[i] = on[i] ? p[0] : 0.0f;
+  };
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    const bool on = live && j0 + i < n;
-    ar[i] = on ? __ldg(a + (grp * di + d) * n + j0 + i) : 0.0f;
-    g[i] = on && dhf != nullptr ? __ldg(dhf + (b * di + d) * n + j0 + i) : 0.0f;
+    on[i] = live && j0 + i < n;
+    ar[i] = on[i] ? __ldg(a + (grp * di + d) * n + j0 + i) : 0.0f;
+    g[i] = on[i] && dhf != nullptr ? __ldg(dhf + (b * di + d) * n + j0 + i) : 0.0f;
     gda[i] = 0.0f;
   }
-  const float dd = live ? __ldg(dskip + grp * di + d) : 0.0f;
+  load_checkpoint(segs - 1);
   float gdd = 0.0f;
-
-  for (int k = segs - 1; k >= 0; --k) {
+  // segment k's dB and dC partials of the block: its ranges' sums (in slot
+  // ``slot`` of range_sum) added in range order, after the barrier that
+  // follows them (in the next segment's first phase)
+  auto combine = [&](int k, int slot) {
     const int64_t t0 = static_cast<int64_t>(k) * kSeg;
     const int len = static_cast<int>(s - t0 < kSeg ? s - t0 : kSeg);
-    __syncthreads();  // the last segment's shared memory is read
-    for (int e = tid; e < kSeg * P::kChan; e += kThreads) {
-      const int tt = e / P::kChan, c = e % P::kChan;
-      const bool on = tt < len && d0 + c < di;
-      const int64_t at = (b * s + t0 + tt) * ld + d0 + c;
-      sm.x[tt][c] = on ? to_f32(x[at]) : 0.0f;
-      sm.dt[tt][c] = on ? dt[at] : 0.0f;
-      sm.dy[tt][c] = on ? to_f32(dy[at]) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < (2 * kSeg * NMAX + kBwdThreads - 1) / kBwdThreads; ++i) {
+      const int e = tid + i * kBwdThreads;
+      if (e >= len * 2 * NMAX) break;
+      float acc = sm.range_sum[slot][0][e];
+#pragma unroll
+      for (int r = 1; r < P::kRanges; ++r) acc = __fadd_rn(acc, sm.range_sum[slot][r][e]);
+      part[((static_cast<int64_t>(blockIdx.x) * bsz + b) * s + t0) * 2 * NMAX + e] = acc;
     }
-    for (int e = tid; e < kSeg * NMAX; e += kThreads) {
-      const int tt = e / NMAX, j = e % NMAX;
-      const int64_t at = (b * s + t0 + tt) * NMAX + j;
-      sm.b[tt][j] = tt < len ? bm[at] : 0.0f;
-      sm.c[tt][j] = tt < len ? cm[at] : 0.0f;
-    }
-    __syncthreads();
+  };
+  // the channel this thread stores dx and ddt of, and its D
+  const int out_c = tid % P::kChan;
+  const bool out_live = d0 + out_c < di;
+  const float out_d = out_live ? __ldg(dskip + grp * di + d0 + out_c) : 0.0f;
+  T* out_dx = dx + b * s * di + d0 + out_c;
+  float* out_ddt = ddt + b * s * di + d0 + out_c;
 
-    // the segment's states from its checkpoint, in the forward's roundings;
-    // dC_t = sum_d dy_t h_t on the way
+  for (int k = segs - 1, slot = 0; k >= 0; --k, slot ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // segment k is in; segment k + 1's slot and partials are read
+    if (k > 0) issue(k - 1, slot ^ 1);
+    cp_async_commit();
+    if (k + 1 < segs) combine(k + 1, slot ^ 1);
+    const Stage& in = sm.in[slot];
+    const int64_t t0 = static_cast<int64_t>(k) * kSeg;
+    const int len = static_cast<int>(s - t0 < kSeg ? s - t0 : kSeg);
     float st[kPer];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
-      st[i] = live && j0 + i < n ? ckpt[((b * segs + k) * n + j0 + i) * di + d] : 0.0f;
-    for (int tt = 0; tt < len; ++tt) {
-      const float xv = sm.x[tt][ch], dtv = sm.dt[tt][ch], dyv = sm.dy[tt][ch];
+    for (int i = 0; i < kPer; ++i) st[i] = next[i];
+
+    // the segment's states from its checkpoint, in the forward's roundings,
+    // keeping a_t and a_t h_{t-1}; dC_t = sum_d dy_t h_t on the way
+    float decay[kSeg][kPer], kept[kSeg][kPer];
+#pragma unroll
+    for (int tt = 0; tt < kSeg; ++tt) {
+      const float xv = to_f32(in.x[tt][ch]), dtv = in.dt[tt][ch], dyv = to_f32(in.dy[tt][ch]);
       const float ux = __fmul_rn(dtv, xv);
-      float pc[kPer];
+      const float4 bv = *reinterpret_cast<const float4*>(&in.b[tt][j0]);
+      const float bq[kPer] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
-        sm.h[tt][i][tid] = st[i];
-        const float decay = expf(__fmul_rn(dtv, ar[i]));
-        st[i] = __fadd_rn(__fmul_rn(decay, st[i]), __fmul_rn(ux, sm.b[tt][j0 + i]));
-        pc[i] = dyv * st[i];
+        decay[tt][i] = expf(__fmul_rn(dtv, ar[i]));
+        kept[tt][i] = __fmul_rn(decay[tt][i], st[i]);
+        st[i] = __fadd_rn(kept[tt][i], __fmul_rn(ux, bq[i]));
       }
-      const int base = reduce_scatter<kPer, kPer, 16, P::kSub>(pc, lane);
-      if ((lane & R::kSame) == 0) {
-#pragma unroll
-        for (int i = 0; i < R::kLeft; ++i) sm.part[tt][1][warp][j0 + base + i] = pc[i];
-      }
+      *reinterpret_cast<float4*>(&sm.prod[2 * tt + 1][ch * NMAX + j0]) = make_float4(
+          __fmul_rn(dyv, st[0]), __fmul_rn(dyv, st[1]), __fmul_rn(dyv, st[2]),
+          __fmul_rn(dyv, st[3]));
     }
 
     // back in time through the segment
-    for (int tt = len - 1; tt >= 0; --tt) {
-      const float xv = sm.x[tt][ch], dtv = sm.dt[tt][ch], dyv = sm.dy[tt][ch];
+#pragma unroll
+    for (int tt = kSeg - 1; tt >= 0; --tt) {
+      const float xv = to_f32(in.x[tt][ch]), dtv = in.dt[tt][ch], dyv = to_f32(in.dy[tt][ch]);
       const float ux = __fmul_rn(dtv, xv);
+      const float4 bv = *reinterpret_cast<const float4*>(&in.b[tt][j0]);
+      const float4 cv = *reinterpret_cast<const float4*>(&in.c[tt][j0]);
+      const float bq[kPer] = {bv.x, bv.y, bv.z, bv.w}, cq[kPer] = {cv.x, cv.y, cv.z, cv.w};
       float du = 0.0f, dsum = 0.0f, pb[kPer];
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
-        g[i] = fmaf(dyv, sm.c[tt][j0 + i], g[i]);                   // g_t
-        du = fmaf(g[i], sm.b[tt][j0 + i], du);
-        const float decay = expf(__fmul_rn(dtv, ar[i]));            // a_t
-        const float sens = decay * sm.h[tt][i][tid] * g[i];         // a_t h_{t-1} g_t
+        g[i] = fmaf(dyv, cq[i], g[i]);                          // g_t
+        du = fmaf(g[i], bq[i], du);
+        const float sens = __fmul_rn(kept[tt][i], g[i]);        // a_t h_{t-1} g_t
         dsum = fmaf(ar[i], sens, dsum);
         gda[i] = fmaf(dtv, sens, gda[i]);
-        pb[i] = ux * g[i];
-        g[i] = decay * g[i];                                        // a_t g_t, for t - 1
+        pb[i] = __fmul_rn(ux, g[i]);
+        g[i] = __fmul_rn(decay[tt][i], g[i]);                   // a_t g_t, for t - 1
       }
-#pragma unroll
-      for (int off = 1; off < P::kSub; off <<= 1) {  // the channel's other states
-        du += __shfl_xor_sync(0xffffffffu, du, off);
-        dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
-      }
-      if (live && sub == 0) {
-        const int64_t at = (b * s + t0 + tt) * di + d;
-        store(dx + at, fmaf(dtv, du, dd * dyv));
-        ddt[at] = fmaf(xv, du, dsum);
-      }
+      sm.terms[tt][sub][ch ^ (sub % (P::kSub / 2) * (32 / P::kSub))] = make_float2(du, dsum);
       gdd = fmaf(dyv, xv, gdd);
-      const int base = reduce_scatter<kPer, kPer, 16, P::kSub>(pb, lane);
-      if ((lane & R::kSame) == 0) {
+      *reinterpret_cast<float4*>(&sm.prod[2 * tt][ch * NMAX + j0]) =
+          make_float4(pb[0], pb[1], pb[2], pb[3]);
+      // segment k - 1's checkpoint, once this step's kept values are free
+      if (tt == kSeg - 1 && k > 0) load_checkpoint(k - 1);
+    }
+
+    // dB_t and dC_t over the block's channels: a thread adds one 4-state
+    // piece over a range of kRange channels in channel order, then the
+    // ranges are added in range order
+    __syncthreads();  // every thread's products of the segment are in
+    {
+      const int piece = tid % P::kQuads, range = tid / P::kQuads;
+      const int row = piece / (NMAX / 4), j = piece % (NMAX / 4) * 4;
+      if (row / 2 < len) {
+        const float* v = &sm.prod[row][range * kRange * NMAX + j];
+        float4 acc = *reinterpret_cast<const float4*>(v);
 #pragma unroll
-        for (int i = 0; i < R::kLeft; ++i) sm.part[tt][0][warp][j0 + base + i] = pb[i];
+        for (int c = 1; c < kRange; ++c) {
+          const float4 u = *reinterpret_cast<const float4*>(v + c * NMAX);
+          acc = make_float4(__fadd_rn(acc.x, u.x), __fadd_rn(acc.y, u.y), __fadd_rn(acc.z, u.z),
+                            __fadd_rn(acc.w, u.w));
+        }
+        *reinterpret_cast<float4*>(&sm.range_sum[slot][range][row * NMAX + j]) = acc;
       }
     }
-    __syncthreads();  // every warp's sums of the segment are in
-    for (int e = tid; e < len * 2 * NMAX; e += kThreads) {
-      const int tt = e / (2 * NMAX), w = e / NMAX % 2, j = e % NMAX;
-      float acc = sm.part[tt][w][0][j];
+    // the segment's dx and ddt: a thread takes one channel (column) and
+    // every kSub-th step, adding the channel's kSub threads' terms in order
 #pragma unroll
-      for (int q = 1; q < kWarps; ++q) acc += sm.part[tt][w][q][j];
-      part[((static_cast<int64_t>(blockIdx.x) * bsz + b) * s + t0 + tt) * 2 * NMAX + e % (2 * NMAX)] =
-          acc;
+    for (int i = 0; i < (kSeg + P::kSub - 1) / P::kSub; ++i) {
+      const int tt = tid / P::kChan + i * P::kSub;
+      if (out_live && tt < len) {
+        float du = 0.0f, dsum = 0.0f;
+#pragma unroll
+        for (int q = 0; q < P::kSub; ++q) {
+          const float2 v = sm.terms[tt][q][out_c ^ (q % (P::kSub / 2) * (32 / P::kSub))];
+          du = q == 0 ? v.x : __fadd_rn(du, v.x);
+          dsum = q == 0 ? v.y : __fadd_rn(dsum, v.y);
+        }
+        const float xv = to_f32(in.x[tt][out_c]), dtv = in.dt[tt][out_c];
+        const int64_t at = (t0 + tt) * di;
+        store(out_dx + at, fmaf(dtv, du, __fmul_rn(out_d, to_f32(in.dy[tt][out_c]))));
+        out_ddt[at] = fmaf(xv, du, dsum);
+      }
     }
   }
+  __syncthreads();  // segment 0's range sums are in
+  combine(0, (segs - 1) & 1);
 
   if (live) {
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      if (j0 + i < n) {
+      if (on[i]) {
         arow[(b * di + d) * n + j0 + i] = gda[i];
         if (dh0 != nullptr) dh0[(b * di + d) * n + j0 + i] = g[i];  // a_0 g_0
       }
@@ -552,6 +655,23 @@ selective_scan_bwd_sum_kernel(const float* __restrict__ part, const float* __res
   }
 }
 
+// The backward kernel's attributes, set once a process: its dynamic shared
+// memory (over the 48 KB default) and all of the SM's shared memory for it.
+template <typename T, int NMAX>
+cudaError_t bwd_prepare() {
+  static bool set = false;
+  if (set) return cudaSuccess;
+  constexpr int smem = static_cast<int>(sizeof(BwdSmem<T, NMAX>));
+  cudaError_t err = cudaFuncSetAttribute(selective_scan_bwd_kernel<T, NMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(selective_scan_bwd_kernel<T, NMAX>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  set = err == cudaSuccess;
+  return err;
+}
+
 template <typename T, int NMAX>
 int launch_bwd_n(const T* x, const float* dt, const float* a, const float* bm, const float* cm,
                  const float* dskip, const T* dy, const float* ckpt, const float* dhf, T* dx,
@@ -562,23 +682,13 @@ int launch_bwd_n(const T* x, const float* dt, const float* a, const float* bm, c
   using P = BwdShape<NMAX>;
   const int64_t blocks = (di + P::kChan - 1) / P::kChan;
   if (part_blocks != blocks) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = static_cast<int>(sizeof(BwdSmem<NMAX>));
-  static bool set = false;
-  if (!set) {
-    cudaError_t err = cudaFuncSetAttribute(selective_scan_bwd_kernel<T, NMAX>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(selective_scan_bwd_kernel<T, NMAX>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    set = true;
-  }
+  cudaError_t err = bwd_prepare<T, NMAX>();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(b));
-  selective_scan_bwd_kernel<T, NMAX><<<grid, kThreads, smem, stream>>>(
+  selective_scan_bwd_kernel<T, NMAX><<<grid, kBwdThreads, sizeof(BwdSmem<T, NMAX>), stream>>>(
       x, dt, a, bm, cm, dskip, dy, ckpt, dhf, dx, ddt, dh0, part, arow, drow, s, di,
       static_cast<int>(n), ld, rows);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t total = b * s * 2 * n + (b / rows) * di * (n + 1);
   const unsigned sum_blocks = static_cast<unsigned>(
@@ -607,6 +717,19 @@ int launch_bwd(const T* x, const float* dt, const float* a, const float* bm, con
   if (n <= 32) return REPRO_SCAN_BWD(32);
   return REPRO_SCAN_BWD(64);
 #undef REPRO_SCAN_BWD
+}
+
+// The blocks an SM the runtime grants one backward instantiation, at its
+// block and shared memory.
+template <typename T, int NMAX>
+int bwd_blocks_per_sm(int64_t* out) {
+  cudaError_t err = bwd_prepare<T, NMAX>();
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, selective_scan_bwd_kernel<T, NMAX>, kBwdThreads, sizeof(BwdSmem<T, NMAX>));
+  *out = per_sm;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -644,7 +767,7 @@ extern "C" int repro_selective_scan_bf16(const __nv_bfloat16* x, const float* dt
 // di) in x's dtype, ddt (b, s, di), dbm, dcm (b, s, n), da (groups, di, n),
 // dd (groups, di) and, unless NULL, dh0 (b, di, n), all fp32 but dx.
 // Scratch: part (part_blocks, b, s, 2, n_max), arow (b, di, n), drow (b,
-// di), with part_blocks = ceil(di / (128 / max(1, n_max / 16))).
+// di), with part_blocks = ceil(di / (512 / (n_max / 4))).
 extern "C" int repro_selective_scan_bwd_f32(
     const float* x, const float* dt, const float* a, const float* bm, const float* cm,
     const float* dskip, const float* dy, const float* ckpt, const float* dhf, float* dx,
@@ -664,4 +787,20 @@ extern "C" int repro_selective_scan_bwd_bf16(
   return launch_bwd<__nv_bfloat16>(x, dt, a, bm, cm, dskip, dy, ckpt, dhf, dx, ddt, dbm, dcm,
                                    da, dd, dh0, part, arow, drow, b, s, di, n, ld, groups,
                                    part_blocks, stream);
+}
+
+// The blocks an SM that the backward kernel for the state bucket n_max (8,
+// 16, 32 or 64) and x's dtype (bf16 unless 0) runs at, into *out.
+extern "C" int repro_selective_scan_bwd_blocks_per_sm(int64_t n_max, int64_t bf16,
+                                                      int64_t* out) {
+#define REPRO_SCAN_BWD_BLOCKS(NM)                                                    \
+  (bf16 ? bwd_blocks_per_sm<__nv_bfloat16, NM>(out) : bwd_blocks_per_sm<float, NM>(out))
+  switch (n_max) {
+    case 8: return REPRO_SCAN_BWD_BLOCKS(8);
+    case 16: return REPRO_SCAN_BWD_BLOCKS(16);
+    case 32: return REPRO_SCAN_BWD_BLOCKS(32);
+    case 64: return REPRO_SCAN_BWD_BLOCKS(64);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_SCAN_BWD_BLOCKS
 }

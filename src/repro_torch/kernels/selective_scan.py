@@ -36,10 +36,11 @@ CHECKPOINT_EVERY = 8  # the kernel's kSeg: steps between the states the forward 
 
 
 def bwd_channels(n: int) -> int:
-    """Channels a backward block takes: 128 threads, 16 of a channel's
-    states a thread (so 2 threads a channel at N <= 32, 4 at N <= 64)."""
+    """Channels a backward block takes: 512 threads, 4 of a channel's
+    states a thread (so N_MAX / 4 threads a channel: 256 channels at N <= 8,
+    128 at N <= 16, 64 at N <= 32, 32 at N <= 64)."""
     n_max = next(m for m in N_BUCKETS if n <= m)
-    return 128 // max(1, n_max // 16)
+    return 512 // (n_max // 4)
 
 
 def _check(x, dt, A, Bm, Cm, D, init_state, groups, extra=()):

@@ -845,10 +845,11 @@ def _rel_l2(a, b):
 @pytest.mark.parametrize("b,s,di,n,dtype,groups,init,dh,long_memory", [
     (2, 37, 300, 16, torch.float32, 1, True, True, False),     # ragged S and Di
     (4, 20, 130, 5, torch.bfloat16, 2, False, True, False),    # N below its bucket, G = 2
-    (4, 17, 70, 32, torch.float32, 4, True, True, False),      # 2 threads a channel, G = 4
-    (2, 33, 300, 64, torch.float32, 1, True, False, False),    # 4 threads a channel
+    (4, 17, 70, 32, torch.float32, 4, True, True, False),      # 8 threads a channel, G = 4
+    (2, 33, 300, 64, torch.float32, 1, True, False, False),    # 16 threads a channel
     (2, 1, 300, 8, torch.float32, 1, True, True, False),       # S = 1
     (2, 1024, 128, 16, torch.bfloat16, 2, False, True, True),  # long memory: the model's dt, A
+    (4, 64, 16384, 16, torch.bfloat16, 2, False, True, False),  # whole blocks at the real width
 ])
 def test_cuda_selective_scan_backward(cuda, b, s, di, n, dtype, groups, init, dh, long_memory):
     """The training forward and the backward kernel: one launch each; the

@@ -78,7 +78,9 @@ from test_torch_lm_train import (  # noqa: F401 (jax_basis is a fixture)
     BUDGETS, STEPS, WEIGHTS, C, _close_up_to_roundings, _codecs, _f32, _flat, jax_basis,
 )
 from test_torch_moe_train import Routes, _check_loss_and_grads, _leaves_close, _models
-from torch_kernel_models import SCAN_SEG, SCAN_THREADS, scan_bwd_kernel_order
+from torch_kernel_models import (
+    SCAN_PER, SCAN_RANGE, SCAN_SEG, SCAN_THREADS, scan_bwd_kernel_order,
+)
 
 ARCH = "jamba-1.5-large-398b"
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -221,14 +223,18 @@ def test_grouped_scan_is_each_groups_scan():
 
 # ---------------- the kernel's model ----------------
 # B, S, Di, N, x dtype, groups, initial state, final-state cotangent: every
-# N bucket (5 -> 8, 16, 32 and 64: 1, 2 and 4 threads a channel), Di past a
-# whole block (130: 128 channels and 2), S ragged and S = 1, G = 1, 2, 4
+# N bucket (5 -> 8, 16, 32 and 64: 2, 4, 8 and 16 threads a channel, 256,
+# 128, 64 and 32 channels a block), Di past a whole block (130 at N_MAX 16:
+# 128 channels and 2; 70 at N_MAX 32; 300 at N_MAX 8: 256 and 44; 45 at
+# N_MAX 64: 32 and 13), S ragged and S = 1, G = 1, 2, 4
 MODEL_CASES = [
     (2, 37, 130, 5, "float32", 1, True, True),
     (4, 20, 12, 16, "bfloat16", 2, False, True),
     (4, 17, 70, 32, "float32", 4, True, False),
     (2, 9, 40, 64, "float32", 2, False, True),
     (2, 1, 12, 16, "float32", 1, True, True),
+    (2, 19, 300, 7, "bfloat16", 2, True, True),
+    (2, 11, 45, 64, "float32", 1, True, True),
 ]
 
 
@@ -239,9 +245,9 @@ def test_scan_backward_kernel_model_matches_the_plain_backward(case):
     checkpoints are the plain forward's states entering every 8th step
     (bitwise: the same steps), its segment recomputes are bitwise the
     forward's states, and its gradients -- fmaf where the kernel calls it,
-    the reduce-scatter's and the blocks' fixed orders -- within relative L2
-    1e-6 of ``ref.selective_scan_bwd``, which sums in torch's orders
-    (observed ~1e-7)."""
+    the channel ranges', the ranges' and the blocks' fixed orders --
+    within relative L2 1e-6 of ``ref.selective_scan_bwd``, which sums in
+    torch's orders (observed ~1e-7)."""
     b, s, di, n, dtype, groups, init, dh = case
     x, dt, a, bm, cm, d, dy, h0, dhf = _torch_scan(
         _scan_inputs(b, s, di, n, dtype, init=init, dh=dh, groups=groups, seed=5), dtype)
@@ -265,13 +271,21 @@ def test_scan_backward_kernel_model_matches_the_plain_backward(case):
 
 def test_kernel_constants_are_the_wrappers_and_the_models():
     """The segment, block and channel counts the wrapper sizes its buffers
-    by, and the model walks by, are the CUDA source's."""
+    by, and the model walks by, are the CUDA source's: the forward's 128
+    threads a block; the backward's 512, 4 states a thread, so N_MAX / 4
+    threads a channel and 512 / (N_MAX / 4) channels a block."""
     source = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
               / "selective_scan.cu").read_text()
     assert "constexpr int kChunk = 8;" in source and "constexpr int kSeg = kChunk;" in source
     assert "constexpr int kThreads = 128;" in source
-    assert CHECKPOINT_EVERY == SCAN_SEG == 8 and SCAN_THREADS == 128
-    assert [bwd_channels(n) for n in (1, 8, 9, 16, 17, 32, 33, 64)] == [128] * 4 + [64] * 2 + [32] * 2
+    assert "constexpr int kBwdThreads = 512;" in source and "constexpr int kPer = 4;" in source
+    assert "static constexpr int kSub = NMAX / kPer;" in source
+    assert "static constexpr int kChan = kBwdThreads / kSub;" in source
+    assert "constexpr int kRange = 16;" in source
+    assert CHECKPOINT_EVERY == SCAN_SEG == 8 and SCAN_RANGE == 16
+    assert SCAN_THREADS == 512 and SCAN_PER == 4
+    assert [bwd_channels(n) for n in (1, 8, 9, 16, 17, 32, 33, 64)] == (
+        [256] * 2 + [128] * 2 + [64] * 2 + [32] * 2)
 
 
 # ---------------- the differentiable pair ----------------

@@ -155,39 +155,25 @@ def scan_kernel_order(x, dt, A, Bm, Cm, D, *, init_state=None):
 
 # ---------------- csrc/selective_scan.cu: the backward ----------------
 SCAN_SEG = 8         # kSeg: steps between the forward's checkpoints
-SCAN_THREADS = 128   # kThreads: a backward block's threads, 4 warps
+SCAN_THREADS = 512   # kBwdThreads: a backward block's threads, 16 warps
+SCAN_PER = 4         # kPer: the states a backward thread keeps
+SCAN_RANGE = 16      # kRange: the channels a thread of the dB / dC sums adds
 
 
-def _scan_lane_sums(v: torch.Tensor, sub: int) -> torch.Tensor:
-    """``reduce_scatter`` then the warps' ordered sum: v (..., blocks,
-    4 warps, 32 lanes, per) -- lane = channel * sub + q, holding states
-    q * per .. q * per + per - 1 -- summed over each warp's channel lanes
-    (lane bits sub .. 16; while a lane holds more than one value each
-    exchange halves them, the lane with its bit set keeping the upper
-    half), then warp 0 + warp 1 + warp 2 + warp 3 -> (..., blocks,
-    per * sub) the block's sums, state-major."""
-    per = v.shape[-1]
-    lane = torch.arange(32, device=v.device)
-    base, m, off = torch.zeros(32, dtype=torch.int64, device=v.device), per, 16
-    while off >= sub:
-        partner = v[..., lane ^ off, :]
-        if m > 1:
-            h = m // 2
-            up = ((lane & off) != 0)[:, None]
-            v = torch.where(up, v[..., h:m] + partner[..., h:m], v[..., :h] + partner[..., :h])
-            base = base + up[:, 0].long() * h
-            m = h
-        else:
-            v = v + partner
-        off //= 2
-    out = torch.zeros((*v.shape[:-2], sub * per), dtype=v.dtype, device=v.device)
-    q = lane % sub
-    for i in range(m):  # lanes that differ only in the bits left unhalved hold the same sums
-        out[..., q * per + base + i] = v[..., :, i]
-    acc = out[..., 0, :]
-    for w in range(1, out.shape[-2]):
-        acc = acc + out[..., w, :]
-    return acc
+def _scan_channel_sums(v: torch.Tensor, chan: int) -> torch.Tensor:
+    """dB's or dC's sums of a step over each block's channels: v (..., Dp,
+    Nm), Dp whole blocks of ``chan`` channels -> (..., blocks, Nm): each
+    range of SCAN_RANGE channels added in channel order, then the ranges
+    in range order."""
+    r = v.reshape(*v.shape[:-2], v.shape[-2] // chan, chan // SCAN_RANGE, SCAN_RANGE,
+                  v.shape[-1])
+    acc = r[..., 0, :]
+    for c in range(1, SCAN_RANGE):
+        acc = acc + r[..., c, :]
+    out = acc[..., 0, :]
+    for q in range(1, acc.shape[-2]):
+        out = out + acc[..., q, :]
+    return out
 
 
 def scan_bwd_kernel_order(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dh_final=None,
@@ -196,14 +182,15 @@ def scan_bwd_kernel_order(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dh_final=
     (on the card torch's exp is the kernel's expf): the forward's
     checkpoints (the state entering every SCAN_SEG-th step, in the plain
     roundings), then the segments from last to first, each recomputing
-    its states from its checkpoint and walking them back.  Channels are
-    padded to whole blocks and states to the bucket N_MAX, as the kernel's
-    dead lanes are; a thread keeps 16 states (2 and 4 threads a channel at
-    N_MAX = 32 and 64).  The roundings are the kernel's: fmaf where it
-    calls fmaf (``fma32``), each thread's sums over its states in order,
-    the threads of a channel added by an xor tree, dB and dC by
-    ``_scan_lane_sums`` then the blocks in order, dA and dD over each
-    group's rows in order.  Returns ((dx, ddt, dA, dB, dC, dD, dh0 or
+    its states from its checkpoint -- keeping each step's a_t and rounded
+    a_t h_{t-1}, so one exp a state-step -- and walking them back.
+    Channels are padded to whole blocks and states to the bucket N_MAX, as
+    the kernel's dead lanes are; a thread keeps SCAN_PER = 4 states, so
+    N_MAX / 4 threads a channel and 512 / (N_MAX / 4) channels a block.
+    The roundings are the kernel's: fmaf where it calls fmaf (``fma32``),
+    each thread's sums over its states in order, the threads of a channel
+    added in order, dB and dC by ``_scan_channel_sums`` then the blocks in
+    order, dA and dD over each group's rows in order.  Returns ((dx, ddt, dA, dB, dC, dD, dh0 or
     None) as ``ref.selective_scan_bwd`` returns them, the checkpoints in
     the kernel's layout (B, ceil(S / 8), N, Di), whether every recomputed
     state equals the forward's bitwise)."""
@@ -211,8 +198,9 @@ def scan_bwd_kernel_order(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dh_final=
     bsz, s, di = x.shape
     n = A.shape[-1]
     n_max = next(m for m in (8, 16, 32, 64) if n <= m)
-    sub = max(1, n_max // 16)
-    per, chan = n_max // sub, SCAN_THREADS // sub
+    per = SCAN_PER
+    sub = n_max // per
+    chan = SCAN_THREADS // sub
     blocks = -(-di // chan)
     dpad = blocks * chan
     segs = -(-s // SCAN_SEG)
@@ -229,8 +217,10 @@ def scan_bwd_kernel_order(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dh_final=
     xs, dts, dys = (pad(t, dpad - di) for t in (x, dt, dy))  # (B, S, Dp)
     bs, cs = (pad(t, n_max - n) for t in (Bm, Cm))           # (B, S, Nm)
 
-    def step(h, t):
-        return torch.exp(dts[:, t, :, None] * a) * h + (dts[:, t] * xs[:, t])[..., None] * bs[:, t, None, :]
+    def step(h, t):  # -> (a_t, a_t h_{t-1}, h_t)
+        decay = torch.exp(dts[:, t, :, None] * a)
+        kept = decay * h
+        return decay, kept, kept + (dts[:, t] * xs[:, t])[..., None] * bs[:, t, None, :]
 
     h = (pad(init_state, dpad - di, n_max - n) if init_state is not None
          else torch.zeros((bsz, dpad, n_max), dtype=f32, device=x.device))
@@ -239,11 +229,7 @@ def scan_bwd_kernel_order(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dh_final=
         if t % SCAN_SEG == 0:
             ckpt.append(h)
         forward.append(h)
-        h = step(h, t)
-
-    def lanes(v):  # (B, Dp, Nm) -> (B, blocks, 4 warps, 32 lanes, per)
-        v = v.reshape(bsz, blocks, chan, sub, per)
-        return v.reshape(bsz, blocks, SCAN_THREADS // 32, 32, per)
+        h = step(h, t)[2]
 
     g = (pad(dh_final, dpad - di, n_max - n) if dh_final is not None
          else torch.zeros((bsz, dpad, n_max), dtype=f32, device=x.device))
@@ -255,18 +241,18 @@ def scan_bwd_kernel_order(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dh_final=
     same = True
     for k in reversed(range(segs)):
         t0 = k * SCAN_SEG
-        st, states = ckpt[k], []
+        st, kept = ckpt[k], []
         for t in range(t0, min(t0 + SCAN_SEG, s)):
-            states.append(st)
             same = same and torch.equal(st, forward[t])
-            st = step(st, t)
-            part[1, :, :, t] = _scan_lane_sums(lanes(dys[:, t, :, None] * st), sub)
+            decay, dh, st = step(st, t)
+            kept.append((decay, dh))
+            part[1, :, :, t] = _scan_channel_sums(dys[:, t, :, None] * st, chan)
         for t in reversed(range(t0, min(t0 + SCAN_SEG, s))):
             xv, dtv, dyv = xs[:, t], dts[:, t], dys[:, t]
             ux = dtv * xv
             g = fma32(dyv[..., None], cs[:, t, None, :], g)              # g_t
-            decay = torch.exp(dtv[..., None] * a)                         # a_t
-            sens = decay * states[t - t0] * g
+            decay, dh = kept[t - t0]                                      # a_t, a_t h_{t-1}
+            sens = dh * g
             du = torch.zeros((bsz, dpad, sub), dtype=f32, device=x.device)
             dsum = torch.zeros_like(du)
             gs, bq, sq, aq = (v.reshape(bsz, dpad, sub, per) for v in
@@ -274,17 +260,15 @@ def scan_bwd_kernel_order(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dh_final=
             for i in range(per):  # each thread's states in order
                 du = fma32(gs[..., i], bq[..., i], du)
                 dsum = fma32(aq[..., i], sq[..., i], dsum)
-            off = 1
-            while off < sub:  # the channel's threads: an xor tree
-                idx = torch.arange(sub, device=x.device) ^ off
-                du, dsum = du + du[..., idx], dsum + dsum[..., idx]
-                off *= 2
-            du, dsum = du[..., 0], dsum[..., 0]
+            terms = du, dsum
+            du, dsum = terms[0][..., 0], terms[1][..., 0]
+            for q in range(1, sub):  # the channel's threads in order
+                du, dsum = du + terms[0][..., q], dsum + terms[1][..., q]
             dx[:, t] = fma32(dtv, du, dd * dyv)
             ddt[:, t] = fma32(xv, du, dsum)
             gda = fma32(dtv[..., None], sens, gda)
             gdd = fma32(dyv, xv, gdd)
-            part[0, :, :, t] = _scan_lane_sums(lanes(ux[..., None] * g), sub)
+            part[0, :, :, t] = _scan_channel_sums(ux[..., None] * g, chan)
             g = decay * g                                                 # a_t g_t
     sums = part[:, :, 0]
     for q in range(1, blocks):  # the blocks' partials in block order
